@@ -3,13 +3,16 @@
 :func:`batch_align` → :func:`_fill` → one fill kernel over B independent
 (query, target) problems (``ops/dp_fill.py``) → with alignments, one
 batched walk over the packed direction words (``ops/device_walk.py``) →
-host decode.  Counterpart of ``aligner_tpu.align.batch_align`` and
-bit-identical to it.
+host decode.  The PWM path is the same in PWM mode:
+:func:`batch_align_pwm` → :func:`_fill_pwm` → the kernel's PWM
+specialisation → the walk in local mode → :func:`decode_pwm_batch`.
+Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
+``align_pwm`` and bit-identical to them.
 
 ``device=None`` picks ``cuda`` when a card is present (the kernels) and
-the CPU otherwise (their plain PyTorch versions).  The default dtype is
-float32 on CUDA and float64 on the CPU; f32 is bit-exact for
-integer-valued matrices (every score is a small sum of matrix entries).
+the CPU otherwise (their plain PyTorch versions).  The dtype follows the
+data (:func:`aligner_tpu_torch.backend.dtype_for`): float32 on CUDA only
+for integer-valued scoring, float64 otherwise and on the CPU.
 """
 
 from __future__ import annotations
@@ -20,10 +23,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .alphabet import Alphabet, Protein
-from .backend import default_dtype, resolve_device
-from .errors import ResultIsEmpty, ValidationError
-from .result import Alignment, AlignmentResult
+from .alphabet import DNA, Alphabet, Protein
+from .backend import dtype_for, resolve_device
+from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
+from .result import Alignment, AlignmentResult, PWMAlignment
+
+# below this many cells a single PWM problem runs on the host engine when
+# the caller names no device (aligner_tpu.backend.SMALL_PROBLEM_CELLS_NATIVE)
+SMALL_PROBLEM_CELLS_NATIVE = 768 * 768
 
 
 def _encode(seq, alphabet: type[Alphabet]) -> np.ndarray:
@@ -159,7 +166,7 @@ def batch_align(
                 np.asarray(matrix), ((0, extra), (0, 0), (0, 0))
             )
     device = resolve_device(device)
-    dtype = dtype or default_dtype(device)
+    dtype = dtype or dtype_for(device, matrix, del_, ext)
     skip_mask = (
         np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
     )
@@ -207,3 +214,161 @@ def batch_align(
             float(fmax_np[b]), alphabet,
         ))
     return out
+
+
+def _fill_pwm(q, ql, pwm, del_, ext, with_dirs, device, dtype, track_argmax=True):
+    """One batched PWM fill on ``device``; returns the FillResult with its
+    tensors (and packed words when ``with_dirs``) left on the device."""
+    from .observability import measure
+    from .ops.dp_fill import PWMFill
+
+    width = np.asarray(pwm).shape[-1]
+    cells = int(np.asarray(ql, np.int64).sum()) * int(width)
+    if q.size and (int(q.min()) < 0 or int(q.max()) >= 4):
+        raise ValidationError("query codes must lie in the 4-symbol DNA alphabet")
+    dp = PWMFill.from_numpy(pwm, del_, ext, device=device, dtype=dtype)
+
+    def dev_i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+    with measure(f"{device.type}/pwm", cells, len(ql), device=device):
+        res = dp(dev_i32(q), dev_i32(ql), track_argmax=track_argmax,
+                 with_dirs=with_dirs)
+    return res
+
+
+def batch_align_pwm(
+    queries: Sequence,
+    pwm: np.ndarray,
+    del_: float,
+    ext: float,
+    *,
+    alphabet: type[Alphabet] = DNA,
+    device=None,
+    dtype: torch.dtype | None = None,
+    with_alignments: bool = False,
+    track_argmax: bool = True,
+    pad_to: int | None = None,
+    skip: np.ndarray | None = None,
+):
+    """Batched query-vs-PWM alignment (one PWM shared or (B, 4, W) batched).
+
+    The window-scan primitive of the latent-repeat search: all windows
+    become one launch.  ``track_argmax=False`` (scores-only mode only)
+    skips the per-cell argmax bookkeeping when the caller consumes just
+    ``fmax``; fy/fx/end then come back zero.
+
+    ``pad_to``/``skip`` as in :func:`batch_align`: padding problems are
+    zero-length and not returned; skipped real problems return ``None``
+    (score 0 in scores-only mode).
+    """
+    pwm = np.asarray(pwm)
+    if pwm.ndim not in (2, 3) or pwm.shape[-2] != 4:
+        raise MatrixShapeError(f"PWM must have 4 rows, got shape {pwm.shape}")
+    qs = [_encode(s, alphabet) for s in queries]
+    n_real = len(qs)
+    q, ql = pad_batch(qs)
+    if skip is not None:
+        ql = np.where(np.asarray(skip, bool), 0, ql).astype(np.int32)
+    if pad_to is not None:
+        if n_real > pad_to:
+            raise ValidationError(
+                f"pad_to={pad_to} is smaller than the batch ({n_real})"
+            )
+        extra = pad_to - n_real
+        q = np.pad(q, ((0, extra), (0, 0)))
+        ql = np.pad(ql, (0, extra))
+        if pwm.ndim == 3:
+            pwm = np.pad(pwm, ((0, extra), (0, 0), (0, 0)))
+    skip_mask = (
+        np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
+    )
+    device = resolve_device(device)
+    dtype = dtype or dtype_for(device, pwm, del_, ext)
+    res = _fill_pwm(q, ql, pwm, del_, ext, with_alignments, device, dtype,
+                    track_argmax=track_argmax or with_alignments)
+    if not with_alignments:
+        return BatchScores(
+            fmax=res.fmax.cpu().numpy()[:n_real], fy=res.fy.cpu().numpy()[:n_real],
+            fx=res.fx.cpu().numpy()[:n_real], end=res.end.cpu().numpy()[:n_real],
+        )
+    from .ops.device_walk import decode_pwm_batch, walk_batch
+
+    width = pwm.shape[-1]
+    sy = res.fy.cpu().numpy()
+    sx = res.fx.cpu().numpy()
+    fmax_np = res.fmax.cpu().numpy()  # one transfer, not B scalars
+    # PWM planes are (qlen+1, W+1): rows = query positions
+    steps, lens, ey, ex = walk_batch(res.words, "local", sy, sx, q.shape[1], width)
+    qa_ws, num_ws = decode_pwm_batch(steps, lens, sy, sx, q)
+    out = []
+    for b in range(n_real):
+        if skip_mask[b]:
+            out.append(None)
+            continue
+        coords = ((int(ex[b]) + 1, int(sx[b]) + 1), (int(ey[b]) + 1, int(sy[b]) + 1))
+        out.append(AlignmentResult(
+            PWMAlignment(num_ws[b], qa_ws[b], width, coords, float(fmax_np[b]),
+                         alphabet)
+        ))
+    return out
+
+
+def align_pwm(
+    query,
+    pwm: np.ndarray,
+    del_: float,
+    ext: float,
+    *,
+    alphabet: type[Alphabet] = DNA,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> AlignmentResult:
+    """Query-vs-PWM local alignment (pwm/mod.rs:29-126).
+
+    ``device=None`` runs a problem of at most 768² cells on the host
+    engine (native C++), as ``aligner_tpu.backend.pick_backend`` does, and
+    a larger one on the default device.  An empty query is not an error:
+    the reference's PWM traceback walks from the all-zero plane's (0, 0)
+    argmax and returns an empty ``PWMAlignment`` with coords
+    ((1, 1), (1, 1)) and f = 0, on every route.
+    """
+    from . import host, native
+
+    pwm = np.asarray(pwm)
+    if pwm.ndim != 2 or pwm.shape[0] != 4:
+        raise MatrixShapeError(f"PWM must have 4 rows, got shape {pwm.shape}")
+    q = _encode(query, alphabet)
+    if device is None and native.available() \
+            and len(q) * pwm.shape[1] <= SMALL_PROBLEM_CELLS_NATIVE:
+        r = host.align_pwm(q, pwm, del_, ext)
+        return AlignmentResult(PWMAlignment(
+            r.target_aligned.astype(np.int32), r.query_aligned, pwm.shape[1],
+            r.coords, r.f, alphabet,
+        ))
+    (res,) = batch_align_pwm([q], pwm, del_, ext, alphabet=alphabet, device=device,
+                             dtype=dtype, with_alignments=True)
+    return res
+
+
+class PWMAligner:
+    """Equivalent of aligner-core PWMAligner (pwm/mod.rs)."""
+
+    def __init__(self, query: np.ndarray, alphabet=DNA):
+        self.query = query
+        self.alphabet = alphabet
+
+    @classmethod
+    def from_str_seqs(cls, query: str, alphabet=DNA):
+        return cls(alphabet.encode(query), alphabet)
+
+    @classmethod
+    def from_seqs(cls, query, alphabet=DNA):
+        return cls(_encode(query, alphabet), alphabet)
+
+    def perform_alignment(
+        self, del_: float, ext: float, pwm, heuristics=None, **kw
+    ) -> AlignmentResult:
+        if heuristics is not None:
+            raise UnnecessaryArgument("PWM aligner takes no heuristics")
+        return align_pwm(self.query, pwm, del_, ext, alphabet=self.alphabet, **kw)

@@ -1,10 +1,16 @@
-// Batched exact DP fill, pair mode: local or global, scores only or with
-// 2-bit packed direction words.
+// Batched exact DP fill: pair mode (local or global) and PWM mode, scores
+// only or with 2-bit packed direction words.
 //
-// Replaces: aligner_tpu/ops/pallas_dp.py::_kernel in pair mode (launched
-// by _run; wrappers fill_batch_pallas, fill_scores_traced and
-// fill_full_traced), both its scores-only and its direction-word
-// specialisations.
+// Replaces: aligner_tpu/ops/pallas_dp.py::_kernel, launched by _run.
+// * pair mode (wrappers fill_batch_pallas, fill_scores_traced and
+//   fill_full_traced), both its scores-only and its direction-word
+//   specialisations;
+// * PWM mode, the PWM template flag (wrappers fill_pwm_batch_pallas,
+//   fill_pwm_scores_traced and fill_pwm_full_traced): the rows are the
+//   query, the columns the W positions of a (4, W) position-weight
+//   matrix, every column is active, the mode is local, and the score of
+//   cell (y, x) is pwm[q[y-1], x-1] from a shared (4, W) or per-problem
+//   (B, 4, W) PWM.
 //
 // What bounds it on the H100: the fill is a serial recurrence inside each
 // problem.  The single mutable gap penalty couples every cell to its
@@ -26,8 +32,11 @@
 //   each) and issues the loads of the next block before it computes this
 //   one: with few warps per SM (a 4,999-problem batch gives ~1 warp per
 //   SM) nothing else hides the memory latency of the column buffer;
-// * the (V, V) matrix sits in shared memory (a per-problem (B, V, V)
-//   matrix is read through the cache instead);
+// * a shared matrix -- the (V, V) substitution matrix, or the (4, W) PWM
+//   (4 x 300 x 8 B = 9.6 KB in f64) -- sits in shared memory; above
+//   48 KB the launch opts in to Hopper's larger dynamic shared memory,
+//   and a matrix too large even for that (or a per-problem one) is read
+//   through the L1 cache instead;
 // * the penalty, the running best and the end cell stay in registers for
 //   the whole fill.
 //
@@ -54,14 +63,16 @@ template <> struct Eps<double> { static __device__ double v() { return DBL_EPSIL
 
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) { return a > b ? a : b; }
 
-template <typename T, bool GLOBAL, bool TRACK, bool DIRS>
+template <typename T, bool GLOBAL, bool TRACK, bool DIRS, bool PWM>
 __global__ void dp_fill_kernel(
-    const int* __restrict__ qT,    // (C, B) query codes, column chars
-    const int* __restrict__ tT,    // (R8, B) target codes, row chars
-    const int* __restrict__ qlen,  // (B,)
+    const int* __restrict__ qT,    // (C, B) query codes, column chars; unused (PWM)
+    const int* __restrict__ tT,    // (R8, B) row chars: target codes (pair), query codes (PWM)
+    const int* __restrict__ qlen,  // (B,); unused (PWM: every column is active)
     const int* __restrict__ tlen,  // (B,)
-    const T* __restrict__ mat,     // (V, V) shared, or (B, V, V)
-    long long mat_stride,          // 0 for a shared matrix, else V*V
+    const T* __restrict__ mat,     // pair: (V, V) or (B, V, V); PWM: (4, C) or (B, 4, C)
+    long long mat_stride,          // 0 for a shared matrix, else its size
+    int mat_elems,                 // size of a shared matrix
+    int smem_mat,                  // 1: copy a shared matrix to shared memory
     int V, int B, int C, int R8, T del, T ext,
     T* __restrict__ col,           // (R8+1, B) column buffer
     T* __restrict__ fmax, int* __restrict__ fy, int* __restrict__ fx,
@@ -70,15 +81,18 @@ __global__ void dp_fill_kernel(
 {
     extern __shared__ unsigned char smem_raw[];
     T* smat = reinterpret_cast<T*>(smem_raw);
-    if (mat_stride == 0) {
-        for (int i = threadIdx.x; i < V * V; i += blockDim.x) smat[i] = mat[i];
+    if (mat_stride == 0 && smem_mat) {
+        for (int i = threadIdx.x; i < mat_elems; i += blockDim.x) smat[i] = mat[i];
         __syncthreads();
     }
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
-    const T* m_b = mat_stride == 0 ? smat : mat + (long long)b * mat_stride;
+    const T* m_b = mat_stride != 0 ? mat + (long long)b * mat_stride
+                                   : (smem_mat ? smat : mat);
+    // the score of row code v in this column is srow[v * sstride]
+    const int sstride = PWM ? C : V;
 
-    const int ql = qlen[b];
+    const int ql = PWM ? C : qlen[b];
     const int tl = tlen[b];
     const T eps = Eps<T>::v();
     const long long Bl = B;
@@ -97,7 +111,7 @@ __global__ void dp_fill_kernel(
     int* wrow = DIRS ? words + (long long)b * R8w * C : nullptr;
 
     for (int x1 = 1; x1 <= C; ++x1) {
-        const int qx = qT[(long long)(x1 - 1) * Bl + b];
+        const T* srow = PWM ? m_b + (x1 - 1) : m_b + qT[(long long)(x1 - 1) * Bl + b];
         const bool x_active = x1 <= ql;
         T border0 = T(0);
         if (GLOBAL) border0 = (x1 == ql) ? -(T(ql) + T(1)) * del : -T(x1) * del;
@@ -129,7 +143,7 @@ __global__ void dp_fill_kernel(
             for (int j = 0; j < 8; ++j) {
                 const int y1 = y0 + j;
                 const T left_v = lv[j];
-                const T s = m_b[ty[j] * V + qx];
+                const T s = srow[ty[j] * sstride];
                 const T top = a_up - pen;
                 const T left = left_v - pen;
                 const T diag = diag_prev + s;
@@ -169,47 +183,75 @@ __global__ void dp_fill_kernel(
     end[b] = TRACK ? ev : T(0);
 }
 
-template <typename T, bool GLOBAL, bool TRACK, bool DIRS>
-void launch(const int* qT, const int* tT, const int* qlen, const int* tlen,
-            const void* mat, long long mat_stride, int V, int B, int C, int R8,
-            double del, double ext, void* col, void* fmax, int* fy, int* fx,
-            void* end, int* words, int threads, cudaStream_t stream) {
+template <typename T, bool GLOBAL, bool TRACK, bool DIRS, bool PWM>
+cudaError_t launch(const int* qT, const int* tT, const int* qlen, const int* tlen,
+                   const void* mat, long long mat_stride, int mat_elems, int V,
+                   int B, int C, int R8, double del, double ext, void* col,
+                   void* fmax, int* fy, int* fx, void* end, int* words,
+                   int threads, cudaStream_t stream) {
+    auto kernel = dp_fill_kernel<T, GLOBAL, TRACK, DIRS, PWM>;
+    size_t smem = 0;
+    int smem_mat = 0;
+    if (mat_stride == 0) {
+        int dev = 0, optin = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e != cudaSuccess) return e;
+        const size_t bytes = sizeof(T) * size_t(mat_elems);
+        if (bytes <= size_t(optin)) {
+            smem = bytes;
+            smem_mat = 1;
+            if (bytes > 48 * 1024) {
+                e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(bytes));
+                if (e != cudaSuccess) return e;
+            }
+        }
+    }
     const int blocks = (B + threads - 1) / threads;
-    const size_t smem = mat_stride == 0 ? sizeof(T) * size_t(V) * size_t(V) : 0;
-    dp_fill_kernel<T, GLOBAL, TRACK, DIRS><<<blocks, threads, smem, stream>>>(
-        qT, tT, qlen, tlen, static_cast<const T*>(mat), mat_stride, V, B, C, R8,
-        T(del), T(ext), static_cast<T*>(col), static_cast<T*>(fmax), fy, fx,
-        static_cast<T*>(end), words);
+    kernel<<<blocks, threads, smem, stream>>>(
+        qT, tT, qlen, tlen, static_cast<const T*>(mat), mat_stride, mat_elems,
+        smem_mat, V, B, C, R8, T(del), T(ext), static_cast<T*>(col),
+        static_cast<T*>(fmax), fy, fx, static_cast<T*>(end), words);
+    return cudaGetLastError();
 }
 
 template <typename T>
-void dispatch(int is_global, int track, int dirs, const int* qT, const int* tT,
-              const int* qlen, const int* tlen, const void* mat, long long ms,
-              int V, int B, int C, int R8, double del, double ext, void* col,
-              void* fmax, int* fy, int* fx, void* end, int* words, int threads,
-              cudaStream_t st) {
-#define DP_ARGS qT, tT, qlen, tlen, mat, ms, V, B, C, R8, del, ext, col, fmax, fy, fx, end, words, threads, st
+cudaError_t dispatch(int is_pwm, int is_global, int track, int dirs, const int* qT,
+                     const int* tT, const int* qlen, const int* tlen, const void* mat,
+                     long long ms, int me, int V, int B, int C, int R8, double del,
+                     double ext, void* col, void* fmax, int* fy, int* fx, void* end,
+                     int* words, int threads, cudaStream_t st) {
+#define DP_ARGS qT, tT, qlen, tlen, mat, ms, me, V, B, C, R8, del, ext, col, fmax, fy, fx, end, words, threads, st
+    if (is_pwm) {
+        // PWM mode is local
+        if (track) return dirs ? launch<T, false, true, true, true>(DP_ARGS)
+                               : launch<T, false, true, false, true>(DP_ARGS);
+        return dirs ? launch<T, false, false, true, true>(DP_ARGS)
+                    : launch<T, false, false, false, true>(DP_ARGS);
+    }
     if (is_global) {
         // global mode always tracks: the end cell is captured there
-        if (dirs) launch<T, true, true, true>(DP_ARGS);
-        else launch<T, true, true, false>(DP_ARGS);
-    } else if (track) {
-        if (dirs) launch<T, false, true, true>(DP_ARGS);
-        else launch<T, false, true, false>(DP_ARGS);
-    } else {
-        if (dirs) launch<T, false, false, true>(DP_ARGS);
-        else launch<T, false, false, false>(DP_ARGS);
+        return dirs ? launch<T, true, true, true, false>(DP_ARGS)
+                    : launch<T, true, true, false, false>(DP_ARGS);
     }
+    if (track) return dirs ? launch<T, false, true, true, false>(DP_ARGS)
+                           : launch<T, false, true, false, false>(DP_ARGS);
+    return dirs ? launch<T, false, false, true, false>(DP_ARGS)
+                : launch<T, false, false, false, false>(DP_ARGS);
 #undef DP_ARGS
 }
 
 }  // namespace
 
+// is_pwm: qT and qlen are unused (pass null), mat is the (4, C) or
+// (B, 4, C) PWM with V = 4, and the mode is local.
 extern "C" int dp_fill_launch(
     const void* qT, const void* tT, const void* qlen, const void* tlen,
     const void* mat, long long mat_stride, int V, int B, int C, int R8,
-    double del, double ext, int is_f64, int is_global, int track, int dirs,
-    void* col, void* fmax, void* fy, void* fx, void* end, void* words,
+    double del, double ext, int is_f64, int is_pwm, int is_global, int track,
+    int dirs, void* col, void* fmax, void* fy, void* fx, void* end, void* words,
     int threads, void* stream) {
     cudaGetLastError();  // clear a stale error so the check below is ours
     auto st = static_cast<cudaStream_t>(stream);
@@ -220,13 +262,17 @@ extern "C" int dp_fill_launch(
     auto yi = static_cast<int*>(fy);
     auto xi = static_cast<int*>(fx);
     auto wi = static_cast<int*>(words);
+    const int me = is_pwm ? V * C : V * V;
+    cudaError_t e;
     if (is_f64)
-        dispatch<double>(is_global, track, dirs, qi, ti, ql, tl, mat, mat_stride,
-                         V, B, C, R8, del, ext, col, fmax, yi, xi, end, wi, threads, st);
+        e = dispatch<double>(is_pwm, is_global, track, dirs, qi, ti, ql, tl, mat,
+                             mat_stride, me, V, B, C, R8, del, ext, col, fmax, yi, xi,
+                             end, wi, threads, st);
     else
-        dispatch<float>(is_global, track, dirs, qi, ti, ql, tl, mat, mat_stride,
-                        V, B, C, R8, del, ext, col, fmax, yi, xi, end, wi, threads, st);
-    return static_cast<int>(cudaGetLastError());
+        e = dispatch<float>(is_pwm, is_global, track, dirs, qi, ti, ql, tl, mat,
+                            mat_stride, me, V, B, C, R8, del, ext, col, fmax, yi, xi,
+                            end, wi, threads, st);
+    return static_cast<int>(e);
 }
 
 extern "C" const char* cuda_error_string(int err) {

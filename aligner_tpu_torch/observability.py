@@ -6,18 +6,22 @@
   device before it stops the clock, so the time covers the kernel and not
   only its enqueue;
 * :func:`profile_trace` — context manager around ``torch.profiler``
-  (writes a Chrome/Perfetto trace file).
+  (writes a Chrome/Perfetto trace file);
+* ``log`` — the package's logger (``aligner_tpu_torch``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import threading
 import time
 from collections import defaultdict
 
 import torch
+
+log = logging.getLogger("aligner_tpu_torch")
 
 
 @dataclasses.dataclass

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels under ``aligner_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` sources compile in one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers:
-a build takes seconds, not minutes).  The library lands in
+Each ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into one shared library with a plain C interface, loaded with ctypes (no
+PyTorch headers: a build takes seconds, not minutes).  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  The build happens at first use, never at import; a failed build
@@ -28,7 +29,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _OUT_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _LOCK = threading.Lock()
@@ -66,23 +67,46 @@ def _so_path(srcs: list[str]) -> str:
     return os.path.join(_OUT_DIR, f"aligner_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_nvcc(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    """Wait for every started nvcc; raise with the output of the first
+    that failed."""
+    failed = None
+    for cmd, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = KernelBuildFailure(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed is not None:
+        raise failed
+
+
 def _compile(so: str, srcs: list[str]) -> None:
     os.makedirs(_OUT_DIR, exist_ok=True)
-    # per-process temp name + atomic rename: concurrent build processes never
-    # publish (or dlopen) a half-written library
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *srcs]
+    # per-process temp names + atomic rename: concurrent build processes
+    # never publish (or dlopen) a half-written library
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(_OUT_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+    tmp = f"{so}.{tag}"
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise KernelBuildFailure(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        procs = []
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc, *FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        _run_nvcc(procs)
+        cmd = [nvcc, *FLAGS, "-shared", "-o", tmp, *objs]
+        _run_nvcc([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
         os.replace(tmp, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.unlink(f)
 
 
 def load() -> ctypes.CDLL:
@@ -109,7 +133,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i64,  # qT, tT, qlen, tlen, matrix, matrix batch stride
         i32, i32, i32, i32,  # V, B, C, R8
         f64, f64,  # del, ext
-        i32, i32, i32, i32,  # is_f64, is_global, track_argmax, with_dirs
+        i32, i32, i32, i32, i32,  # is_f64, is_pwm, is_global, track_argmax, with_dirs
         p, p, p, p, p, p,  # colbuf, fmax, fy, fx, end, words
         i32, p,  # threads per block, stream
     ]

@@ -9,7 +9,9 @@ the device; the host rebuilds the aligned strings arithmetically from the
 step stream (cumulative-sum cursor replay, no plane access).
 
 Walk semantics are exactly the reference's (stop at Beginning; per-step
-emission per simple/mod.rs:107-127/220-242).
+emission per simple/mod.rs:107-127/220-242 for pairs and
+pwm/mod.rs:81-103 for PWM, whose borders are all Beginning: the walk runs
+in ``"local"`` mode there).
 """
 
 from __future__ import annotations
@@ -157,17 +159,27 @@ def walk_batch(words, mode: str, sy, sx, R: int, C: int):
 
 def _cursor_replay_all(d: np.ndarray, sy, sx):
     """All-problems cursor replay: (y, x) positions BEFORE each step for
-    the whole (S, B) step array at once (two cumsums instead of 2·B)."""
+    the whole (S, B) step array, as a running sum row by row (a cumsum
+    along the step axis strides through the (S, B) array and runs about
+    ten times slower at a 65,536-problem batch)."""
     up = (d == TOP) | (d == DIAG)
     lf = (d == LEFT) | (d == DIAG)
-    z = np.zeros((1, d.shape[1]), np.int64)
-    y_at = np.asarray(sy, np.int64)[None, :] - np.concatenate(
-        [z, np.cumsum(up[:-1], axis=0, dtype=np.int64)]
-    )
-    x_at = np.asarray(sx, np.int64)[None, :] - np.concatenate(
-        [z, np.cumsum(lf[:-1], axis=0, dtype=np.int64)]
-    )
+    y = np.array(sy, np.int64)
+    x = np.array(sx, np.int64)
+    y_at = np.empty(d.shape, np.int64)
+    x_at = np.empty(d.shape, np.int64)
+    for s in range(d.shape[0]):
+        y_at[s] = y
+        x_at[s] = x
+        y -= up[s]
+        x -= lf[s]
     return y_at, x_at
+
+
+def _walked(steps, lens):
+    """The rows of the (S, B) step array that some walk reaches; the rows
+    after the longest walk are Beginning padding."""
+    return steps[: int(np.max(lens, initial=0))]
 
 
 def decode_pair_batch(steps, lens, sy, sx, q: np.ndarray, t: np.ndarray):
@@ -175,6 +187,7 @@ def decode_pair_batch(steps, lens, sy, sx, q: np.ndarray, t: np.ndarray):
     (reversed into alignment order, seed pair NOT included — the callers
     append it).  ``q``/``t`` are the padded (B, L) code arrays
     (simple/mod.rs:99-127 traceback at batch scale)."""
+    steps = _walked(steps, lens)
     y_at, x_at = _cursor_replay_all(steps, sy, sx)
     # clip only guards rows past lens[b] (sliced off below); real steps
     # never gather out of range (a consuming step has cursor >= 1)
@@ -189,4 +202,22 @@ def decode_pair_batch(steps, lens, sy, sx, q: np.ndarray, t: np.ndarray):
     return (
         [qa_all[: lens[b], b][::-1] for b in range(steps.shape[1])],
         [ta_all[: lens[b], b][::-1] for b in range(steps.shape[1])],
+    )
+
+
+def decode_pwm_batch(steps, lens, sy, sx, q: np.ndarray):
+    """PWM-mode decode of ALL B problems (``q`` is the padded (B, L) query
+    code array): ``numbered`` gets the PWM position (0 for a gap), ``qa``
+    the query character or BLANK (an_traceback pwm_mode semantics).  The
+    rows of a PWM plane are the query, its columns the PWM positions."""
+    steps = _walked(steps, lens)
+    y_at, x_at = _cursor_replay_all(steps, sy, sx)
+    qi = np.clip(y_at - 1, 0, q.shape[1] - 1)
+    qa_all = np.where(
+        steps == LEFT, BLANK, np.take_along_axis(q.T, qi, axis=0)
+    ).astype(np.int16)
+    num_all = np.where(steps == TOP, 0, x_at).astype(np.int32)
+    return (
+        [qa_all[: lens[b], b][::-1] for b in range(steps.shape[1])],
+        [num_all[: lens[b], b][::-1] for b in range(steps.shape[1])],
     )

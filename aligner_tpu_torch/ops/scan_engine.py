@@ -1,7 +1,9 @@
 """Batched exact DP fill in plain PyTorch — the plain version of the fill
 kernel (``csrc/dp_fill.cu``) and the port's CPU engine.
 
-Counterpart of ``aligner_tpu/ops/scan_engine.py`` (pair mode).  The
+Counterpart of ``aligner_tpu/ops/scan_engine.py``: pair mode
+(:func:`fill_batch`) and PWM mode (:func:`fill_pwm_batch`), one penalty
+chain (:func:`_fill_core`) under two score lookups.  The
 reference's single mutable gap-penalty state couples every cell to its
 fill-order predecessor, and the first cell of each column to the last
 cell of the previous column, so each problem is serial cell by cell and
@@ -70,16 +72,64 @@ def fill_batch(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
-    is_global = mode == "global"
+    V = matrix.shape[-1]
+    qc = q.to(torch.int64)
+    if matrix.dim() == 3:
+        flat = matrix.reshape(-1, V * V)
+
+        def score(x1, tT):  # s[y, b] = matrix[b, t[y], q[x]]
+            return flat.gather(1, (tT * V + qc[:, x1 - 1][None, :]).T).T
+    else:
+        flat = matrix.reshape(V * V)
+
+        def score(x1, tT):
+            return flat[tT * V + qc[:, x1 - 1][None, :]]
+
+    return _fill_core(qlen, t, tlen, q.shape[1], score, matrix.dtype, del_, ext,
+                      is_global=mode == "global", track_argmax=track_argmax,
+                      with_dirs=with_dirs)
+
+
+def fill_pwm_batch(q, qlen, pwm, del_: float, ext: float, *,
+                   track_argmax: bool = True,
+                   with_dirs: bool = False) -> FillResult:
+    """Plain batched query-vs-PWM fill (local).
+
+    The plane is (qlen+1, W+1): rows are query positions, columns PWM
+    positions, and every column is active.  ``q``: (B, R) int32 codes in
+    [0, 4); ``qlen``: (B,) int32; ``pwm``: (4, W) shared or (B, 4, W)
+    per-problem, in the working float dtype.  The score of cell (y, x) is
+    ``pwm[q[y-1], x-1]``.
+    """
+    W = pwm.shape[-1]
+    if pwm.dim() == 3:
+        flat = pwm.reshape(-1, pwm.shape[-2] * W)
+
+        def score(x1, tT):  # s[y, b] = pwm[b, q[y], x-1]
+            return flat.gather(1, (tT * W + (x1 - 1)).T).T
+    else:
+
+        def score(x1, tT):
+            return pwm[:, x1 - 1][tT]
+
+    B = q.shape[0]
+    full = torch.full((B,), W, dtype=torch.int64, device=q.device)
+    return _fill_core(full, q, qlen, W, score, pwm.dtype, del_, ext,
+                      is_global=False, track_argmax=track_argmax,
+                      with_dirs=with_dirs)
+
+
+def _fill_core(qlen, t, tlen, C: int, score, dtype, del_: float, ext: float, *,
+               is_global: bool, track_argmax: bool, with_dirs: bool) -> FillResult:
+    """The penalty chain of both modes.  ``t`` (B, R) holds the row codes
+    and ``qlen`` the active columns; ``score(x1, tT)`` gives column
+    ``x1``'s (R8, B) scores from the row codes ``tT`` (R8, B) int64."""
     track_argmax = track_argmax or is_global
-    dev = q.device
-    dtype = matrix.dtype
-    B, C = q.shape
-    R = t.shape[1]
+    dev = t.device
+    B, R = t.shape
     R8 = round8(R)
     if R8 != R:
         t = torch.nn.functional.pad(t, (0, R8 - R))
-    V = matrix.shape[-1]
     qlen = qlen.to(torch.int64)
     tlen = tlen.to(torch.int64)
     tT = t.T.to(torch.int64)  # (R8, B)
@@ -97,7 +147,6 @@ def fill_batch(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
                           -yy.to(dtype) * DEL)
     else:
         col = torch.zeros((R8 + 1, B), dtype=dtype, device=dev)
-    flat = matrix.reshape(-1, V * V) if matrix.dim() == 3 else matrix.reshape(V * V)
 
     pen = DEL.expand(B).clone()
     bv = torch.zeros(B, dtype=dtype, device=dev)
@@ -110,10 +159,7 @@ def fill_batch(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
     row_active = ys <= tlen[None, :]  # (R8, B)
 
     for x1 in range(1, C + 1):
-        qx = q[:, x1 - 1].to(torch.int64)
-        idx = tT * V + qx[None, :]  # (R8, B)
-        s = (flat[idx] if flat.dim() == 1
-             else flat.gather(1, idx.T).T)  # s[y, b] = matrix[t[y], q[x]]
+        s = score(x1, tT)  # (R8, B)
         active = row_active & (x1 <= qlen)[None, :]
         if is_global:
             border0 = torch.where(qlen == x1, -(qlf + 1) * DEL, -x1 * DEL)
