@@ -8,7 +8,9 @@ traceback, one-vs-many search and p-values; and the PWM path,
 query-vs-PWM alignment (:func:`align_pwm`, :func:`batch_align_pwm`), the
 heuristic PWM aligner and the latent-repeat search (:mod:`.repeat`); and
 single pairs (:func:`align_global`, :func:`align_local`), a huge global
-pair on the row-scan fill with checkpoint-and-replay traceback.
+pair on the row-scan fill with checkpoint-and-replay traceback; and the
+scores of one pair without a traceback (:func:`global_end_score` on the
+band fill, :func:`local_max_score`).
 
 ``device=None`` means the CUDA card everywhere and raises
 :class:`DeviceUnavailable` without one; ``device="cpu"`` asks for the
@@ -43,6 +45,8 @@ from .align import (
     align_pwm,
     batch_align,
     batch_align_pwm,
+    global_end_score,
+    local_max_score,
 )
 from .heuristic import HeuristicPWMAligner, Heuristics, heuristic_align_pwm
 from . import repeat  # noqa: E402
@@ -66,6 +70,8 @@ __all__ = [
     "batch_align",
     "align_global",
     "align_local",
+    "global_end_score",
+    "local_max_score",
     "align_pwm",
     "batch_align_pwm",
     "PWMAligner",

@@ -7,9 +7,11 @@ host decode.  The PWM path is the same in PWM mode:
 :func:`batch_align_pwm` → :func:`_fill_pwm` → the kernel's PWM
 specialisation → the walk in local mode → :func:`decode_pwm_batch`.
 One huge global pair has no batch axis: :func:`align_global` runs it on
-the row-scan fill and the replay walk (``ops/wavefront.py``).
+the row-scan fill and the replay walk, and :func:`global_end_score` gives
+its end score alone on the band fill (``ops/wavefront.py``).
 Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
-``align_pwm``/``align_global``/``align_local`` and bit-identical to them.
+``align_pwm``/``align_global``/``align_local``/``global_end_score``/
+``local_max_score`` and bit-identical to them.
 
 ``device=None`` means the card (the kernels) and raises
 :class:`~aligner_tpu_torch.errors.DeviceUnavailable` without one;
@@ -351,11 +353,7 @@ def align_global(
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
     if (len(q) > wf.MAX_WIDTH and integral_params(matrix_np, del_, ext)
             and wf.range_ok(len(q), len(t), del_, ext)):
-        raise ValidationError(
-            f"global pair with a query of {len(q)} is wider than the single-card "
-            f"engine's {wf.MAX_WIDTH} columns; the column-sharded multi-GPU "
-            "route is not ported yet"
-        )
+        raise _wide_pair_error(len(q), wf.MAX_WIDTH)
     if huge:
         # the batched engine materializes O(R*C) planes: at this scale a
         # silent fallthrough is an OOM, not an alignment
@@ -368,6 +366,130 @@ def align_global(
     (res,) = batch_align([q], [t], matrix_np, del_, ext, mode="global",
                          alphabet=alphabet, device=device, with_alignments=True)
     return res
+
+
+def _wide_pair_error(qlen: int, max_width: int) -> ValidationError:
+    return ValidationError(
+        f"global pair with a query of {qlen} is wider than the single-card "
+        f"engine's {max_width} columns; the column-sharded multi-GPU "
+        "route is not ported yet"
+    )
+
+
+def global_end_score(
+    query,
+    target,
+    matrix,
+    del_: float,
+    ext: float,
+    *,
+    alphabet: type[Alphabet] = Protein,
+    backend: str | None = None,
+    device=None,
+) -> float:
+    """Exact global end score ``H[tlen, qlen]`` of ONE pair: no plane, no
+    traceback (the reference always builds the full alignment,
+    simple/mod.rs:42-98; the end score is the cheap half of that DP).
+
+    ``backend`` keeps the JAX package's names.  ``None``/``"auto"``: a pair
+    the band engine supports (an integral matrix within int8, integral
+    penalties, int32-exact scores, a query of at most
+    ``ops.wavefront.MAX_WIDTH``) runs on it
+    (:func:`aligner_tpu_torch.ops.wavefront.end_score_single_global_diag`) on
+    ``device``, at any size; any other pair runs as a batch of one on the
+    batched global fill, scores only, up to
+    ``ops.wavefront.DIRECT_PLANE_CELLS`` cells and is refused above.
+    ``"diag"`` forces the band engine and raises when the pair is not
+    supported; ``"host"`` is the host engine (native C++ fill);
+    ``"wavefront_sp"``, the column-sharded route over several cards, is not
+    ported yet and raises, as does a query wider than the single-card cap.
+    The JAX package sends a small pair to the host below a cell count that
+    was tuned for its accelerator's dispatch cost; that threshold is not
+    carried over: no size picks the host silently.
+    """
+    from . import host
+    from .ops import wavefront as wf
+
+    q = _encode(query, alphabet)
+    t = _encode(target, alphabet)
+    if len(q) == 0 or len(t) == 0:
+        raise ResultIsEmpty("empty sequence")
+    if backend not in (None, "auto", "diag", "wavefront_sp", "host"):
+        raise ValidationError(
+            f"unknown backend {backend!r} for global_end_score "
+            "(choose auto, diag, wavefront_sp, or host)"
+        )
+    matrix_np = np.asarray(matrix)
+    if backend == "host":
+        r = host.align_global(q, t, matrix_np, del_, ext)
+        return float(r.score[len(t), len(q)])
+    device = resolve_device(device)
+    auto = backend in (None, "auto")
+    cells = len(q) * len(t)
+    wide = (len(q) > wf.MAX_WIDTH and integral_params(matrix_np, del_, ext)
+            and wf.range_ok(len(q), len(t), del_, ext))
+    if backend == "wavefront_sp" or (auto and wide):
+        raise _wide_pair_error(len(q), wf.MAX_WIDTH)
+    if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
+        return wf.end_score_single_global_diag(q, t, matrix_np, del_, ext, device=device)
+    if backend == "diag":
+        raise ValidationError(
+            "diag backend requires an integral matrix/penalties, "
+            "qlen within the width cap, and int32-range scores"
+        )
+    if cells > wf.DIRECT_PLANE_CELLS:
+        raise ValidationError(
+            f"global pair of {len(t)}x{len(q)} = {cells} cells needs an "
+            "integral matrix/penalties in int32 range (the wavefront "
+            "engines): every remaining engine materializes O(R*C)"
+        )
+    res = batch_align([q], [t], matrix_np, del_, ext, mode="global", alphabet=alphabet,
+                      device=device)
+    return float(res.end[0])
+
+
+def local_max_score(
+    query,
+    target,
+    matrix,
+    del_: float,
+    ext: float,
+    *,
+    alphabet: type[Alphabet] = Protein,
+    device=None,
+) -> tuple[float, tuple[int, int]]:
+    """Maximum local score and its cell, without a traceback: the local
+    sibling of :func:`global_end_score` (the reference's ``f`` field,
+    simple/mod.rs:247).  Returns ``(f, (my, mx))`` with the plane argmax in
+    first-row-major order (simple/mod.rs:212).
+
+    Up to ``ops.wavefront.DIRECT_PLANE_CELLS`` cells it is a batch of one on
+    the batched fill, scores only, on ``device``.  A larger pair runs on the
+    native streaming fill on the host whatever ``device`` says, for the
+    reason :func:`align_local` gives: a single local pair is serial and has
+    no device path.  ``device="host"`` asks for the native fill at any
+    size.  Without the native runtime a huge pair takes the batched fill,
+    which keeps O(C) state and no plane, as in the JAX package.
+    """
+    from . import native
+    from .ops import wavefront as wf
+
+    q = _encode(query, alphabet)
+    t = _encode(target, alphabet)
+    if len(q) == 0 or len(t) == 0:
+        raise ResultIsEmpty("empty sequence")
+    on_host = isinstance(device, str) and device == "host"  # no torch.device
+    if on_host and not native.available():
+        raise ValidationError("device=\"host\" needs the native runtime, which did "
+                              "not build")
+    if not on_host:
+        device = resolve_device(device)
+    if on_host or (len(q) * len(t) > wf.DIRECT_PLANE_CELLS and native.available()):
+        f, my, mx = native.local_max_score_stream(q, t, np.asarray(matrix), del_, ext)
+        return f, (my, mx)
+    res = batch_align([q], [t], np.asarray(matrix), del_, ext, mode="local",
+                      alphabet=alphabet, device=device)
+    return float(res.fmax[0]), (int(res.fy[0]), int(res.fx[0]))
 
 
 def align_local(

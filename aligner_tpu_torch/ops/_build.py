@@ -158,6 +158,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, i32, p,  # state, steps, step budget, stream
     ]
     lib.wavefront_replay_walk_launch.restype = i32
+    lib.wavefront_band_launch.argtypes = [
+        p, p, p, p, p, p, p,  # t, q, f, c1, c2, fd, matrix
+        i32, i32, i32, i32, i32,  # V, TB, D, Cb, ext
+        i32, i32,  # rows per lane, steps per tile
+        i32, i32, i32, i32,  # j_end, d_end, owned, with_rc
+        p, p, p,  # state, carry, w (scratch)
+        p, p, p,  # rb, rc, end
+        ctypes.POINTER(i32), p,  # launches made (out), stream
+    ]
+    lib.wavefront_band_launch.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,8 +1,9 @@
 """One huge global pair on the card: the row-scan fill, the replay walk
-(``csrc/wavefront.cu``), their plain versions, and the checkpoint-and-replay
-alignment built on them.
+(``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``), their
+plain versions, the checkpoint-and-replay alignment built on the first two
+and the end score built on the third.
 
-Counterpart of the row-scan part of ``aligner_tpu/ops/wavefront.py``.  The
+Counterpart of the single-pair parts of ``aligner_tpu/ops/wavefront.py``.  The
 batched kernels parallelise over problems; a single chromosome-scale pair
 has no batch axis.  In **global** mode ``get_direction`` never returns
 Beginning (enums.rs:18-28), so the gap penalty is ``del`` for cell (1,1)
@@ -25,6 +26,12 @@ replays one block of ``tb_rows`` rows at a time *with* directions from its
 checkpoint row and walks it on the card, so only the 2-bit step stream
 comes back to the host.  Up to :data:`DIRECT_PLANE_CELLS` cells the whole
 plane is one block (:func:`align_single_global_direct`).
+
+The end score alone needs neither directions nor checkpoints.
+:func:`end_score_single_global_diag` walks the plane in bands of rows and
+each band by anti-diagonal steps (:func:`run_block_band`): row j of a band
+is on column d - j at step d, so the cells of one step are independent and
+a band hands the next one only its last row.
 
 Not carried over from the TPU kernel: its packed score words, the nibble
 table and the scoped-VMEM pre-flight.  They serve that chip's vector
@@ -79,7 +86,8 @@ class _Launches:
     where a kernel is launched): ``row_scan`` and ``row_scan_dirs`` count
     calls of the fill without and with directions, ``tile_launches`` the
     kernel launches those calls made (one per anti-diagonal of tiles), and
-    ``replay_walk`` the walk kernel."""
+    ``replay_walk`` the walk kernel; ``band`` counts calls of the band fill
+    and ``band_tile_launches`` the kernel launches those calls made."""
 
     def __init__(self):
         self.reset()
@@ -87,6 +95,7 @@ class _Launches:
     def reset(self) -> None:
         self.row_scan = self.row_scan_dirs = self.tile_launches = 0
         self.replay_walk = 0
+        self.band = self.band_tile_launches = 0
 
 
 launches = _Launches()
@@ -614,3 +623,345 @@ def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
     end, _, state, steps, _ = _chunked_walk(pp, tb_rows, tr, sync_each_block)
     qa, ta, coords = _assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords
+
+
+# ---------------------------------------------------------------------------
+# the band fill and the end score
+# ---------------------------------------------------------------------------
+
+# what a row of a band holds before it enters its first column: inert
+# under max, and far enough from -2^31 to take a score on top
+NEG_I32 = -(2**30)
+LANES = 128  # band heights are multiples of this, as in the reference
+# The band fill's sizes: the rows of one band, the steps of one tile and the
+# rows a lane owns.  Chosen by the sweep that chip_smoke.py prints at
+# 65,536 x 65,536 on an H100 (PERF.md, Findings).  Tiles that hold no cell
+# of the plane are not launched, so a tall band costs no more than its
+# cells and saves the hand-offs between bands: up to the width cap squared
+# a pair is one band.
+BAND_ROWS = 262144
+BAND_TD = 128
+BAND_ROWS_PER_LANE = 2
+
+
+def _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb, check_codes):
+    dev = t_band.device
+    for name, a in (("t_band", t_band), ("q", q), ("f", f), ("c1", c1), ("c2", c2),
+                    ("fd", fd), ("matrix", matrix)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, t_band on {dev}")
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if matrix.dim() != 2 or matrix.shape[0] != matrix.shape[1]:
+        raise ValueError(f"matrix must be (V, V), got {tuple(matrix.shape)}")
+    TB, D = t_band.numel(), q.numel()
+    if t_band.dim() != 1 or TB == 0:
+        raise ValueError("t_band (TB,) with TB >= 1 expected")
+    for name, a in (("q", q), ("f", f), ("c1", c1), ("c2", c2), ("fd", fd)):
+        if a.dim() != 1 or a.numel() != D:
+            raise ValueError(f"{name} must be a stream of {D} slots like q")
+    if Cb < 1 or D < Cb + TB - 1:
+        raise ValueError(f"the streams need Cb + TB - 1 = {Cb + TB - 1} slots, got {D}")
+    j_end, d_end, owned = (int(v) for v in scal)
+    if owned and not (0 <= j_end < TB and 1 <= d_end <= D):
+        raise ValueError("an owned end cell must lie in the band's rows and steps")
+    if check_codes:
+        # the kernel indexes the matrix with the codes
+        V = matrix.shape[0]
+        for name, a, top in (("t_band", t_band, V - 1), ("q", q, V)):
+            lo, hi = torch.aminmax(a)
+            if int(lo) < 0 or int(hi) > top:
+                raise ValueError(f"{name} codes must lie in [0, {top}]")
+    return j_end, d_end, int(bool(owned))
+
+
+def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
+                   with_rc: bool = True, td: int = BAND_TD,
+                   rows_per_lane: int = BAND_ROWS_PER_LANE, check_codes: bool = True):
+    """Fill one block of a global pair, TB rows by ``Cb`` columns, by
+    anti-diagonal steps, scores only.
+
+    Row j of the block (absolute row y_base + j + 1) is on column d - j at
+    step d = 1 … Cb + TB - 1.  Values travel in hat coordinates, the plain H
+    plus d·``ext`` at the step d they belong to.  All arguments are flat
+    int32 tensors on one device; a stream has D >= Cb + TB - 1 slots, slot k
+    for step k + 1 (the reference tiles the same streams as
+    (n_chunks, 1, TD), flat slot = chunk·TD + offset, and its lanes as
+    (S, 128), flat row = sublane·128 + lane):
+
+    * ``t_band`` (TB,) target codes of the block's rows;
+    * ``q`` (D,) the query codes of the block's columns, then the padding
+      code V, which scores 0: cells right of the real columns are
+      unspecified;
+    * ``f`` (D,) the row above the block as row 0 reads it from above,
+      slot k = H[y_base, x0 + k + 1] + k·ext, with the correction for cell
+      (1,1) folded into slot 0 by the caller;
+    * ``fd`` (D,) the same row as row 0 reads it diagonally,
+      slot k = H[y_base, x0 + k] + (k - 1)·ext, without that correction;
+    * ``c1``, ``c2`` (D,) what row k reads at its first column, from the
+      column lb[i] = H[y_base + i, x0] left of the block:
+      c1[k] = lb[k] + (k - 1)·ext, c2[k] = lb[k + 1] + k·ext (with the (1,1)
+      correction in c2[0]); only slots < TB are read;
+    * ``matrix`` (V, V), row = target symbol; ``scal`` = (j_end, d_end,
+      owned): the row and the step of the pair's end cell, and whether this
+      block holds it.
+
+    Returns ``(rb, rc, end)``: ``rb`` (D,) the block's last row in hat
+    coordinates, slot k = H[y_base + TB, x0 + k + 2 - TB] + (k + 1)·ext (the
+    slots before TB - 1 belong to no cell and are unspecified); ``rc`` (TB,)
+    the plain right column H[y_base + j + 1, x0 + Cb], zeros without
+    ``with_rc``; ``end`` (1,) the plain end cell if owned, else 0.  See
+    :func:`band_streams` and :func:`band_handoff` for the two ends of a
+    block.
+
+    CUDA tensors launch the kernel (TB must then be a multiple of
+    32·``rows_per_lane``; ``td`` is the steps of one tile); CPU tensors take
+    :func:`run_block_band_plain`.
+    """
+    j_end, d_end, owned = _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb,
+                                      check_codes)
+    dev = t_band.device
+    if dev.type == "cpu":
+        return run_block_band_plain(t_band, q, f, c1, c2, fd, matrix,
+                                    (j_end, d_end, owned), Cb=Cb, ext=ext,
+                                    with_rc=with_rc)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    import ctypes
+
+    TB, D = t_band.numel(), q.numel()
+    K, TD = int(rows_per_lane), int(td)
+    if K not in (1, 2, 4, 8):
+        raise ValueError("rows_per_lane must be 1, 2, 4 or 8")
+    if TB % (32 * K) or TD < 32:
+        raise ValueError(f"TB {TB} must be a multiple of {32 * K} and td {TD} >= 32")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        i32 = dict(dtype=torch.int32, device=dev)
+        state = torch.full((2, TB), NEG_I32, **i32)
+        carry = torch.full((TB // (32 * K), 2), NEG_I32, **i32)
+        w = torch.full((D,), NEG_I32, **i32)
+        rb = torch.full((D,), NEG_I32, **i32)
+        rc = torch.zeros(TB, **i32)
+        end = torch.zeros(1, **i32)
+        n_launched = ctypes.c_int(0)
+        err = lib.wavefront_band_launch(
+            t_band.data_ptr(), q.data_ptr(), f.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            fd.data_ptr(), matrix.data_ptr(), matrix.shape[0], TB, D, int(Cb), int(ext),
+            K, TD, j_end, d_end, owned, int(bool(with_rc)), state.data_ptr(),
+            carry.data_ptr(), w.data_ptr(), rb.data_ptr(), rc.data_ptr(),
+            end.data_ptr(), ctypes.byref(n_launched),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, err, "wavefront_band")
+        launches.band += 1
+        launches.band_tile_launches += n_launched.value
+    return rb, rc, end
+
+
+def run_block_band_plain(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
+                         with_rc: bool = True):
+    """Plain PyTorch version of the band kernel: one step of the block per
+    iteration, all TB rows at once.  ``a`` is every row's hat of the last
+    step; shifted down one row it is what the row below reads from above,
+    and the same shift one step later its diagonal, with row 0 fed from
+    ``f`` and ``fd``.  Same arguments and results as :func:`run_block_band`."""
+    dev = t_band.device
+    TB, D, V = t_band.numel(), q.numel(), matrix.shape[0]
+    ext = int(ext)
+    j_end, d_end, owned = (int(v) for v in scal)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # scores with the recurrence's 2·ext folded in; the padding code V scores 0
+    m2 = torch.cat([matrix, torch.zeros((V, 1), **i32)], dim=1) + 2 * ext
+    srows = m2[t_band.long()]  # (TB, V + 1): each row's scores by query code
+    rows = torch.arange(TB, device=dev)
+    a = torch.full((TB,), NEG_I32, **i32)
+    u2 = torch.full((TB,), NEG_I32, **i32)
+    qrow = torch.full((TB,), V, dtype=torch.int64, device=dev)
+    qcodes = q.long().clamp(0, V)
+    rb = torch.empty(D, **i32)
+    rc = torch.zeros(TB, **i32)
+    end = torch.zeros(1, **i32)
+    for k in range(D):
+        d = k + 1
+        qrow = torch.cat([qcodes[k : k + 1], qrow[:-1]])
+        s2 = srows[rows, qrow]
+        v = u2 + s2
+        v[0] = s2[0] + fd[k]
+        if d <= TB:  # row d - 1 enters: its diagonal and left come from the column
+            v[d - 1] = torch.maximum(s2[d - 1] + c1[k], c2[k])
+        u1 = torch.cat([f[k : k + 1], a[:-1]])
+        h = torch.maximum(torch.maximum(v, a), u1)
+        if owned and d == d_end:
+            end[0] = h[j_end] - d * ext
+        if with_rc and 0 <= d - Cb < TB:
+            rc[d - Cb] = h[d - Cb] - d * ext
+        rb[k] = h[TB - 1]
+        a, u2 = h, u1
+    return rb, rc, end
+
+
+def band_streams(prev, lb, ext: int, corr: int = 0):
+    """The four input streams of one block from its two borders: ``prev``
+    (D,) the row above in hat coordinates, slot k = H[y_base, x0 + k + 1] +
+    k·ext, and ``lb`` (TB + 1,) the plain column left of it,
+    lb[i] = H[y_base + i, x0].  ``corr`` is del - ext for the block that
+    holds cell (1,1), the only cell whose gap penalty is del
+    (simple/mod.rs:72), and 0 for every other.  Returns ``(f, c1, c2, fd)``."""
+    D, TB = prev.numel(), lb.numel() - 1
+    dvec = torch.arange(1, D + 1, dtype=torch.int32, device=prev.device)
+    c1 = (dvec - 2) * ext
+    c1[:TB] += lb[:TB]
+    c2 = (dvec - 1) * ext
+    c2[:TB] += lb[1:]
+    f = prev.clone()
+    if corr:
+        c2[0] -= corr
+        f[0] -= corr
+    fd = torch.cat([prev.new_zeros(1), prev[:-1]])
+    return f, c1, c2, fd
+
+
+def band_handoff(rb, TB: int, ext: int):
+    """A block's last-row stream as the block below takes its row above:
+    dropping the hat, moving TB - 1 slots and putting the hat back on add up
+    to one constant."""
+    return torch.cat([rb[TB - 1:], rb.new_zeros(TB - 1)]) - TB * ext
+
+
+def _band_end_score(pp, tb: int, td: int, rows_per_lane: int, block=None, trace=None):
+    """The device part of :func:`end_score_single_global_diag`: the band
+    loop with every stream on the device.  Returns the end score as a (1,)
+    tensor on the device, nothing downloaded, and a record of the call.
+    ``block`` is the fill of one band (:func:`run_block_band`, or its plain
+    version to run that on the card too); a ``trace`` list receives every
+    band's ``(args, kwargs, outputs)``."""
+    C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
+    del_, ext, V = pp["del"], pp["ext"], pp["V"]
+    mult = max(LANES, 32 * rows_per_lane)
+    if tb < mult or tb % mult:
+        raise ValueError(f"tb must be a positive multiple of {mult}, got {tb}")
+    TB = min(tb, _cdiv(R_real, mult) * mult)
+    n_bands = _cdiv(R_real, TB)
+    Cb = pp["C_pad"]
+    D = _cdiv(Cb + TB - 1, td) * td
+    i32 = dict(dtype=torch.int32, device=dev)
+    qs = np.full(D, V, np.int32)
+    qs[:C_real] = pp["q"]
+    qs = torch.as_tensor(qs, device=dev)
+    t_dev = torch.as_tensor(_pad_rows(pp["t"], TB), device=dev)
+    dvec = torch.arange(1, D + 1, **i32)
+    # the border row H[0, x] with its far corner, in hat coordinates
+    prev = (torch.where(dvec == C_real, -(C_real + 1) * del_, -dvec * del_)
+            + (dvec - 1) * ext).to(torch.int32)
+    kw = dict(Cb=Cb, ext=ext)
+    extra = dict(with_rc=False)
+    if block is None:
+        block = run_block_band
+        extra.update(td=td, rows_per_lane=rows_per_lane, check_codes=False)
+    end = torch.full((1,), NEG_I32, **i32)
+    for jb in range(n_bands):
+        y_base = jb * TB
+        # the border column H[y, 0] with its far corner
+        ys = y_base + torch.arange(TB + 1, **i32)
+        lb = torch.where(ys == R_real, -(R_real + 1) * del_, -ys * del_).to(torch.int32)
+        streams = band_streams(prev, lb, ext, del_ - ext if jb == 0 else 0)
+        j_end = R_real - 1 - y_base
+        owned = 0 <= j_end < TB
+        args = (t_dev[y_base : y_base + TB], qs, *streams, pp["m_dev"],
+                (j_end, C_real + j_end, owned))
+        out = block(*args, **kw, **extra)
+        if trace is not None:
+            trace.append((args, kw, out))
+        prev = band_handoff(out[0], TB, ext)
+        if owned:
+            end = out[2]
+    return end, dict(bands=n_bands, tb=TB, td=td, steps=D)
+
+
+def end_score_single_global_diag(q, t, matrix, del_: float, ext: float, *,
+                                 tb: int = BAND_ROWS, td: int = BAND_TD,
+                                 device=None) -> float:
+    """Exact global end score H[tlen, qlen] of ONE pair on the band fill:
+    no plane, no directions, no traceback.  Requires :func:`supported`.
+
+    ``tb`` is the band height (a multiple of 128, clamped to the padded
+    target length), ``td`` the steps of one tile of the kernel.  The bands
+    run one after another, each handing the next its last row; the streams
+    of every band are built on the device and nothing comes back between
+    bands: the call waits for the device once, for the end score.
+    """
+    from ..observability import counters
+
+    pp = _prep(q, t, matrix, del_, ext, device)
+    t0 = time.perf_counter()
+    end, _ = _band_end_score(pp, tb, td, BAND_ROWS_PER_LANE)
+    score = float(end.item())  # the call's one wait for the device
+    counters.record(f"{pp['device'].type}/wavefront-band", pp["R_real"] * pp["C_real"],
+                    1, time.perf_counter() - t0)
+    return score
+
+
+def band_grid(q, t, matrix, del_: float, ext: float, *, tb: int, cb: int, device,
+              block=run_block_band, **block_kw):
+    """One global pair as a grid of blocks, ``tb`` rows by ``cb`` columns,
+    on one device: every block takes the row its upper neighbour returned
+    and, as a *streamed* left boundary, the right column its left
+    neighbour returned.  It is the one-device form of the reference's
+    column-sharded pipeline (``aligner_tpu/parallel/wavefront_sp.py``) and
+    exists to hold the block contract of :func:`run_block_band` (``block``)
+    at x0 > 0 against a full plane.  Returns ``(end, rights, bottoms)``:
+    the end score (1,), per column block the plain column
+    H[1 … R_pad, x0 + cb], and per band and column block the plain row
+    H[y_base + tb, x0 + 1 … x0 + cb]."""
+    pp = _prep(q, t, matrix, del_, ext, device)
+    C_real, R_real, dev, V = pp["C_real"], pp["R_real"], pp["device"], pp["V"]
+    del_, ext = pp["del"], pp["ext"]
+    i32 = dict(dtype=torch.int32, device=dev)
+    t_dev = torch.as_tensor(_pad_rows(pp["t"], tb), device=dev)
+    n_bands, n_cb = t_dev.numel() // tb, _cdiv(C_real, cb)
+    D = cb + tb - 1
+    dvec = torch.arange(1, D + 1, **i32)
+    khat = (dvec - 1) * ext
+    qs, prevs = [], []
+    for ci in range(n_cb):
+        x0 = ci * cb
+        codes = np.full(D, V, np.int32)
+        part = pp["q"][x0 : x0 + cb]
+        codes[: len(part)] = part
+        qs.append(torch.as_tensor(codes, device=dev))
+        xg = x0 + dvec  # the border row H[0, x] of this block's columns
+        prevs.append((torch.where(xg == C_real, -(C_real + 1) * del_, -xg * del_)
+                      + khat).to(torch.int32))
+    end = torch.full((1,), NEG_I32, **i32)
+    rights = [torch.zeros(t_dev.numel(), **i32) for _ in range(n_cb)]
+    bottoms = []
+    for jb in range(n_bands):
+        y_base = jb * tb
+        ys = y_base + torch.arange(tb + 1, **i32)
+        row = []
+        for ci in range(n_cb):
+            x0 = ci * cb
+            if ci == 0:
+                lb = torch.where(ys == R_real, -(R_real + 1) * del_, -ys * del_)
+                lb = lb.to(torch.int32)
+            else:
+                left = rights[ci - 1]
+                corner = left[y_base - 1 : y_base] if jb else left.new_full((1,), -x0 * del_)
+                lb = torch.cat([corner, left[y_base : y_base + tb]])
+            f, c1, c2, fd = band_streams(prevs[ci], lb, ext,
+                                         del_ - ext if jb == 0 and ci == 0 else 0)
+            j_end, x_loc = R_real - 1 - y_base, C_real - x0
+            owned = 0 <= j_end < tb and 1 <= x_loc <= cb
+            rb, rc, endv = block(t_dev[y_base : y_base + tb], qs[ci], f, c1, c2, fd,
+                                 pp["m_dev"], (j_end, x_loc + j_end, owned), Cb=cb,
+                                 ext=ext, with_rc=True, **block_kw)
+            prevs[ci] = band_handoff(rb, tb, ext)
+            rights[ci][y_base : y_base + tb] = rc
+            row.append(prevs[ci][:cb] - khat[:cb])
+            if owned:
+                end = endv
+        bottoms.append(row)
+    return end, rights, bottoms

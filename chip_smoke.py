@@ -14,11 +14,12 @@ against the native C++ host engine or the frozen golden fixtures:
    batches (pair mode local/global and PWM mode, shared and per-problem
    matrices, argmax on/off, directions on/off, f32/f64), the walk on
    words from the kernel fill, the row-scan fill of one global pair and
-   the replay walk on ragged shapes, real cells only), and each kernel's
-   time beside its plain version's and its bound at the shapes the main
-   path gives it, with the repeat scan's chunk size timed at 8,192 and
-   65,536 windows and the row-scan's tile and replay-block sizes swept at
-   65,536 x 65,536;
+   the replay walk on ragged shapes, the band fill on band and tile seams,
+   with a streamed left boundary and at full width, real cells only), and
+   each kernel's time beside its plain version's and its bound at the
+   shapes the main path gives it, with the repeat scan's chunk size timed
+   at 8,192 and 65,536 windows and the row-scan's tile and replay-block
+   sizes and the band fill's tile and band sizes swept at 65,536 x 65,536;
 3. golden fixtures: ``batch_align`` on the three example FASTAs;
 4. ``calculate_p_value`` with 5,000 sequences on ``examples/protein.fasta``;
 5. ``aligner-search`` on a seeded 100,000-sequence protein database (local)
@@ -37,9 +38,15 @@ against the native C++ host engine or the frozen golden fixtures:
    3,000 x 4,000 (one direction plane) against the host engine, the
    ``aligner-align -g`` CLI on two 3,000-residue records, and one
    ``align_global`` at the width cap, 262,144 x 262,144, timed only;
-9. the kernels' launch counts of each path: the pair path (phases 3-6),
-   the PWM path (phase 7) and the huge-pair path (phase 8), each counted
-   from zero.
+9. the end score of one huge global pair: ``global_end_score`` at
+   65,536 x 65,536 against the row-scan fill's end cell and the plain band
+   engine, at 8,000 x 9,000 and 3,000 x 4,000 against the host engine, its
+   ``diag``, ``host`` and batched-fill routes on a small pair, one call at
+   262,144 x 262,144 against the row-scan fill's end cell, timed, and
+   ``local_max_score`` against native C++;
+10. the kernels' launch counts of each path: the pair path (phases 3-6),
+   the PWM path (phase 7), the huge-pair path (phase 8) and the end-score
+   path (phase 9), each counted from zero.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -94,6 +101,14 @@ WIDE_LEN = 262_144  # the width cap, timed only
 TILE_SWEEP = ((2, 64), (4, 32), (4, 64), (4, 128), (4, 256), (8, 64), (8, 128), (8, 256))
 TB_SWEEP = (2_048, 8_192, 16_384, 32_768, 65_536)
 TB_TILE_ROWS = (64, 128)
+# the band fill at 65,536 x 65,536: (rows a lane, steps a tile) for one band
+# as tall as the pair, then band heights at the shipped tile
+BAND_TILE_SWEEP = ((1, 128), (2, 128), (4, 64), (4, 128), (4, 256), (4, 512), (8, 128),
+                   (8, 256), (8, 512))
+BAND_TB_SWEEP = (4_096, 16_384, 65_536)
+BAND_TB_WIDE = (65_536, 262_144)  # band heights timed at the width cap
+BAND_FULL_WIDTH_ROWS = 256  # the rows of the full-width band held against plain
+SMALL_PAIR = (300, 400)  # the routes of global_end_score
 CHUNKED_PAIR = (8_000, 9_000)  # (query, target): past the direct-plane budget
 DIRECT_PAIR = (3_000, 4_000)
 CLI_PAIR_LEN = 3_000
@@ -102,6 +117,7 @@ REPLACES = {
     "device_walk": "aligner_tpu/ops/device_walk.py:34",
     "row_scan": "aligner_tpu/ops/wavefront.py:127",
     "replay_walk": "aligner_tpu/ops/wavefront.py:1202",
+    "band": "aligner_tpu/ops/wavefront.py:973",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, the only rate the
@@ -115,6 +131,7 @@ PEAK_OPS_S = 67e12
 # compares and decrements, the pack.
 OPS_FILL, OPS_FILL_DIRS = 6, 10
 OPS_SCAN, OPS_SCAN_DIRS = 5, 9
+OPS_BAND = 3  # hat coordinates carry the penalty: diag + s and two maxima
 OPS_WALK_STEP = 10
 
 
@@ -287,6 +304,81 @@ def wavefront_vs_plain(dev, at, wf):
         cy, cx, _ = state.tolist()
         check(cy == 0 or cx == 0, f"the walk of {C}x{R} did not reach a border")
     return n
+
+
+def same_band(got, want, TB, n_cols, with_rc=True) -> bool:
+    """Two results of the band fill: ``rb`` on the slots that cells of the
+    block's first ``n_cols`` columns feed, ``rc`` and ``end``."""
+    ok = torch.equal(got[0][TB - 1:TB - 1 + n_cols], want[0][TB - 1:TB - 1 + n_cols])
+    if with_rc:
+        ok = ok and torch.equal(got[1], want[1])
+    return ok and torch.equal(got[2], want[2])
+
+
+def band_vs_plain(dev, at, host, wf):
+    """K6 against its plain version: band heights at, below and one past
+    the row count, widths at and one past a tile seam, every band of each
+    pair (band 0 holds the border column and cell (1,1)), the right column
+    on and off, every tile shape, BLOSUM62 and a wide-range DNA matrix; a
+    grid of blocks with a streamed left boundary against the host engine's
+    plane; one full-width band."""
+    b62 = np.array(at.blosum62())
+    wide = np.random.default_rng(SEED + 9).integers(-30, 30, (4, 4)).astype(np.float64)
+    check(wide.max() - wide.min() > 15, "the DNA matrix is not wide-range")
+    n = 0
+    # (C, R, band rows, rows a lane, steps a tile, matrix, del, ext)
+    for C, R, tb, K, td, m, d, e in (
+            (1, 1, 128, 1, 32, b62, 11, 2), (127, 128, 128, 2, 64, b62, 11, 2),
+            (128, 129, 128, 4, 128, b62, 11, 2), (129, 300, 128, 4, 128, b62, 7, 3),
+            (512, 255, 256, 8, 512, b62, 11, 2), (513, 257, 256, 8, 256, b62, 11, 2),
+            (150, 170, 128, 4, 128, wide, 5, 2), (700, 1300, 512, 4, 512, b62, 11, 2)):
+        V = m.shape[0]
+        rng = np.random.default_rng(SEED + C + R)
+        pp = wf._prep(rng.integers(0, V, C), rng.integers(0, V, R), m, d, e, dev)
+        bands = []
+        wf._band_end_score(pp, tb, td, K, block=wf.run_block_band_plain, trace=bands)
+        for jb, (args, kw, _) in enumerate(bands):
+            for with_rc in (True, False):
+                got = wf.run_block_band(*args, **kw, with_rc=with_rc, td=td,
+                                        rows_per_lane=K)
+                want = wf.run_block_band_plain(*args, **kw, with_rc=with_rc)
+                check(same_band(got, want, args[0].numel(), kw["Cb"]),
+                      f"run_block_band != plain ({C}x{R}, band {jb} of {tb} rows, "
+                      f"{K} rows a lane, {td} steps a tile, rc={with_rc})")
+                n += 1
+    # a streamed left boundary: 3 column blocks by 3 bands, x0 > 0
+    C, R, tb, cb = 600, 300, 128, 256
+    q, t = homologous_pair(SEED + 10, C, R)
+    H = host.align_global(q, t, b62, DEL, EXT).score
+    end, rights, bottoms = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb, device=dev,
+                                        td=64)
+    end_p, rights_p, bottoms_p = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb,
+                                              device=dev, block=wf.run_block_band_plain)
+    check(int(end) == int(end_p) == H[R, C], "band grid: end score != the host engine")
+    for ci in range(C // cb):  # the last block's right column lies past the query
+        check(torch.equal(rights[ci][:R], rights_p[ci][:R])
+              and np.array_equal(rights[ci][:R].cpu().numpy(), H[1:R + 1, (ci + 1) * cb]),
+              f"band grid: right column of block {ci} != the host engine")
+    for jb in range(R // tb):
+        for ci in range(-(-C // cb)):
+            w = min(cb, C - ci * cb)
+            check(torch.equal(bottoms[jb][ci][:w], bottoms_p[jb][ci][:w])
+                  and np.array_equal(bottoms[jb][ci][:w].cpu().numpy(),
+                                     H[(jb + 1) * tb, ci * cb + 1:ci * cb + 1 + w]),
+                  f"band grid: last row of block ({jb}, {ci}) != the host engine")
+    n += 9
+    # one full-width band
+    pp = wf._prep(*homologous_pair(PAIR_SEED, PAIR_LEN, BAND_FULL_WIDTH_ROWS), b62, DEL,
+                  EXT, dev)
+    bands = []
+    wf._band_end_score(pp, BAND_FULL_WIDTH_ROWS, wf.BAND_TD, wf.BAND_ROWS_PER_LANE,
+                       block=wf.run_block_band_plain, trace=bands)
+    (args, kw, want), = bands
+    got = wf.run_block_band(*args, **kw, with_rc=False)
+    check(same_band(got, want, args[0].numel(), kw["Cb"], with_rc=False),
+          f"run_block_band != plain (one band of {BAND_FULL_WIDTH_ROWS} rows by "
+          f"{PAIR_LEN} columns)")
+    return n + 1
 
 
 def phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine):
@@ -1055,6 +1147,205 @@ def phase_wavefront_timing(dev, at, wf):
     return rows, dict(q=q, t=t, ckpts=fwd_p[2], state=state_p, steps=steps_p)
 
 
+def phase_band_timing(dev, at, wf, q, t):
+    """K6 at the huge pair's shape, 65,536 x 65,536: the tile sweep on one
+    band as tall as the pair, the band-height sweep over the whole band
+    loop, then the kernel's time beside its plain version's and its bound at
+    the shipped sizes.  Returns the kernel's row and the plain version's end
+    score."""
+    m = np.array(at.blosum62())
+    C, R = len(q), len(t)
+    cells = C * R
+    pp = wf._prep(q, t, m, DEL, EXT, dev)
+    TB, TD, K = wf.BAND_ROWS, wf.BAND_TD, wf.BAND_ROWS_PER_LANE
+    lines = []
+
+    def band_loop(tb, td, k, trace=None):
+        return wf._band_end_score(pp, tb, td, k, trace=trace)
+
+    tall = max(BAND_TB_SWEEP)
+    for k, td in BAND_TILE_SWEEP:
+        bands = []
+        band_loop(tall, td, k, trace=bands)
+        args, kw, _ = bands[0]
+        before = wf.launches.band_tile_launches
+        ms = gpu_ms(lambda: wf.run_block_band(*args, **kw, with_rc=False, td=td,
+                                              rows_per_lane=k, check_codes=False), 2)
+        n_launch = (wf.launches.band_tile_launches - before) // 3
+        lines.append(f"tile sweep, one band of {tall} rows, {R}x{C}: {k} rows a lane, "
+                     f"{td} steps a tile: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
+                     f"{n_launch} launches")
+    for tb in BAND_TB_SWEEP:
+        before = wf.launches.band_tile_launches
+        ms = gpu_ms(lambda: band_loop(tb, TD, K), 2)
+        n_launch = (wf.launches.band_tile_launches - before) // 3
+        lines.append(f"band sweep, the whole band loop, {R}x{C}: bands of {tb} rows "
+                     f"({-(-R // tb)} bands), {K} rows a lane, {TD} steps a tile: "
+                     f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), {n_launch} launches")
+
+    pp_w = wf._prep(*homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN), m, DEL, EXT, dev)
+    for tb in BAND_TB_WIDE:
+        ms = gpu_ms(lambda: wf._band_end_score(pp_w, tb, TD, K), 1)
+        lines.append(f"band sweep at the width cap, {WIDE_LEN}x{WIDE_LEN}: bands of {tb} "
+                     f"rows: {ms:.3f} ms ({WIDE_LEN * WIDE_LEN / ms / 1e6:.1f} GCUPS)")
+
+    # the shipped sizes: the first band of the pair (the only one when the
+    # band is as tall as the pair), kernel against plain
+    bands = []
+    band_loop(TB, TD, K, trace=bands)
+    args, kw, _ = bands[0]
+    rows_b = args[0].numel()
+    before = wf.launches.band_tile_launches
+    got, ms, want, plain_ms = timed_pair(
+        lambda: wf.run_block_band(*args, **kw, with_rc=False, td=TD, rows_per_lane=K,
+                                  check_codes=False),
+        lambda: wf.run_block_band_plain(*args, **kw, with_rc=False), 3)
+    n_launch = (wf.launches.band_tile_launches - before) // 5
+    check(same_band(got, want, rows_b, C, with_rc=False),
+          "run_block_band != plain at the huge pair's shape")
+    row = dict(name="wavefront_band (scores, one band of the huge pair)", route="cuda",
+               source="aligner_tpu_torch/csrc/wavefront_band.cu",
+               replaces=REPLACES["band"], path="end_score", counter="band",
+               max_abs_err=max(max_abs_err(got[0][rows_b - 1:rows_b - 1 + C],
+                                           want[0][rows_b - 1:rows_b - 1 + C]),
+                               max_abs_err(got[2], want[2])),
+               ms=ms, plain_ms=plain_ms, shape=f"{rows_b}x{C} int32",
+               **bound(OPS_BAND * rows_b * C, nbytes(*args[:7], *got)))
+    lines.append(f"one band of {rows_b} rows by {C} columns, {K} rows a lane, {TD} steps "
+                 f"a tile: {ms:.3f} ms ({rows_b * C / ms / 1e6:.1f} GCUPS), {n_launch} "
+                 f"kernel launches a call")
+    print_rows([row])
+    for line in lines:
+        print(f"  {line}", flush=True)
+    plain_end = int(want[2]) if rows_b >= R else None
+    return [row], plain_end
+
+
+def forward_end_cell(dev, at, wf, q, t) -> int:
+    """H[R, C] from K5's forward fill, an independent kernel."""
+    m = torch.as_tensor(np.array(at.blosum62()).astype(np.int32), device=dev)
+    qd, td = padded_pair(dev, wf, q, t, wf.TILE_ROWS)
+    end, _, _ = wf.row_scan(qd, td, m, int(DEL), int(EXT), None, 0, len(q), len(t),
+                            with_dirs=False, check_codes=False)
+    return int(end)
+
+
+def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
+    """The end score of one huge global pair through ``global_end_score``:
+    65,536 x 65,536 against K5's forward end cell and the plain band
+    engine, two smaller pairs against the host engine, the routes on a
+    small pair, the width cap timed, and ``local_max_score``."""
+    import warnings
+
+    from aligner_tpu_torch.observability import counters
+
+    m = at.blosum62()
+    C, R = len(q), len(t)
+    L = wf.launches
+    counters.reset()
+    before = (L.band, L.band_tile_launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = at.global_end_score(q, t, m, DEL, EXT, device=DEVICE)
+    wall = time.perf_counter() - t0
+    band = counters.snapshot()[f"{DEVICE}/wavefront-band"]
+    calls, tiles = L.band - before[0], L.band_tile_launches - before[1]
+    # the device part alone, and how often it waits: the loop itself never
+    # does, the call reads the end score once
+    pp = wf._prep(q, t, np.asarray(m), DEL, EXT, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter("always")
+        torch.as_tensor(np.zeros(8, np.int32), device=dev)
+        per_upload = len(flagged)
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        end, info = wf._band_end_score(pp, wf.BAND_ROWS, wf.BAND_TD, wf.BAND_ROWS_PER_LANE)
+        enqueued = time.perf_counter() - t0
+        n_loop = len(flagged)
+        end_host = int(end.item())
+        device_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    n_read = len(flagged) - n_loop
+    check(n_read <= 1 and n_loop <= 2 * per_upload,
+          f"the band loop waited for the device {n_loop} times (2 uploads allowed) and "
+          f"the read {n_read} times")
+    k5 = forward_end_cell(dev, at, wf, q, t)
+    check(score == end_host == k5, f"global_end_score {score} != K5's end cell {k5}")
+    check(plain_end is None or score == plain_end,
+          f"global_end_score {score} != the plain band engine's {plain_end}")
+    print(f"  global_end_score {R}x{C}: wall {wall:.4f} s (band loop to the score "
+          f"{band.seconds:.4f} s, {band.gcups:.1f} GCUPS), {calls} band calls of "
+          f"{info['tb']} rows, {tiles} kernel launches, {n_read} wait for the device a "
+          f"call; score {int(score)} equals K5's forward end cell"
+          + ("" if plain_end is None else " and the plain band engine's"), flush=True)
+    print(f"  the band loop alone: enqueued in {enqueued:.4f} s, the score read after "
+          f"{device_s:.4f} s; torch's sync debug mode flagged {n_loop} synchronising "
+          f"calls while the loop was enqueued (it uploads the two sequences before its "
+          f"first launch, and flags {per_upload} for one upload from host memory) and "
+          f"{n_read} at the read", flush=True)
+
+    for cq, ct in (CHUNKED_PAIR, DIRECT_PAIR):
+        q2, t2 = homologous_pair(PAIR_SEED + cq, cq, ct)
+        t0 = time.perf_counter()
+        got = at.global_end_score(q2, t2, m, DEL, EXT, device=DEVICE)
+        wall = time.perf_counter() - t0
+        ref = host.align_global(q2, t2, m, DEL, EXT)
+        check(got == ref.score[ct, cq], f"global_end_score {ct}x{cq} != the host engine")
+        print(f"  global_end_score {ct}x{cq}: wall {wall:.4f} s, equals the host "
+              f"engine's score[{ct}, {cq}] = {got}", flush=True)
+
+    # the routes, on a small pair: diag and host by name, and a non-integral
+    # matrix, which the band engine does not take: a batch of one in f64
+    q5, t5 = homologous_pair(PAIR_SEED + 3, *SMALL_PAIR)
+    ref = host.align_global(q5, t5, m, DEL, EXT).score[len(t5), len(q5)]
+    for backend in ("diag", "host"):
+        got = at.global_end_score(q5, t5, m, DEL, EXT, backend=backend, device=DEVICE)
+        check(got == ref, f"global_end_score backend={backend} != the host engine")
+    half = np.asarray(m) * 0.5
+    before_fill = dp_fill_scores()
+    got = at.global_end_score(q5, t5, half, 5.5, 1.25, device=DEVICE)
+    ref = host.align_global(q5, t5, half, 5.5, 1.25).score[len(t5), len(q5)]
+    check(got == ref and dp_fill_scores() == before_fill + 1,
+          "global_end_score with a non-integral matrix != the host engine")
+    print(f"  global_end_score {SMALL_PAIR[1]}x{SMALL_PAIR[0]}: backend diag and host "
+          f"equal the host engine; a non-integral matrix runs as a batch of one on the "
+          f"batched fill (f64) and equals it too ({got})", flush=True)
+
+    # the width cap: timed, and held against K5's forward end cell
+    q4, t4 = homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN)
+    counters.reset()
+    before = (L.band, L.band_tile_launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    score = at.global_end_score(q4, t4, m, DEL, EXT, device=DEVICE)
+    wall = time.perf_counter() - t0
+    band = counters.snapshot()[f"{DEVICE}/wavefront-band"]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    k5 = forward_end_cell(dev, at, wf, q4, t4)
+    check(score == k5, f"global_end_score at the width cap {score} != K5's end cell {k5}")
+    print(f"  global_end_score {WIDE_LEN}x{WIDE_LEN}: wall {wall:.4f} s (band loop to "
+          f"the score {band.seconds:.4f} s, {band.gcups:.1f} GCUPS), {L.band - before[0]} "
+          f"band calls, {L.band_tile_launches - before[1]} kernel launches, peak device "
+          f"memory {peak:.0f} MiB; score {int(score)} equals K5's forward end cell",
+          flush=True)
+
+    f, (my, mx) = at.local_max_score(pq, pt, m, DEL, EXT, device=DEVICE)
+    check((f, my, mx) == tuple(native.local_max_score_stream(pq, pt, np.asarray(m), DEL,
+                                                             EXT)),
+          "local_max_score != native C++")
+    print(f"  local_max_score on examples/protein.fasta: {f} at ({my}, {mx}), equals "
+          f"native C++", flush=True)
+
+
+def dp_fill_scores() -> int:
+    from aligner_tpu_torch.ops import dp_fill
+
+    return dp_fill.launches.scores
+
+
 def spells(at, aln, q, t) -> bool:
     """Without their blanks the aligned strings are the sequences, each
     with its last character twice: the reference seeds the walk with the
@@ -1198,6 +1489,7 @@ def main() -> int:
     with phase("kernel vs plain"):
         n = phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine)
         n += wavefront_vs_plain(dev, at, wf)
+        n += band_vs_plain(dev, at, host, wf)
         print(f"  {n} variants bit-identical", flush=True)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1212,6 +1504,8 @@ def main() -> int:
                                  seq)
         wf_rows, plain = phase_wavefront_timing(dev, at, wf)
         rows += wf_rows
+        band_rows, plain_end = phase_band_timing(dev, at, wf, plain["q"], plain["t"])
+        rows += band_rows
 
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
@@ -1220,7 +1514,8 @@ def main() -> int:
                     row_scan=wf.launches.row_scan,
                     row_scan_dirs=wf.launches.row_scan_dirs,
                     replay_walk=wf.launches.replay_walk,
-                    tile_launches=wf.launches.tile_launches)
+                    tile_launches=wf.launches.tile_launches, band=wf.launches.band,
+                    band_tile_launches=wf.launches.band_tile_launches)
 
     def reset_counts():
         dp_fill.launches.reset()
@@ -1253,11 +1548,17 @@ def main() -> int:
         with phase("huge global pair"):
             phase_huge_pair(at, native, host, wf, cli_align, plain, tmp)
     counts["huge"] = launch_counts()
+    reset_counts()
+    with phase("huge-pair end score"):
+        phase_end_score(dev, at, native, host, wf, plain["q"], plain["t"], plain_end, pq,
+                        pt)
+    counts["end_score"] = launch_counts()
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "walk")),
                 ("pwm", "phase 7", ("pwm_scores", "pwm_dirs", "walk")),
-                ("huge", "phase 8", ("row_scan", "row_scan_dirs", "replay_walk"))):
+                ("huge", "phase 8", ("row_scan", "row_scan_dirs", "replay_walk")),
+                ("end_score", "phase 9", ("band",))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,

@@ -1,7 +1,8 @@
 """CUDA kernels against their plain PyTorch versions on the card, bit for
 bit (the cases of chip_smoke.py's kernel phase): the fill kernel in pair
 mode (K1/K2) and in PWM mode (K3), the walk (K4), the row-scan fill of
-one global pair (K5) and the replay walk.
+one global pair (K5), the replay walk, and the band fill (K6) with the
+end score built on it.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -266,3 +267,103 @@ def test_align_global_on_the_card_matches_the_host_engine(dev, monkeypatch, budg
     assert np.array_equal(a.query, ref.query_aligned)
     assert np.array_equal(a.target, ref.target_aligned)
     assert tuple(map(tuple, a.coords)) == tuple(map(tuple, ref.coords))
+
+
+def _band_case(seed, C, R, TB, jb, dev, m=None, d=11, e=2, K=1):
+    """The inputs of band ``jb`` of a seeded pair on the card, as
+    ``end_score_single_global_diag`` builds them for a kernel of ``K`` rows
+    a lane (a band taller than the pair is cut to a multiple of 32 K rows);
+    the bands above it are filled with the plain version."""
+    rng = np.random.default_rng(seed)
+    m = np.array(blosum62()) if m is None else m
+    q = rng.integers(0, m.shape[0], C)
+    t = rng.integers(0, m.shape[0], R)
+    pp = wavefront._prep(q, t, m, d, e, dev)
+    bands = []
+    wavefront._band_end_score(pp, TB, 32, K, block=wavefront.run_block_band_plain,
+                              trace=bands)
+    args, kw, _ = bands[jb]
+    return args, kw
+
+
+def _same_band(got, want, TB, Cb):
+    """rb on the slots that cells of the block's columns feed, rc and end."""
+    return (torch.equal(got[0][TB - 1:TB - 1 + Cb], want[0][TB - 1:TB - 1 + Cb])
+            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+
+
+# (C, R, TB, band): band heights at, below and one past the row count,
+# widths at and one past a tile seam, band 0 and a later band
+BAND_SHAPES = [(1, 1, 256, 0), (255, 256, 256, 0), (257, 257, 256, 1), (256, 600, 256, 2),
+               (257, 100, 512, 0), (700, 1025, 512, 1), (64, 700, 256, 2)]
+
+
+@pytest.mark.parametrize("with_rc", [True, False], ids=["rc", "norc"])
+@pytest.mark.parametrize("K,td", [(1, 32), (2, 64), (4, 128), (8, 512)])
+@pytest.mark.parametrize("C,R,TB,jb", BAND_SHAPES,
+                         ids=[f"{c}x{r}-tb{tb}-band{j}" for c, r, tb, j in BAND_SHAPES])
+def test_band_kernel_matches_plain(dev, C, R, TB, jb, K, td, with_rc):
+    args, kw = _band_case(30, C, R, TB, jb, dev, K=K)
+    got = wavefront.run_block_band(*args, **kw, with_rc=with_rc, td=td, rows_per_lane=K)
+    torch.cuda.synchronize()
+    want = wavefront.run_block_band_plain(*args, **kw, with_rc=with_rc)
+    assert _same_band(got, want, args[0].numel(), kw["Cb"])
+
+
+def test_band_kernel_wide_range_matrix(dev):
+    m = np.random.default_rng(31).integers(-30, 30, (4, 4)).astype(np.float64)
+    args, kw = _band_case(32, 150, 170, 128, 1, dev, m=m, d=5, e=2)
+    got = wavefront.run_block_band(*args, **kw)
+    want = wavefront.run_block_band_plain(*args, **kw)
+    assert _same_band(got, want, 128, kw["Cb"])
+
+
+def test_band_kernel_streamed_left_boundary(dev):
+    """Column blocks fed their left neighbour's right column, against the
+    host engine's plane and the plain version's grid."""
+    from aligner_tpu_torch import host
+
+    rng = np.random.default_rng(33)
+    C, R, tb, cb = 600, 300, 128, 256
+    q, t = rng.integers(0, V, C).astype(np.int8), rng.integers(0, V, R).astype(np.int8)
+    m = np.array(blosum62())
+    H = host.align_global(q, t, m, 11.0, 2.0).score
+    end, rights, bottoms = wavefront.band_grid(q, t, m, 11.0, 2.0, tb=tb, cb=cb,
+                                               device=dev, td=64)
+    end_p, rights_p, bottoms_p = wavefront.band_grid(
+        q, t, m, 11.0, 2.0, tb=tb, cb=cb, device=dev, block=wavefront.run_block_band_plain)
+    assert int(end) == int(end_p) == H[R, C]
+    for ci in range(2):  # the third block's right column lies past the query
+        col = rights[ci][:R]
+        assert torch.equal(col, rights_p[ci][:R])
+        assert np.array_equal(col.cpu().numpy(), H[1:R + 1, (ci + 1) * cb])
+    for jb in range(2):
+        for ci in range(3):
+            n = min(cb, C - ci * cb)
+            row = bottoms[jb][ci][:n]
+            assert torch.equal(row, bottoms_p[jb][ci][:n])
+            assert np.array_equal(row.cpu().numpy(),
+                                  H[(jb + 1) * tb, ci * cb + 1:ci * cb + 1 + n])
+
+
+def test_band_launch_counter_counts_kernel_launches(dev):
+    args, kw = _band_case(34, 300, 130, 256, 0, dev)
+    L = wavefront.launches
+    before = (L.band, L.band_tile_launches, L.row_scan)
+    wavefront.run_block_band(*args, **kw, td=128, rows_per_lane=4)
+    assert L.band == before[0] + 1 and L.band_tile_launches > before[1]
+    assert L.row_scan == before[2]
+
+
+@pytest.mark.parametrize("C,R", [(700, 900), (1, 1), (129, 1), (3000, 70), (2500, 2500)])
+def test_global_end_score_on_the_card_matches_the_host_engine(dev, C, R):
+    from aligner_tpu_torch import global_end_score, host
+
+    rng = np.random.default_rng(35)
+    q, t = rng.integers(0, 20, C).astype(np.int8), rng.integers(0, 20, R).astype(np.int8)
+    ref = host.align_global(q, t, np.array(blosum62()), 11.0, 2.0)
+    for tb in (256, 65536):
+        got = wavefront.end_score_single_global_diag(q, t, np.array(blosum62()), 11.0, 2.0,
+                                                     tb=tb, device=dev)
+        assert got == ref.score[R, C]
+    assert global_end_score(q, t, blosum62(), 11.0, 2.0, device=dev) == ref.score[R, C]

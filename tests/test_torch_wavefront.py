@@ -357,6 +357,10 @@ NO_CARD = {
     "cli_repeat_search": lambda: port_cli_repeat.main(
         ["-i", _FASTA, "-o", "/dev/null", "-r", "4", "-q", "2"]),
     "fill_single_global": lambda: wf.fill_single_global(_Q, _Q, B62, 11.0, 2.0),
+    "global_end_score": lambda: port.global_end_score(_Q, _Q, B62, 11.0, 2.0),
+    "local_max_score": lambda: port.local_max_score(_Q, _Q, B62, 11.0, 2.0),
+    "end_score_single_global_diag": lambda: wf.end_score_single_global_diag(
+        _Q, _Q, B62, 11.0, 2.0),
 }
 
 
