@@ -10,7 +10,8 @@ heuristic PWM aligner and the latent-repeat search (:mod:`.repeat`); and
 single pairs (:func:`align_global`, :func:`align_local`), a huge global
 pair on the row-scan fill with checkpoint-and-replay traceback; and the
 scores of one pair without a traceback (:func:`global_end_score` on the
-band fill, :func:`local_max_score`).
+band fill, :func:`local_max_score`); and a global pair wider than one plane
+on the column-blocked pipeline (:mod:`.parallel`, the column-block fill).
 
 ``device=None`` means the CUDA card everywhere and raises
 :class:`DeviceUnavailable` without one; ``device="cpu"`` asks for the
@@ -49,7 +50,8 @@ from .align import (
     local_max_score,
 )
 from .heuristic import HeuristicPWMAligner, Heuristics, heuristic_align_pwm
-from . import repeat  # noqa: E402
+from . import parallel, repeat  # noqa: E402
+from .parallel import sharded_global_align, sharded_global_end_score
 from .search import SearchHit, search_database
 from .statistics import (
     DistributionParams,
@@ -66,6 +68,9 @@ __all__ = [
     "search",
     "statistics",
     "repeat",
+    "parallel",
+    "sharded_global_align",
+    "sharded_global_end_score",
     "BatchScores",
     "batch_align",
     "align_global",

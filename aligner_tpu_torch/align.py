@@ -8,7 +8,9 @@ host decode.  The PWM path is the same in PWM mode:
 specialisation → the walk in local mode → :func:`decode_pwm_batch`.
 One huge global pair has no batch axis: :func:`align_global` runs it on
 the row-scan fill and the replay walk, and :func:`global_end_score` gives
-its end score alone on the band fill (``ops/wavefront.py``).
+its end score alone on the band fill (``ops/wavefront.py``); a pair wider
+than one plane, or ``backend="wavefront_sp"``, takes the column-blocked
+pipeline on the column-block fill (``parallel/wavefront_sp.py``).
 Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
 ``align_pwm``/``align_global``/``align_local``/``global_end_score``/
 ``local_max_score`` and bit-identical to them.
@@ -18,6 +20,12 @@ Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
 ``device="cpu"`` asks for the plain PyTorch versions.  The dtype follows
 the data (:func:`aligner_tpu_torch.backend.dtype_for`): float32 on CUDA
 only for integer-valued scoring, float64 otherwise and on the CPU.
+
+The port does not read ``ALIGNER_DEVICE_WALK``.  The JAX package reads it
+to send a traceback to a per-cell walk on the host; here every walk runs on
+the device where the directions lie, and setting the variable changes
+nothing.  The host walk will come under a named argument, together with
+``keep_planes``, not under an environment variable.
 """
 
 from __future__ import annotations
@@ -167,7 +175,8 @@ def batch_align(
                 np.asarray(matrix), ((0, extra), (0, 0), (0, 0))
             )
     device = resolve_device(device)
-    dtype = dtype or dtype_for(device, matrix, del_, ext)
+    dtype = dtype or dtype_for(device, matrix, del_, ext,
+                               lengths=(t.shape[1], q.shape[1]))
     skip_mask = (
         np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
     )
@@ -285,7 +294,8 @@ def batch_align_pwm(
         np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
     )
     device = resolve_device(device)
-    dtype = dtype or dtype_for(device, pwm, del_, ext)
+    dtype = dtype or dtype_for(device, pwm, del_, ext,
+                               lengths=(q.shape[1], pwm.shape[-1]))
     res = _fill_pwm(q, ql, pwm, del_, ext, with_alignments, device, dtype,
                     track_argmax=track_argmax or with_alignments)
     if not with_alignments:
@@ -315,6 +325,28 @@ def batch_align_pwm(
     return out
 
 
+def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto) -> bool:
+    """Shared huge-pair dispatch: does this single-pair request run on the
+    column-blocked pipeline?  Raises ValidationError for an explicit
+    ``backend="wavefront_sp"`` the pipeline cannot honour (the auto path
+    simply declines).  One definition, so that :func:`align_global` and
+    :func:`global_end_score` route identically
+    (``aligner_tpu.align._route_sharded_pair``; its "huge and more than one
+    device" clause needs several cards and waits for the multi-GPU
+    placement of the column blocks)."""
+    from .ops import wavefront as wf
+
+    ok = integral_params(matrix_np, del_, ext) and wf.range_ok(qlen, tlen, del_, ext)
+    if backend == "wavefront_sp":
+        if not ok:
+            raise ValidationError(
+                "wavefront_sp requires an integral matrix/penalties "
+                "with scores in the int32-exact range"
+            )
+        return True
+    return auto and ok and qlen > wf.MAX_WIDTH
+
+
 def align_global(
     query,
     target,
@@ -323,6 +355,7 @@ def align_global(
     ext: float,
     *,
     alphabet: type[Alphabet] = Protein,
+    backend: str | None = None,
     device=None,
 ) -> AlignmentResult:
     """Global (NW-style) alignment of one pair (simple/mod.rs:42-144).
@@ -332,10 +365,15 @@ def align_global(
     most ``ops.wavefront.MAX_WIDTH``) runs on it: one direction plane up
     to ``ops.wavefront.DIRECT_PLANE_CELLS`` cells, checkpoint-and-replay
     above.  That is exact in global mode because the penalty is constant
-    ``ext`` after cell (1,1) (SURVEY.md §2.3.3).  Any other pair (a
-    transformed, non-integral matrix) runs as a batch of one on the batched
-    fill up to the direct-plane budget and is refused above it: no route
-    materialises an O(R·C) plane at that scale.
+    ``ext`` after cell (1,1) (SURVEY.md §2.3.3).  A wider pair with integral
+    scoring, and any such pair under ``backend="wavefront_sp"``, runs on the
+    column-blocked pipeline
+    (:func:`aligner_tpu_torch.parallel.wavefront_sp.sharded_global_align`),
+    whose fills and replay tiles are one column block wide.  Any other pair
+    (a transformed, non-integral matrix) runs as a batch of one on the
+    batched fill up to the direct-plane budget and is refused above it: no
+    route materialises an O(R·C) plane at that scale.  ``backend`` keeps
+    the JAX package's names: ``None``/``"auto"`` or ``"wavefront_sp"``.
     """
     from .ops import wavefront as wf
 
@@ -343,17 +381,25 @@ def align_global(
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
+    if backend not in (None, "auto", "wavefront_sp"):
+        raise ValidationError(
+            f"unknown backend {backend!r} for align_global (choose auto or wavefront_sp)"
+        )
     device = resolve_device(device)
     matrix_np = np.asarray(matrix)
     cells = len(q) * len(t)
     huge = cells > wf.DIRECT_PLANE_CELLS
+    if _route_sharded_pair(len(q), len(t), matrix_np, del_, ext, backend=backend,
+                           auto=backend in (None, "auto")):
+        from .parallel.wavefront_sp import sharded_global_align
+
+        _, qa, ta, coords = sharded_global_align(None, q, t, matrix_np, del_, ext,
+                                                 device=device)
+        return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
         fn = wf.align_single_global_chunked if huge else wf.align_single_global_direct
         _, qa, ta, coords = fn(q, t, matrix_np, del_, ext, device=device)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
-    if (len(q) > wf.MAX_WIDTH and integral_params(matrix_np, del_, ext)
-            and wf.range_ok(len(q), len(t), del_, ext)):
-        raise _wide_pair_error(len(q), wf.MAX_WIDTH)
     if huge:
         # the batched engine materializes O(R*C) planes: at this scale a
         # silent fallthrough is an OOM, not an alignment
@@ -366,14 +412,6 @@ def align_global(
     (res,) = batch_align([q], [t], matrix_np, del_, ext, mode="global",
                          alphabet=alphabet, device=device, with_alignments=True)
     return res
-
-
-def _wide_pair_error(qlen: int, max_width: int) -> ValidationError:
-    return ValidationError(
-        f"global pair with a query of {qlen} is wider than the single-card "
-        f"engine's {max_width} columns; the column-sharded multi-GPU "
-        "route is not ported yet"
-    )
 
 
 def global_end_score(
@@ -401,8 +439,10 @@ def global_end_score(
     ``ops.wavefront.DIRECT_PLANE_CELLS`` cells and is refused above.
     ``"diag"`` forces the band engine and raises when the pair is not
     supported; ``"host"`` is the host engine (native C++ fill);
-    ``"wavefront_sp"``, the column-sharded route over several cards, is not
-    ported yet and raises, as does a query wider than the single-card cap.
+    ``"wavefront_sp"`` is the column-blocked pipeline
+    (:func:`aligner_tpu_torch.parallel.wavefront_sp.sharded_global_end_score`),
+    which a pair with integral scoring and a query wider than
+    ``ops.wavefront.MAX_WIDTH`` takes by itself, as in :func:`align_global`.
     The JAX package sends a small pair to the host below a cell count that
     was tuned for its accelerator's dispatch cost; that threshold is not
     carried over: no size picks the host silently.
@@ -426,10 +466,11 @@ def global_end_score(
     device = resolve_device(device)
     auto = backend in (None, "auto")
     cells = len(q) * len(t)
-    wide = (len(q) > wf.MAX_WIDTH and integral_params(matrix_np, del_, ext)
-            and wf.range_ok(len(q), len(t), del_, ext))
-    if backend == "wavefront_sp" or (auto and wide):
-        raise _wide_pair_error(len(q), wf.MAX_WIDTH)
+    if _route_sharded_pair(len(q), len(t), matrix_np, del_, ext, backend=backend,
+                           auto=auto):
+        from .parallel.wavefront_sp import sharded_global_end_score
+
+        return sharded_global_end_score(None, q, t, matrix_np, del_, ext, device=device)
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
         return wf.end_score_single_global_diag(q, t, matrix_np, del_, ext, device=device)
     if backend == "diag":

@@ -27,6 +27,7 @@ from ..align import align_global, align_local
 from ..alphabet import BLANK, POS, DNA, Protein
 from ..errors import ValidationError
 from ..io import read_fasta_file
+from ..observability import configure_logging
 from ..result import Alignment
 
 
@@ -85,6 +86,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda: the kernels (raises without a card); "
                          "cpu: their plain PyTorch versions")
     args = ap.parse_args(argv)
+    configure_logging()
 
     seqs = read_fasta_file(args.input)
     if len(seqs) != 2:

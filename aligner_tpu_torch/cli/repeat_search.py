@@ -29,6 +29,7 @@ import sys
 import numpy as np
 
 from ..io.records import Record, write_records
+from ..observability import configure_logging
 from ..repeat.engine import (
     SearchOptions,
     run_csv_cmd,
@@ -74,6 +75,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda: the kernels (raises without a card); "
                          "cpu: their plain PyTorch versions")
     args = ap.parse_args(argv)
+    configure_logging()
 
     opts = SearchOptions(
         repeat_length=args.repeat_length,

@@ -16,6 +16,7 @@ from ..errors import ValidationError
 from ..io import read_fasta_file
 from ..matrices import blosum50, blosum62
 from ..io.matrix_io import matrix_from_csv
+from ..observability import configure_logging
 from ..search import search_database
 
 
@@ -47,6 +48,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda: the kernels (raises without a card); "
                          "cpu: their plain PyTorch versions")
     args = ap.parse_args(argv)
+    configure_logging()
 
     alphabet = DNA if args.dna else Protein
     query = read_fasta_file(args.query)[0]

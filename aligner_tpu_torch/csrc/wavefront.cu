@@ -5,206 +5,37 @@
 // aligner_tpu/ops/wavefront.py::walk_tile_inner (the lax.while_loop that
 // walks a replayed block inside _replay_walk_all).
 //
-// What the fill computes, for one (query, target) pair in int32:
-//   H[y,x] = max(H[y-1,x-1] + m[t[y], q[x]], H[y-1,x] - pen, H[y,x-1] - pen)
-// with pen = del at cell (1,1) only and ext elsewhere; borders
-// H[0,x] = -x*del, H[y,0] = -y*del, with the far corners H[0,C] = -(C+1)*del
-// and H[R,0] = -(R+1)*del (R, C are the pair's lengths, also in a block
-// replayed from a checkpoint row); the direction of a cell from finished
-// integers: TOP if H <= H[y-1,x] - pen, else LEFT if H <= H[y,x-1] - pen,
-// else DIAG.  The TPU kernel evaluates a whole row as a max-prefix-scan;
-// none of that is carried over: integers give the same bits in any order,
-// so this kernel evaluates cells directly.
-//
-// What bounds it on the H100: operations.  A cell is about a dozen integer
-// operations on a dependent chain along the row; the bytes are small
-// (the sequences once, 2 bits a cell of directions when asked for, one
-// H row per checkpoint).  The only parallel axis of one pair is the
-// anti-diagonal.
-//
-// What the design does about it: the plane is cut into tiles of TR rows by
-// 32*K columns, one warp per tile.  Lane l owns K neighbouring columns and
-// keeps their H values of the previous row in registers; it runs row r at
-// step r + l, so the value it needs from its left neighbour arrives by one
-// warp shuffle per step and no cell waits on memory.  Tiles hand off
-// through device memory: a tile reads its top row from `hrow` and its left
-// column from its tile row's segment of `hcol`, and overwrites both with
-// its bottom row and right column.  The left column's first slot carries
-// the corner H[y0-1, x0-1]: the tile to the left writes it from its own
-// top row, so no tile reads a slot another tile of the same launch writes.
-// All tiles of one anti-diagonal of tiles are independent and run as one
-// launch; a call makes n_tile_rows + n_tile_cols - 1 launches in stream
-// order.  Hopper's DPX intrinsics (__viaddmax_s32) and a persistent grid
-// with flags are the natural next steps and are left for later work.
+// The fill is the tile kernel of wavefront_tile.cuh (what it computes, what
+// bounds it on the H100 and what the design does about it are set out
+// there), instantiated for a call that spans the pair's width: the left
+// column and, from row 0, the top row are the plane's borders in closed
+// form.  The TPU kernel evaluates a whole row as a max-prefix-scan; none of
+// that is carried over: integers give the same bits in any order, so the
+// kernel evaluates cells directly.
 //
 // The walk is one cursor, so one warp: it loads the 32 direction words
 // that end at the cursor's column with one coalesced read and then moves
 // inside that 16-row by 32-column window by warp shuffles, without
 // touching memory, until the cursor leaves the window.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "wavefront_tile.cuh"
 
 namespace {
 
-constexpr int TOP = 0, LEFT = 1, DIAG = 2;
-constexpr unsigned FULL = 0xffffffffu;
-
-struct ScanArgs {
-    const int* q;       // (C_pad,) query codes, padded with a valid code
-    const int* t;       // (R_pad,) target codes of this call's rows
-    const int* matrix;  // (V, V) int32 scores, row = target symbol
-    const int* h0;      // (C_pad,) H[y_offset, 1..C_pad] when y_offset > 0
-    int* hrow;          // (C_pad,) scratch: the row handed down between tiles
-    int* hcol;          // (n_tr, TR + 1) scratch: corner + column handed right
-    int* end_out;       // (1,) H[R_real, C_real]
-    int* words;         // (R_pad / 16, C_pad) direction words, or null
-    int* ckpts;         // (R_pad / ckpt_every, C_pad) checkpoint rows, or null
-    long long C_pad;
-    int V, y_offset, C_real, R_real, del, ext, TR, n_tr, n_tc, ckpt_every;
-};
-
-// H[y, 0]: the left border with its far-corner overwrite.
-__device__ __forceinline__ int border_col(int y, int R_real, int del) {
-    return y == R_real ? -(R_real + 1) * del : -y * del;
-}
-
-// H[0, x]: the top border with its far-corner overwrite.
-__device__ __forceinline__ int border_row(int x, int C_real, int del) {
-    return x == C_real ? -(C_real + 1) * del : -x * del;
-}
-
-template <int K, bool DIRS>
-__global__ void __launch_bounds__(32)
-row_scan_tile_kernel(ScanArgs a, int diag) {
-    extern __shared__ int smem[];
-    int* smat = smem;                  // V * V
-    int* t_s = smat + a.V * a.V;       // TR
-    int* col_s = t_s + a.TR;           // TR + 1
-
-    const int lane = threadIdx.x;
-    const int i_lo = diag - (a.n_tc - 1) > 0 ? diag - (a.n_tc - 1) : 0;
-    const int i = i_lo + blockIdx.x;   // tile row
-    const int j = diag - i;            // tile column
-    const int TR = a.TR;
-    const int row0 = i * TR;           // first row of the tile, within the call
-    const int y0 = a.y_offset + row0 + 1;   // its absolute 1-based row
-    const int xf = j * (32 * K) + lane * K + 1;  // my first 1-based column
-
-    for (int k = lane; k < a.V * a.V; k += 32) smat[k] = a.matrix[k];
-    for (int k = lane; k < TR; k += 32) t_s[k] = a.t[row0 + k];
-    int* hcol_i = a.hcol + (long long)i * (TR + 1);
-    for (int k = lane; k <= TR; k += 32)
-        col_s[k] = j == 0 ? border_col(y0 - 1 + k, a.R_real, a.del) : hcol_i[k];
-
-    int h[K], qk[K];
-    unsigned dw[K];
-    const bool top_is_border = i == 0 && a.y_offset == 0;
-    const int* top = i == 0 ? a.h0 : a.hrow;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        qk[k] = a.q[xf - 1 + k];
-        h[k] = top_is_border ? border_row(xf + k, a.C_real, a.del) : top[xf - 1 + k];
-        dw[k] = 0u;
-    }
-    __syncwarp();
-    // H[y0 - 1, x0 - 1]: lane 0's first diagonal (the other lanes' value is
-    // overwritten below before they start)
-    int diag_carry = col_s[0];
-    __syncwarp();
-    // the corner the tile to the right will need: this tile's top-right value
-    if (lane == 31) col_s[0] = h[K - 1];
-    // H of my last column in the row I finished last; before my first row
-    // it is my top value, which is my right neighbour's first diagonal
-    int right = h[K - 1];
-
-    // Lane l runs row r at step r + l.  Its left neighbour finished row r
-    // one step earlier, so the shuffle at the top of a step brings
-    // H[y, xf - 1]; the value brought one step before is H[y - 1, xf - 1].
-    for (int s = 0; s < TR + 31; ++s) {
-        const int r = s - lane;
-        const bool active = r >= 0 && r < TR;
-        int left_in = __shfl_up_sync(FULL, right, 1);
-        if (lane == 0 && active) left_in = col_s[1 + r];
-        if (active) {
-            const int y = y0 + r;
-            const int* mrow = smat + t_s[r] * a.V;
-            int left = left_in;
-            int dg = diag_carry;
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-                const int up = h[k];
-                const int pen = (y == 1 && xf + k == 1) ? a.del : a.ext;
-                const int vt = up - pen;
-                const int vl = left - pen;
-                int hv = dg + mrow[qk[k]];
-                hv = hv > vt ? hv : vt;
-                hv = hv > vl ? hv : vl;
-                if (DIRS) {
-                    const unsigned d = hv <= vt ? TOP : (hv <= vl ? LEFT : DIAG);
-                    dw[k] |= d << (2 * (r & 15));
-                }
-                if (y == a.R_real && xf + k == a.C_real) a.end_out[0] = hv;
-                dg = up;
-                left = hv;
-                h[k] = hv;
-            }
-            right = h[K - 1];
-            if (lane == 31) col_s[1 + r] = right;
-            if (DIRS && (r & 15) == 15) {
-                int* w = a.words + (long long)((row0 + r) >> 4) * a.C_pad + (xf - 1);
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    w[k] = int(dw[k]);
-                    dw[k] = 0u;
-                }
-            }
-        }
-        diag_carry = left_in;
-        __syncwarp();
-    }
-
-#pragma unroll
-    for (int k = 0; k < K; ++k) a.hrow[xf - 1 + k] = h[k];
-    if (a.ckpts != nullptr && (row0 + TR) % a.ckpt_every == 0) {
-        int* ck = a.ckpts + (long long)((row0 + TR) / a.ckpt_every - 1) * a.C_pad;
-#pragma unroll
-        for (int k = 0; k < K; ++k) ck[xf - 1 + k] = h[k];
-    }
-    for (int k = lane; k <= TR; k += 32) hcol_i[k] = col_s[k];
-}
-
-template <int K>
-cudaError_t launch_row_scan(const ScanArgs& a, bool dirs, cudaStream_t st) {
-    const size_t smem = sizeof(int) * (size_t(a.V) * a.V + 2 * size_t(a.TR) + 1);
-    auto kd = row_scan_tile_kernel<K, true>;
-    auto ks = row_scan_tile_kernel<K, false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            dirs ? kd : ks, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-        if (e != cudaSuccess) return e;
-    }
-    for (int d = 0; d < a.n_tr + a.n_tc - 1; ++d) {
-        const int i_lo = d - (a.n_tc - 1) > 0 ? d - (a.n_tc - 1) : 0;
-        const int i_hi = d < a.n_tr - 1 ? d : a.n_tr - 1;
-        const int tiles = i_hi - i_lo + 1;
-        if (dirs) kd<<<tiles, 32, smem, st>>>(a, d);
-        else ks<<<tiles, 32, smem, st>>>(a, d);
-    }
-    return cudaGetLastError();
-}
-
 // One cursor walks the packed words of one replayed block.  `state` holds
 // (cy, cx, n): the absolute 1-based cell and the running step count; the
-// kernel does nothing unless the cursor lies inside this block's rows.
+// block holds the rows row_base + 1 .. row_base + rows and the columns
+// col_base + 1 .. col_base + C_pad, and the kernel does nothing unless the
+// cursor lies inside them.  The walk leaves the block by its top or its
+// left edge.
 __global__ void __launch_bounds__(32)
 replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
-                   int rows, int* __restrict__ state, int* __restrict__ steps,
-                   int budget) {
+                   int col_base, int rows, int* __restrict__ state,
+                   int* __restrict__ steps, int budget) {
     const int lane = threadIdx.x;
     int y = state[0] - row_base;  // 1-based row within the block
-    int x = state[1];
+    int x = state[1] - col_base;  // 1-based column within the block
     int n = state[2];
-    if (y < 1 || y > rows || x < 1) return;
+    if (y < 1 || y > rows || x < 1 || x > C_pad) return;
     unsigned cur = unsigned(steps[n >> 4]);
     // `budget` bounds the loop: a global interior holds no Beginning code,
     // so every step moves the cursor and a real walk ends far below it
@@ -230,7 +61,7 @@ replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
     if (lane == 0) {
         if ((n & 15) != 0 && n < budget) steps[n >> 4] = int(cur);
         state[0] = row_base + y;
-        state[1] = x;
+        state[1] = col_base + x;
         state[2] = n;
     }
 }
@@ -245,39 +76,30 @@ extern "C" int wavefront_row_scan_launch(
     void* hrow, void* hcol, int y_offset, int C_real, int R_real, int del, int ext,
     int K, int TR, int n_tr, int n_tc, void* end_out, void* words, void* ckpts,
     int ckpt_every, void* stream) {
-    cudaGetLastError();  // clear a stale error so the check below is ours
-    ScanArgs a;
+    TileArgs a;
     a.q = static_cast<const int*>(q);
     a.t = static_cast<const int*>(t);
     a.matrix = static_cast<const int*>(matrix);
-    a.h0 = static_cast<const int*>(h0);
+    a.top = static_cast<const int*>(h0);
+    a.lbound = nullptr;
     a.hrow = static_cast<int*>(hrow);
     a.hcol = static_cast<int*>(hcol);
+    a.rights = nullptr;
     a.end_out = static_cast<int*>(end_out);
     a.words = static_cast<int*>(words);
     a.ckpts = static_cast<int*>(ckpts);
-    a.C_pad = (long long)n_tc * 32 * K;
-    a.V = V; a.y_offset = y_offset; a.C_real = C_real; a.R_real = R_real;
+    a.V = V; a.x0 = 0; a.y_offset = y_offset; a.C_real = C_real; a.R_real = R_real;
     a.del = del; a.ext = ext; a.TR = TR; a.n_tr = n_tr; a.n_tc = n_tc;
     a.ckpt_every = ckpt_every;
-    auto st = static_cast<cudaStream_t>(stream);
-    const bool dirs = words != nullptr;
-    cudaError_t e;
-    switch (K) {
-        case 2: e = launch_row_scan<2>(a, dirs, st); break;
-        case 4: e = launch_row_scan<4>(a, dirs, st); break;
-        case 8: e = launch_row_scan<8>(a, dirs, st); break;
-        default: return -1;
-    }
-    return static_cast<int>(e);
+    return launch_tiles<false>(a, K, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wavefront_replay_walk_launch(
-    const void* words, long long C_pad, int row_base, int rows, void* state,
-    void* steps, int budget, void* stream) {
+    const void* words, long long C_pad, int row_base, int col_base, int rows,
+    void* state, void* steps, int budget, void* stream) {
     cudaGetLastError();
     replay_walk_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(words), C_pad, row_base, rows,
+        static_cast<const int*>(words), C_pad, row_base, col_base, rows,
         static_cast<int*>(state), static_cast<int*>(steps), budget);
     return static_cast<int>(cudaGetLastError());
 }

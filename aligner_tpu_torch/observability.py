@@ -7,6 +7,8 @@
   only its enqueue;
 * :func:`profile_trace` — context manager around ``torch.profiler``
   (writes a Chrome/Perfetto trace file);
+* :func:`configure_logging` — ``ALIGNER_LOG``-controlled logging of the
+  package's logger;
 * ``log`` — the package's logger (``aligner_tpu_torch``).
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import threading
 import time
 from collections import defaultdict
@@ -22,6 +25,28 @@ from collections import defaultdict
 import torch
 
 log = logging.getLogger("aligner_tpu_torch")
+
+_LEVELS = {"DEBUG", "INFO", "WARNING", "WARN", "ERROR", "CRITICAL", "FATAL"}
+
+
+def configure_logging(level: str | None = None) -> None:
+    """Set the level of the package's logger from ``level`` or the
+    ``ALIGNER_LOG`` environment variable (default ``warning``; a value that
+    names no level falls back to it), and give the process a handler if it
+    has none.
+
+    Divergence from ``aligner_tpu.observability.configure_logging``: that
+    one sets the level of the **root** logger, so an embedding application
+    that called it had every library's records let through.  Here only the
+    ``aligner_tpu_torch`` logger's level changes; the root logger keeps its
+    own."""
+    lvl = (level or os.environ.get("ALIGNER_LOG", "warning")).upper()
+    if lvl not in _LEVELS:
+        lvl = "WARNING"
+    # a handler for a process that has none (a no-op otherwise); without a
+    # level argument it leaves the root logger's level alone
+    logging.basicConfig(format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    log.setLevel(getattr(logging, lvl))
 
 
 @dataclasses.dataclass

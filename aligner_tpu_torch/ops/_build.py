@@ -6,7 +6,8 @@ into one shared library with a plain C interface, loaded with ctypes (no
 PyTorch headers: a build takes seconds, not minutes).  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  The build happens at first use, never at import; a failed build
+reused (the headers ``csrc/*.cuh`` the sources share are part of the
+hash).  The build happens at first use, never at import; a failed build
 raises.
 
 Flags: ``sm_90a`` for Hopper, ``-fmad=false`` and no fast-math, because
@@ -154,10 +155,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.wavefront_row_scan_launch.restype = i32
     lib.wavefront_replay_walk_launch.argtypes = [
-        p, i64, i32, i32,  # words, C_pad, row_base, rows
+        p, i64, i32, i32, i32,  # words, C_pad, row_base, col_base, rows
         p, p, i32, p,  # state, steps, step budget, stream
     ]
     lib.wavefront_replay_walk_launch.restype = i32
+    lib.wavefront_block_cs_launch.argtypes = [
+        p, p, p, i32, p, p,  # q, t, matrix, V, h_prev, lbound
+        p, p, p,  # hrow (the new last row), hcol (scratch), rights
+        i32, i32, i32, i32, i32, i32,  # x0, y_base, C_real, R_real, del, ext
+        i32, i32, i32, i32,  # columns per lane, tile rows, tile rows/cols of the call
+        p, p, p, i32, p,  # end, words, ckpts, ckpt_every, stream
+    ]
+    lib.wavefront_block_cs_launch.restype = i32
     lib.wavefront_band_launch.argtypes = [
         p, p, p, p, p, p, p,  # t, q, f, c1, c2, fd, matrix
         i32, i32, i32, i32, i32,  # V, TB, D, Cb, ext

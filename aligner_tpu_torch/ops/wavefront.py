@@ -1,7 +1,11 @@
 """One huge global pair on the card: the row-scan fill, the replay walk
-(``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``), their
-plain versions, the checkpoint-and-replay alignment built on the first two
-and the end score built on the third.
+(``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``), the
+column-block fill (``csrc/wavefront_block.cu``; it and the row-scan fill
+share one tile body, ``csrc/wavefront_tile.cuh``), their plain versions, the
+checkpoint-and-replay alignment built on the first two and the end score
+built on the third.  The fourth fills one column block of a pair from a
+streamed left boundary (:func:`run_block_cs`); the column-blocked pipeline
+for a pair wider than one plane (``parallel/wavefront_sp.py``) is built on it.
 
 Counterpart of the single-pair parts of ``aligner_tpu/ops/wavefront.py``.  The
 batched kernels parallelise over problems; a single chromosome-scale pair
@@ -57,7 +61,8 @@ from .scan_engine import BEG, DIAG, LEFT, TOP
 ROWS_PER_WORD = 16  # 2-bit direction codes packed along the row axis
 # the width of one pair on one card: the 2-bit words of a replay block
 # (tb_rows x width / 4 bytes) and its checkpoint rows stay small beside
-# the card's memory up to here; wider pairs belong to the multi-GPU path
+# the card's memory up to here; a wider pair takes the column-blocked
+# pipeline (parallel/wavefront_sp.py), whose planes are one column block wide
 MAX_WIDTH = 256 * 1024
 # above this many cells align_global switches from one direction plane to
 # checkpoint-and-replay
@@ -87,7 +92,10 @@ class _Launches:
     calls of the fill without and with directions, ``tile_launches`` the
     kernel launches those calls made (one per anti-diagonal of tiles), and
     ``replay_walk`` the walk kernel; ``band`` counts calls of the band fill
-    and ``band_tile_launches`` the kernel launches those calls made."""
+    and ``band_tile_launches`` the kernel launches those calls made;
+    ``block_cs`` and ``block_cs_dirs`` count calls of the column-block fill
+    without and with directions and ``block_cs_tile_launches`` the kernel
+    launches those calls made."""
 
     def __init__(self):
         self.reset()
@@ -96,6 +104,7 @@ class _Launches:
         self.row_scan = self.row_scan_dirs = self.tile_launches = 0
         self.replay_walk = 0
         self.band = self.band_tile_launches = 0
+        self.block_cs = self.block_cs_dirs = self.block_cs_tile_launches = 0
 
 
 launches = _Launches()
@@ -315,15 +324,17 @@ def _unpack_dir_words(words: np.ndarray) -> np.ndarray:
     return d
 
 
-def _prep(q, t, matrix, del_, ext, device):
+def _prep(q, t, matrix, del_, ext, device, wide: bool = False):
     """Shared host prep: validate, pad the query to :data:`COL_PAD`
     columns and put the query and the int32 matrix on ``device`` (``None``
-    is the card, as everywhere in the package)."""
+    is the card, as everywhere in the package).  ``wide``: the caller cuts
+    the columns into blocks, so the width cap of one plane does not apply."""
     q = np.asarray(q, np.int32)
     t = np.asarray(t, np.int32)
     matrix = np.asarray(matrix)
     V = matrix.shape[0]
-    if not supported(len(q), matrix, del_, ext, tlen=len(t)):
+    if not (_integral_int8(matrix, del_, ext) and range_ok(len(q), len(t), del_, ext)
+            and (wide or len(q) <= MAX_WIDTH)):
         raise ValueError("wavefront engine: integral matrix/penalties, "
                          f"qlen <= {MAX_WIDTH}, and int32-range scores "
                          "(see range_ok) required")
@@ -404,17 +415,19 @@ def new_walk(R_real: int, C_real: int, n_steps: int, device):
     return state, steps
 
 
-def replay_walk(words, state, steps, *, row_base: int) -> None:
+def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0) -> None:
     """Walk one replayed block, **in place**: ``state`` and ``steps`` (from
     :func:`new_walk`) are updated where they lie.
 
     ``words`` (rows/16, C_pad) int32 are the packed directions of the
-    absolute rows ``row_base`` + 1 … ``row_base`` + rows.  From the cursor
+    absolute rows ``row_base`` + 1 … ``row_base`` + rows and the absolute
+    columns ``col_base`` + 1 … ``col_base`` + C_pad.  From the cursor
     (cy, cx) the walk appends one 2-bit code per step at the running count
-    n until it leaves the block's top (cy == ``row_base``) or reaches the
-    left border (cx == 0); a cursor outside the block's rows, or already on
-    a border, is left as it is.  CUDA tensors launch the kernel; CPU
-    tensors take :func:`replay_walk_plain`.
+    n until it leaves the block's top (cy == ``row_base``) or its left edge
+    (cx == ``col_base``: the left border of the plane for a block that
+    starts at column 0); a cursor outside the block's rows or columns, or
+    already on one of those edges, is left as it is.  CUDA tensors launch
+    the kernel; CPU tensors take :func:`replay_walk_plain`.
     """
     dev = words.device
     for name, a in (("words", words), ("state", state), ("steps", steps)):
@@ -427,13 +440,14 @@ def replay_walk(words, state, steps, *, row_base: int) -> None:
     if words.dim() != 2 or tuple(state.shape) != (3,) or steps.dim() != 1:
         raise ValueError("words (rows/16, C_pad), state (3,), steps (W,) expected")
     if dev.type == "cpu":
-        return replay_walk_plain(words, state, steps, row_base=row_base)
+        return replay_walk_plain(words, state, steps, row_base=row_base,
+                                 col_base=col_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.wavefront_replay_walk_launch(
-            words.data_ptr(), words.shape[1], int(row_base),
+            words.data_ptr(), words.shape[1], int(row_base), int(col_base),
             words.shape[0] * ROWS_PER_WORD, state.data_ptr(), steps.data_ptr(),
             steps.numel() * 16, torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -441,15 +455,15 @@ def replay_walk(words, state, steps, *, row_base: int) -> None:
         launches.replay_walk += 1
 
 
-def replay_walk_plain(words, state, steps, *, row_base: int) -> None:
+def replay_walk_plain(words, state, steps, *, row_base: int, col_base: int = 0) -> None:
     """Plain version of the walk kernel: the words and the cursor are
     brought to the host, one cursor steps through them, and ``state`` and
     ``steps`` are written back in place."""
     w = words.cpu().numpy()
     cy, cx, n = (int(v) for v in state.cpu())
     rows = w.shape[0] * ROWS_PER_WORD
-    y, x = cy - row_base, cx
-    if y < 1 or y > rows or x < 1:
+    y, x = cy - row_base, cx - col_base
+    if y < 1 or y > rows or x < 1 or x > w.shape[1]:
         return
     budget = steps.numel() * 16
     codes = []
@@ -462,7 +476,8 @@ def replay_walk_plain(words, state, steps, *, row_base: int) -> None:
     out = _unpack_step_words(steps.cpu().numpy(), budget)
     out[n : n + len(codes)] = codes
     steps.copy_(torch.from_numpy(_pack_step_codes(out)))
-    state.copy_(torch.tensor([row_base + y, x, n + len(codes)], dtype=torch.int32))
+    state.copy_(torch.tensor([row_base + y, col_base + x, n + len(codes)],
+                             dtype=torch.int32))
 
 
 def _unpack_step_words(packed: np.ndarray, n: int) -> np.ndarray:
@@ -522,6 +537,74 @@ def _assemble(pp, state, steps):
     ta = np.concatenate(ta_chunks)[::-1]
     return (np.ascontiguousarray(qa), np.ascontiguousarray(ta),
             ((1, C_real), (1, R_real)))
+
+
+def rescore_steps(packed, n: int, q, t, matrix, del_, ext) -> int:
+    """The score of the path a walk took, under the global fill's own
+    rules, in O(R + C) on the host.
+
+    ``packed`` and ``n`` are a walk's step stream from the end cell
+    (len(t), len(q)) to a border, as :func:`steps_to_chunks` reads it.  A
+    DIAG step taken at cell (y, x) adds ``matrix[t[y], q[x]]``; a TOP or
+    LEFT step subtracts ``ext``, or ``del_`` when it is taken at cell (1,1),
+    the only cell whose penalty is ``del_`` (simple/mod.rs:72); the cell
+    where the walk meets a border adds that border's value with its
+    far-corner overwrite (H[0,x] = -x·del, H[0,C] = -(C+1)·del,
+    H[y,0] = -y·del, H[R,0] = -(R+1)·del).
+
+    The sum is the score of a real path through the plane, so it never
+    exceeds H[R,C], and it equals H[R,C] only for an optimal path.  Holding
+    it against the end score of an independent fill therefore holds the walk
+    to an optimal path without a second alignment to compare with.  It does
+    **not** prove the tie rule: among several optimal paths it cannot tell
+    which one the reference's top > left > diagonal policy takes.
+    """
+    q, t = np.asarray(q), np.asarray(t)
+    C, R = len(q), len(t)
+    m = np.round(np.asarray(matrix)).astype(np.int64)
+    del_, ext = int(del_), int(ext)
+    ds = _unpack_step_words(np.asarray(packed), n)
+    if np.any(ds == BEG):
+        raise ValueError("a global walk holds no Beginning step")
+    up = (ds == TOP) | (ds == DIAG)
+    lf = (ds == LEFT) | (ds == DIAG)
+    y_at = R - (np.cumsum(up) - up)  # the cell each step is taken at
+    x_at = C - (np.cumsum(lf) - lf)
+    cy, cx = R - int(up.sum()), C - int(lf.sum())
+    if n and (y_at.min() < 1 or x_at.min() < 1):
+        raise ValueError("the walk goes on past a border")
+    if cy > 0 and cx > 0:
+        raise ValueError(f"the walk stops inside the plane at ({cy}, {cx})")
+    dg = ds == DIAG
+    total = int(m[t[y_at[dg] - 1], q[x_at[dg] - 1]].sum())
+    total -= ext * int((~dg).sum())
+    total -= (del_ - ext) * int((~dg & (y_at == 1) & (x_at == 1)).sum())
+    if cy == 0:
+        total += -(C + 1) * del_ if cx == C else -cx * del_
+    else:
+        total += -(R + 1) * del_ if cy == R else -cy * del_
+    return total
+
+
+def alignment_steps(qa, ta):
+    """The step stream behind an aligned pair, the inverse of
+    :func:`_assemble`: ``(packed, n)`` as :func:`rescore_steps` takes them.
+    The aligned strings end with the seeded last pair; before it, read
+    backwards, every column is one step of the walk (a blank in the query
+    is TOP, in the target LEFT, none DIAG) down to the first cell on a
+    border, and the rest is the border run."""
+    qa, ta = np.asarray(qa)[-2::-1], np.asarray(ta)[-2::-1]
+    ds = np.where(qa == BLANK, TOP, np.where(ta == BLANK, LEFT, DIAG)).astype(np.uint8)
+    up = (ds == TOP) | (ds == DIAG)
+    lf = (ds == LEFT) | (ds == DIAG)
+    # rows and columns still above and left of the cursor after each step
+    y_left = int(up.sum()) - np.cumsum(up)
+    x_left = int(lf.sum()) - np.cumsum(lf)
+    on_border = np.flatnonzero((y_left == 0) | (x_left == 0))
+    n = int(on_border[0]) + 1 if len(on_border) else len(ds)
+    codes = np.full(_cdiv(n, 16) * 16, BEG, np.uint8)
+    codes[:n] = ds[:n]
+    return _pack_step_codes(codes), n
 
 
 def align_single_global_direct(q, t, matrix, del_: float, ext: float, *,
@@ -916,7 +999,7 @@ def band_grid(q, t, matrix, del_: float, ext: float, *, tb: int, cb: int, device
     the end score (1,), per column block the plain column
     H[1 … R_pad, x0 + cb], and per band and column block the plain row
     H[y_base + tb, x0 + 1 … x0 + cb]."""
-    pp = _prep(q, t, matrix, del_, ext, device)
+    pp = _prep(q, t, matrix, del_, ext, device, wide=True)
     C_real, R_real, dev, V = pp["C_real"], pp["R_real"], pp["device"], pp["V"]
     del_, ext = pp["del"], pp["ext"]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -965,3 +1048,182 @@ def band_grid(q, t, matrix, del_: float, ext: float, *, tb: int, cb: int, device
                 end = endv
         bottoms.append(row)
     return end, rights, bottoms
+
+
+# ---------------------------------------------------------------------------
+# the column-block fill
+# ---------------------------------------------------------------------------
+
+
+def _check_block(q_blk, t_rows, matrix, h_prev, lbound, x0, y_base, C_real, R_real,
+                 ckpt_every, check_codes):
+    dev = q_blk.device
+    for name, a in (("q_blk", q_blk), ("t_rows", t_rows), ("matrix", matrix),
+                    ("h_prev", h_prev), ("lbound", lbound)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, q_blk on {dev}")
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if matrix.dim() != 2 or matrix.shape[0] != matrix.shape[1]:
+        raise ValueError(f"matrix must be (V, V), got {tuple(matrix.shape)}")
+    if q_blk.dim() != 1 or t_rows.dim() != 1 or q_blk.numel() == 0:
+        raise ValueError("q_blk (Cb,) and t_rows (TR,) expected")
+    Cb, TR = q_blk.numel(), t_rows.numel()
+    if TR == 0 or TR % ROWS_PER_WORD:
+        raise ValueError(f"TR must be a positive multiple of {ROWS_PER_WORD}")
+    if tuple(h_prev.shape) != (Cb,) or tuple(lbound.shape) != (TR + 1,):
+        raise ValueError(f"h_prev ({Cb},) and lbound ({TR + 1},) expected")
+    if x0 < 0 or y_base < 0 or C_real < 1 or R_real < 1:
+        raise ValueError("need x0 >= 0, y_base >= 0, C_real >= 1, R_real >= 1")
+    if ckpt_every and (ckpt_every < 0 or TR % ckpt_every):
+        raise ValueError("ckpt_every must divide TR")
+    if check_codes:
+        # the kernel indexes the matrix with the codes unchecked
+        V = matrix.shape[0]
+        for name, a in (("q_blk", q_blk), ("t_rows", t_rows)):
+            lo, hi = torch.aminmax(a)
+            if int(lo) < 0 or int(hi) >= V:
+                raise ValueError(f"{name} codes must lie in [0, {V})")
+
+
+def run_block_cs(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: int,
+                 C_real: int, R_real: int, *, del_: int, ext: int,
+                 with_dirs: bool = False, ckpt_every: int = 0,
+                 tile_rows: int = TILE_ROWS, cols_per_thread: int = COLS_PER_THREAD,
+                 check_codes: bool = True):
+    """Fill TR rows of one **column block** of a global pair: the absolute
+    rows ``y_base`` + 1 … ``y_base`` + TR of the columns ``x0`` + 1 … ``x0`` + Cb.
+
+    All tensors are flat int32 on one device: ``q_blk`` (Cb,) and ``t_rows``
+    (TR,) codes, padded with any valid code; ``matrix`` (V, V), row = target
+    symbol; ``h_prev`` (Cb,) the row above the block, H[y_base, x0 + 1 …]
+    (the caller builds the border row, far corner included, for ``y_base``
+    0); ``lbound`` (TR + 1,) the column left of the block as its left
+    neighbour returned it, lbound[r] = H[y_base + r, x0], slot 0 the corner
+    (the border column, far corner included, for ``x0`` 0).  ``C_real`` and
+    ``R_real`` are the pair's lengths: they place the end cell, and with
+    ``x0`` and ``y_base`` cell (1,1), the only one whose penalty is ``del_``.
+
+    Returns ``(h_new, rights, end, words, ckpts)``: ``h_new`` (Cb,) the
+    block's last row; ``rights`` (TR,) its right column,
+    H[y_base + r + 1, x0 + Cb], the next block's ``lbound`` without its
+    corner; ``end`` (1,) the pair's end cell H[R_real, C_real] when it lies
+    in this block, else 0 (a real end score may be 0: the caller decides
+    ownership from the block's place); ``words`` (TR/16, Cb) with
+    ``with_dirs``, in :func:`row_scan`'s layout, else None; ``ckpts``
+    (TR/ckpt_every, Cb) with ``ckpt_every``, ``ckpts[k]`` the block's part of
+    the row H[y_base + (k+1)·ckpt_every], as :func:`row_scan` returns them,
+    else None.  Cells of padded rows and columns are unspecified.
+
+    CUDA tensors launch the kernel (TR and ``ckpt_every`` must then be
+    multiples of ``tile_rows``, Cb of 32·``cols_per_thread``); CPU tensors
+    take :func:`run_block_cs_plain`.  The reference's operands (the packed
+    per-query score words, (S, 128) tiles, SMEM scalars) are not carried
+    over.
+    """
+    x0, y_base, C_real, R_real = int(x0), int(y_base), int(C_real), int(R_real)
+    _check_block(q_blk, t_rows, matrix, h_prev, lbound, x0, y_base, C_real, R_real,
+                 ckpt_every, check_codes)
+    dev = q_blk.device
+    if dev.type == "cpu":
+        return run_block_cs_plain(q_blk, t_rows, matrix, h_prev, lbound, x0, y_base,
+                                  C_real, R_real, del_=del_, ext=ext, with_dirs=with_dirs,
+                                  ckpt_every=ckpt_every)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    Cb, TR = q_blk.numel(), t_rows.numel()
+    K, TRt = int(cols_per_thread), int(tile_rows)
+    if K not in (2, 4, 8):
+        raise ValueError("cols_per_thread must be 2, 4 or 8")
+    if TRt < ROWS_PER_WORD or TRt % ROWS_PER_WORD or TR % TRt or Cb % (32 * K):
+        raise ValueError(f"TR {TR} must be a multiple of tile_rows {TRt} (itself of "
+                         f"{ROWS_PER_WORD}) and Cb {Cb} of {32 * K}")
+    if ckpt_every % TRt:
+        raise ValueError("ckpt_every must be a multiple of tile_rows")
+    n_tr, n_tc = TR // TRt, Cb // (32 * K)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        i32 = dict(dtype=torch.int32, device=dev)
+        end = torch.zeros(1, **i32)  # only the block that holds the end cell writes it
+        h_new = torch.empty(Cb, **i32)
+        hcol = torch.empty((n_tr, TRt + 1), **i32)
+        rights = torch.empty(TR, **i32)
+        words = torch.empty((TR // ROWS_PER_WORD, Cb), **i32) if with_dirs else None
+        ckpts = torch.empty((TR // ckpt_every, Cb), **i32) if ckpt_every else None
+        err = lib.wavefront_block_cs_launch(
+            q_blk.data_ptr(), t_rows.data_ptr(), matrix.data_ptr(), matrix.shape[0],
+            h_prev.data_ptr(), lbound.data_ptr(), h_new.data_ptr(), hcol.data_ptr(),
+            rights.data_ptr(), x0, y_base, C_real, R_real, int(del_), int(ext), K, TRt,
+            n_tr, n_tc, end.data_ptr(), words.data_ptr() if with_dirs else None,
+            ckpts.data_ptr() if ckpt_every else None, int(ckpt_every),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, err, "wavefront_block_cs")
+        if with_dirs:
+            launches.block_cs_dirs += 1
+        else:
+            launches.block_cs += 1
+        launches.block_cs_tile_launches += n_tr + n_tc - 1
+    return h_new, rights, end, words, ckpts
+
+
+def run_block_cs_plain(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: int,
+                       C_real: int, R_real: int, *, del_: int, ext: int,
+                       with_dirs: bool = False, ckpt_every: int = 0):
+    """Plain PyTorch version of the column-block kernel: :func:`row_scan_plain`
+    with the left border read from ``lbound`` and the tests on a column made
+    on the global column ``x0`` + x.  One row per step, the row a
+    max-prefix-scan, ``H[y,x] = cummax(M + (x0 + x)·ext)[x] - (x0 + x)·ext``.
+    Same arguments and results as :func:`run_block_cs`."""
+    dev = q_blk.device
+    Cb, TR = q_blk.numel(), t_rows.numel()
+    del_, ext = int(del_), int(ext)
+    i32 = dict(dtype=torch.int32, device=dev)
+    xp = (x0 + torch.arange(1, Cb + 1, **i32)) * ext
+    prev = h_prev.clone()
+    srows = matrix[:, q_blk.long()].contiguous()  # (V, Cb): a score row per symbol
+    t_codes = t_rows.tolist()
+    lb = lbound.tolist()
+    c_loc = C_real - 1 - x0  # the end cell's column within the block
+    end = torch.zeros(1, **i32)
+    rights = torch.empty(TR, **i32)
+    words = torch.empty((TR // ROWS_PER_WORD, Cb), **i32) if with_dirs else None
+    ckpts = torch.empty((TR // ckpt_every, Cb), **i32) if ckpt_every else None
+    word = torch.zeros(Cb, dtype=torch.int64, device=dev)
+    left_ext = lbound[1:] - ext  # the cell to the left of the first column, less ext
+    for r in range(TR):
+        y = y_base + r + 1  # 1-based absolute row
+        bcur = lb[r + 1]
+        dv = torch.cat((lbound[r : r + 1], prev[:-1])) + srows[t_codes[r]]
+        m = torch.maximum(dv, prev - ext)
+        # fold the left boundary into the first column; the pair's cell
+        # (1,1) is the only cell whose penalty is del
+        pen1 = del_ if (y == 1 and x0 == 0) else ext
+        if pen1 == ext:
+            torch.maximum(m[:1], left_ext[r : r + 1], out=m[:1])
+        else:
+            m[0] = torch.maximum(dv[0], prev[0] - pen1).clamp_min(bcur - pen1)
+        h = torch.cummax(m + xp, 0).values - xp
+        rights[r : r + 1] = h[-1:]
+        if y == R_real and 0 <= c_loc < Cb:
+            end[0] = h[c_loc]
+        if with_dirs:
+            pen_d = torch.full_like(h, ext)
+            pen_d[0] = pen1
+            top = prev - pen_d
+            leftv = torch.empty_like(h)
+            leftv[1:] = h[:-1]
+            leftv[0] = bcur
+            leftv -= pen_d
+            # exact tie policy on integers: m - v < eps  <=>  m <= v
+            d = torch.where(h <= top, TOP, torch.where(h <= leftv, LEFT, DIAG))
+            word |= d.to(torch.int64) << (2 * (r % ROWS_PER_WORD))
+            if r % ROWS_PER_WORD == ROWS_PER_WORD - 1:
+                words[r // ROWS_PER_WORD] = _wrap_i32(word)
+                word.zero_()
+        if ckpt_every and (r + 1) % ckpt_every == 0:
+            ckpts[(r + 1) // ckpt_every - 1] = h
+        prev = h
+    return prev, rights, end, words, ckpts

@@ -1,0 +1,318 @@
+"""The column-blocked pipeline for one huge global pair, on one card.
+
+Counterpart of ``aligner_tpu/parallel/wavefront_sp.py`` in its one-device
+form.  The reference shards the query's columns over a mesh and pipelines
+the target's row blocks through the devices, each handing its right
+neighbour the last-column values of the block it just filled.  Here the
+same grid of (row block, column block) fills runs on one device, block
+after block, in an order in which the block above and the block to the
+left are done: the only coupling between a column block and its right
+neighbour is still that streamed boundary, so placing the column blocks on
+several cards later changes where a block runs, not what it computes.  It
+is also the only route by which a pair wider than
+``ops.wavefront.MAX_WIDTH`` columns is aligned at all: no fill, replay tile
+or direction plane is ever wider than one column block.
+
+The block engine is the column-block fill (:func:`ops.wavefront.run_block_cs`,
+``csrc/wavefront_block.cu``), the reference's ``"pallas"`` row-scan engine,
+for the forward fill and for the replay.  Arithmetic is int32 and bit-equal
+to the float64 oracle (an integral matrix within int8, integral penalties,
+:func:`ops.wavefront.range_ok`).
+
+Exact alignments, not just end scores: the forward fill also records, on
+the device, one H row every ``tb_rows`` rows (``ckpts``) and every left
+boundary a column block consumed (``lb_hist``), O(R·n + R·C/tb) ints and
+no O(R·C) plane.  The traceback then replays one (``tb_rows`` x column
+block) tile at a time with directions and walks it on the device; the
+replayed tile is the identical DP restricted to that tile, so the walk
+follows the directions a full-plane traceback would.  The loop over the
+tiles the cursor crosses is a host loop that reads the cursor once a tile.
+
+Not carried over: the mesh, ``shard_map`` and the ``ppermute`` halo (one
+device); the one-dispatch ``lax.while_loop`` replay (it exists for the
+reference's per-dispatch round trip); ``auto_shard_config`` and its two
+rate models, which are fits of the reference's accelerator; the
+``ALIGNER_DEVICE_WALK`` host walk.  Not ported yet: the ``"band"`` forward
+engine and the ``"lax"`` engine for integral matrices beyond int8, which
+are refused by name.
+
+Cites: simple/mod.rs:42-144 (fill, borders), simple/mod.rs:99-127
+(traceback semantics).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..backend import integral_params, resolve_device
+from ..errors import ValidationError
+from ..ops import wavefront as wf
+
+# The width of one column block, the rows of one replay tile (the checkpoint
+# cadence) and the most rows of one forward block.  Chosen by the sweeps
+# that chip_smoke.py prints for pairs of 262,144 x 262,144 and
+# 524,288 x 524,288 on an H100 (PERF.md, Findings): a larger block means
+# fewer launches for the same cells and more tiles in each, so the forward
+# fill runs a column block in pieces of up to FORWARD_ROWS rows and the
+# kernel writes the checkpoint rows inside the call (each doubling of the
+# rows buys less: 32,768 rows to 131,072 takes 46 % off the forward fill of
+# the larger pair, 262,144 to 524,288 another 9 %; at 262,144 rows a block
+# can still be held against its plain version in two minutes); a replay tile of
+# 32,768 x 131,072 keeps its words at 1 GiB, and a wider one gains less in
+# the forward fill than it loses in the replay.
+CB_COLS = 131072
+TB_ROWS = wf.TB_ROWS
+FORWARD_ROWS = 262144
+ENGINES = (None, "pallas")  # the reference's name for its row-scan block engine
+
+
+def _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine, device):
+    """Shared operand prep and validation of the two entry points
+    (``tb_rows`` is None for an end score)."""
+    if len(q) == 0 or len(t) == 0:
+        raise ValueError("empty sequence")
+    # validate before any per-element conversion: refusing an oversized
+    # pair must not be preceded by a giant int32 copy
+    matrix = np.asarray(matrix)
+    if not integral_params(matrix, del_, ext):
+        raise ValidationError("the column-blocked wavefront requires an integral "
+                              "matrix and integral penalties")
+    if not wf.range_ok(len(q), len(t), del_, ext):
+        raise ValidationError("the column-blocked wavefront: scores would exceed the "
+                              "int32-exact range (see ops.wavefront.range_ok)")
+    if engine not in ENGINES:
+        raise ValidationError(
+            f"engine {engine!r} of the column-blocked wavefront is not ported yet: only "
+            "the row-scan block engine (\"pallas\" in the reference) is")
+    if np.abs(matrix).max(initial=0) > 127:
+        raise ValidationError(
+            "the row-scan block engine takes matrix entries within int8; the reference's "
+            "\"lax\" engine for wider integral matrices is not ported yet")
+    C_real, R_real = len(q), len(t)
+    if n_blocks is not None and n_blocks < 1:
+        raise ValueError("need n_blocks >= 1")
+    cb = CB_COLS if n_blocks is None else wf._cdiv(C_real, int(n_blocks))
+    Cb = min(wf._cdiv(cb, wf.COL_PAD), wf._cdiv(C_real, wf.COL_PAD)) * wf.COL_PAD
+    n = wf._cdiv(C_real, Cb)  # column blocks wholly past the query are not run
+    # clamp the blocks to the (word-aligned) target length so wide-short
+    # pairs do not fill and replay mostly padding
+    r_pad = wf._cdiv(R_real, wf.ROWS_PER_WORD) * wf.ROWS_PER_WORD
+    tb = None
+    if tb_rows is None:
+        tr = min(FORWARD_ROWS if tr is None else tr, r_pad)
+        wf._check_tr(tr)
+    else:
+        tb = min(tb_rows, r_pad)
+        wf._check_tr(tb)
+        tr = min(FORWARD_ROWS if tr is None else tr, wf._cdiv(R_real, tb) * tb)
+        wf._check_tr(tr)
+        # a forward block is whole replay tiles, or a replay tile whole
+        # forward blocks: every checkpoint row is the last row of a kernel tile
+        if tr >= tb:
+            tr = tr // tb * tb
+        else:
+            tb = tb // tr * tr
+    # the padded rows are whole forward blocks and whole replay tiles
+    unit = max(tr, tb or 0)
+    J = wf._cdiv(R_real, unit) * (unit // tr)
+    q = np.asarray(q, np.int32)
+    t = np.asarray(t, np.int32)
+    V = matrix.shape[0]
+    for name, a in (("query", q), ("target", t)):
+        if int(a.min()) < 0 or int(a.max()) >= V:
+            raise ValueError(f"{name} codes must lie in the {V}-symbol scoring alphabet")
+    qp = np.zeros(n * Cb, np.int32)  # padded columns score as symbol 0; never read
+    qp[:C_real] = q
+    tp = np.zeros(J * tr, np.int32)
+    tp[:R_real] = t
+    device = resolve_device(device)
+    return {
+        "q": q, "t": t, "V": V, "C_real": C_real, "R_real": R_real, "Cb": Cb, "n": n,
+        "C_pad": n * Cb, "tr": tr, "tb": tb, "J": J, "R_pad": J * tr,
+        "del": int(del_), "ext": int(ext), "device": device,
+        "q_dev": torch.as_tensor(qp, device=device),
+        "t_dev": torch.as_tensor(tp, device=device),
+        "m_dev": torch.as_tensor(np.round(matrix).astype(np.int32), device=device),
+    }
+
+
+def _border_row(pp, x0: int, width: int):
+    """H[0, x0 + 1 … x0 + width] with the far-corner overwrite
+    (simple/mod.rs:59-70), on the device."""
+    x = x0 + torch.arange(1, width + 1, dtype=torch.int32, device=pp["device"])
+    C, d = pp["C_real"], pp["del"]
+    return torch.where(x == C, -(C + 1) * d, -x * d).to(torch.int32)
+
+
+def _border_col(pp, y0: int, height: int):
+    """H[y0 + 1 … y0 + height, 0] with the far-corner overwrite."""
+    y = y0 + torch.arange(1, height + 1, dtype=torch.int32, device=pp["device"])
+    R, d = pp["R_real"], pp["del"]
+    return torch.where(y == R, -(R + 1) * d, -y * d).to(torch.int32)
+
+
+def _corner(pp, x0: int):
+    """H[0, x0] as a (1,) tensor: a border-row value, in closed form for
+    every column block."""
+    C, d = pp["C_real"], pp["del"]
+    return torch.full((1,), -(C + 1) * d if x0 == C else -x0 * d, dtype=torch.int32,
+                      device=pp["device"])
+
+
+def _block(pp, d: int, t_rows, h_prev, lb, y_base: int, *, with_dirs: bool = False,
+           ckpt_every: int = 0):
+    """Column block ``d`` of the rows ``t_rows`` on the column-block fill,
+    in the largest kernel tile that divides the rows and the cadence."""
+    Cb = pp["Cb"]
+    tile = math.gcd(t_rows.numel(), ckpt_every, wf.TILE_ROWS)
+    return wf.run_block_cs(pp["q_dev"][d * Cb:(d + 1) * Cb], t_rows, pp["m_dev"], h_prev,
+                           lb, d * Cb, y_base, pp["C_real"], pp["R_real"], del_=pp["del"],
+                           ext=pp["ext"], with_dirs=with_dirs, ckpt_every=ckpt_every,
+                           tile_rows=tile, check_codes=False)
+
+
+def _forward(pp, with_trace: bool):
+    """The forward fill: every (row block, column block) in row-major order,
+    scores only.  Returns ``end`` (1,) on the device, or with ``with_trace``
+    ``(end, lb_hist (n, R_pad), ckpts (R_pad / TB, C_pad))`` with
+    ``lb_hist[d, y - 1] = H[y, d·Cb]`` and ``ckpts[k] = H[(k + 1)·TB]``.
+    Nothing comes back to the host in between."""
+    dev, Cb, n, tr, J, TB = pp["device"], pp["Cb"], pp["n"], pp["tr"], pp["J"], pp["tb"]
+    i32 = dict(dtype=torch.int32, device=dev)
+    prev = [_border_row(pp, d * Cb, Cb) for d in range(n)]
+    # the corner of a block's first row: H[0, x0], then the boundary value
+    # of the last row of the block above
+    last_bound = [_corner(pp, d * Cb) for d in range(n)]
+    end = torch.zeros(1, **i32)
+    lb_hist = ckpts = None
+    if with_trace:
+        lb_hist = torch.empty((n, pp["R_pad"]), **i32)
+        ckpts = torch.empty((pp["R_pad"] // TB, pp["C_pad"]), **i32)
+    for j in range(J):
+        y_base = j * tr
+        t_rows = pp["t_dev"][y_base:y_base + tr]
+        bl_cur = _border_col(pp, y_base, tr)
+        # the checkpoint rows of this row block: one every TB rows inside
+        # it, or its last row when that ends a replay tile
+        every = 0
+        if with_trace:
+            every = TB if tr >= TB else tr if (y_base + tr) % TB == 0 else 0
+        for d in range(n):
+            lb = torch.cat([last_bound[d], bl_cur])
+            last_bound[d] = bl_cur[-1:]
+            if with_trace:
+                lb_hist[d, y_base:y_base + tr] = bl_cur
+            prev[d], bl_cur, endv, _, ck = _block(pp, d, t_rows, prev[d], lb, y_base,
+                                                  ckpt_every=every)
+            # the block that holds the end cell (its value may be 0)
+            if (d * Cb < pp["C_real"] <= (d + 1) * Cb
+                    and y_base < pp["R_real"] <= y_base + tr):
+                end = endv
+            if every:
+                k0 = y_base // TB
+                ckpts[k0:k0 + ck.shape[0], d * Cb:(d + 1) * Cb] = ck
+    return (end, lb_hist, ckpts) if with_trace else end
+
+
+def sharded_global_end_score(n_blocks, q, t, matrix, del_: float, ext: float, *,
+                             tr: int | None = None, engine: str | None = None,
+                             device=None) -> float:
+    """Exact global end score H[tlen, qlen] of one pair, its columns cut
+    into blocks that run one after another on ``device``.
+
+    ``n_blocks`` stands where the reference takes its mesh: the number of
+    column blocks, each the query's length over it, rounded up to
+    ``ops.wavefront.COL_PAD`` columns (blocks wholly past the query are not
+    run); with ``None`` a block is :data:`CB_COLS` wide.  ``tr`` is the rows
+    of one forward block (a multiple of 16, clamped to the padded target; by
+    default the whole target up to :data:`FORWARD_ROWS`: on one device no
+    pipeline waits to be filled).  Requires an integral matrix within int8
+    and integral penalties.  ``engine``: ``None`` or ``"pallas"`` (the
+    reference's name), the column-block row-scan fill; ``"band"`` and
+    ``"lax"`` are not ported yet and raise.  The call waits for the device
+    once, for the score.
+    """
+    from ..observability import counters
+
+    pp = _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, None, engine, device)
+    t0 = time.perf_counter()
+    score = float(_forward(pp, with_trace=False).item())  # the call's one wait
+    counters.record(f"{pp['device'].type}/wavefront-sp", pp["R_real"] * pp["C_real"], 1,
+                    time.perf_counter() - t0)
+    return score
+
+
+def _tile_inputs(pp, lb_hist, ckpts, j: int, d: int):
+    """``(h0, lb)`` of replay tile (j, d) from the forward fill's records."""
+    Cb, TB = pp["Cb"], pp["tb"]
+    x0 = d * Cb
+    if j == 0:
+        h0, lb0 = _border_row(pp, x0, Cb), _corner(pp, x0)
+    else:
+        h0 = ckpts[j - 1, x0:x0 + Cb].contiguous()
+        lb0 = lb_hist[d, j * TB - 1:j * TB]
+    return h0, torch.cat([lb0, lb_hist[d, j * TB:(j + 1) * TB]])
+
+
+def _sharded_walk(pp):
+    """The device part of :func:`sharded_global_align`: the forward fill
+    with its records, then the loop over the replay tiles the cursor
+    crosses.  Returns the end score tensor, the records, the finished
+    cursor and step stream (all on the device) and a record of the call."""
+    from ..observability import counters, measure
+
+    dev, Cb = pp["device"], pp["Cb"]
+    C_real, R_real = pp["C_real"], pp["R_real"]
+    TB = pp["tb"]
+    t0 = time.perf_counter()
+    with measure(f"{dev.type}/wavefront-sp", R_real * C_real, 1, device=dev):
+        end, lb_hist, ckpts = _forward(pp, with_trace=True)
+    t1 = time.perf_counter()
+    syncs = 1
+    state, steps = wf.new_walk(R_real, C_real, pp["R_pad"] + pp["C_pad"] + 1, dev)
+    cy, cx, tiles = R_real, C_real, 0
+    words = None
+    while cy > 0 and cx > 0:
+        del words  # one tile's words at a time
+        j, d = (cy - 1) // TB, (cx - 1) // Cb
+        h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
+        words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
+                       with_dirs=True)[3]
+        wf.replay_walk(words, state, steps, row_base=j * TB, col_base=d * Cb)
+        cy, cx, _ = (int(v) for v in state.cpu())  # the tile's one wait for the device
+        syncs += 1
+        tiles += 1
+    t2 = time.perf_counter()
+    counters.record(f"{dev.type}/wavefront-sp-replay", tiles * TB * Cb, 1, t2 - t1)
+    info = dict(tiles=tiles, tr=pp["tr"], tb_rows=TB, forward_blocks=pp["J"] * pp["n"],
+                syncs=syncs, forward_s=t1 - t0, replay_s=t2 - t1)
+    return end, lb_hist, ckpts, state, steps, info
+
+
+def sharded_global_align(n_blocks, q, t, matrix, del_: float, ext: float, *,
+                         tr: int | None = None, tb_rows: int = TB_ROWS,
+                         engine: str | None = None, device=None):
+    """Exact global ALIGNMENT of one huge pair, its columns cut into blocks
+    on ``device``: checkpoint-and-replay traceback on top of the forward
+    fill of :func:`sharded_global_end_score` (same ``n_blocks``, ``tr``,
+    ``engine``).
+
+    Returns ``(end_score, qa, ta, coords)`` with the reference's traceback
+    semantics (seeded last characters, simple/mod.rs:99-127), bit-equal to
+    the oracle and the single-plane paths.  ``tb_rows`` is the checkpoint
+    cadence and the rows of one replay tile (rounded down to a multiple of
+    ``tr`` when that is the smaller; by default ``tr`` is as for the end
+    score, rounded down to whole replay tiles: the kernel writes the
+    checkpoint rows inside a call, so a forward block may hold many).
+    Forward extra memory is O(R·n + R·C/tb_rows) ints; the traceback
+    replays one (tb_rows x column block) tile per tile the path crosses and
+    reads the cursor after each.
+    """
+    pp = _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine, device)
+    end, _, _, state, steps, _ = _sharded_walk(pp)
+    qa, ta, coords = wf._assemble(pp, state, steps)
+    return float(end.item()), qa, ta, coords

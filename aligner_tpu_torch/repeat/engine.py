@@ -139,12 +139,13 @@ def _scan_scores(
     if not wins:
         return fs
     device = resolve_device(opts.device)
-    dp = PWMFill.from_numpy(
-        matrix, opts.deletions, opts.extension, device=device,
-        dtype=dtype_for(device, matrix, opts.deletions, opts.extension),
-    )
     starts = np.fromiter((j for j, _ in wins), np.int64, len(wins))
     borders = np.fromiter((b for _, b in wins), np.int64, len(wins))
+    dp = PWMFill.from_numpy(
+        matrix, opts.deletions, opts.extension, device=device,
+        dtype=dtype_for(device, matrix, opts.deletions, opts.extension,
+                        lengths=(int((borders - starts).max()), matrix.shape[-1])),
+    )
     cells = int((borders - starts).sum()) * int(matrix.shape[-1])
     R8 = round8(int((borders - starts).max()))
     seq_dev = torch.as_tensor(np.asarray(seq, np.int32), device=device)

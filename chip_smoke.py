@@ -15,11 +15,17 @@ against the native C++ host engine or the frozen golden fixtures:
    matrices, argmax on/off, directions on/off, f32/f64), the walk on
    words from the kernel fill, the row-scan fill of one global pair and
    the replay walk on ragged shapes, the band fill on band and tile seams,
-   with a streamed left boundary and at full width, real cells only), and
+   with a streamed left boundary and at full width, the column-block fill
+   on every block of ragged grids and the replay walk with a column base
+   on every tile a walk crosses, real cells only), and
    each kernel's time beside its plain version's and its bound at the
    shapes the main path gives it, with the repeat scan's chunk size timed
-   at 8,192 and 65,536 windows and the row-scan's tile and replay-block
-   sizes and the band fill's tile and band sizes swept at 65,536 x 65,536;
+   at 8,192 and 65,536 windows, the row-scan's tile and replay-block
+   sizes and the band fill's tile and band sizes swept at 65,536 x 65,536,
+   the column-block fill held and timed on the last forward block and the
+   last replay tile of the 524,288 x 524,288 pair, and the column block's
+   width and the forward block's rows swept at 262,144 x 262,144 and
+   524,288 x 524,288;
 3. golden fixtures: ``batch_align`` on the three example FASTAs;
 4. ``calculate_p_value`` with 5,000 sequences on ``examples/protein.fasta``;
 5. ``aligner-search`` on a seeded 100,000-sequence protein database (local)
@@ -37,16 +43,29 @@ against the native C++ host engine or the frozen golden fixtures:
    plain versions'), at 8,000 x 9,000 (checkpoint-and-replay) and
    3,000 x 4,000 (one direction plane) against the host engine, the
    ``aligner-align -g`` CLI on two 3,000-residue records, and one
-   ``align_global`` at the width cap, 262,144 x 262,144, timed only;
+   ``align_global`` at the width cap, 262,144 x 262,144, timed, its path
+   rescored under the fill's rules and held against ``global_end_score``;
 9. the end score of one huge global pair: ``global_end_score`` at
    65,536 x 65,536 against the row-scan fill's end cell and the plain band
    engine, at 8,000 x 9,000 and 3,000 x 4,000 against the host engine, its
    ``diag``, ``host`` and batched-fill routes on a small pair, one call at
    262,144 x 262,144 against the row-scan fill's end cell, timed, and
    ``local_max_score`` against native C++;
-10. the kernels' launch counts of each path: the pair path (phases 3-6),
-   the PWM path (phase 7), the huge-pair path (phase 8) and the end-score
-   path (phase 9), each counted from zero.
+10. a global pair wider than one plane, on the column-blocked pipeline:
+   the 65,536 x 65,536 pair as 4 column blocks (strings, end score and
+   checkpoint rows against the single-plane routes and the plain
+   versions), the 262,144 x 262,144 pair as 2 (strings and end score
+   against the single-plane routes), then 524,288 x 524,288 through
+   ``align_global`` and ``global_end_score`` by its width alone (the end
+   score equals the band fill's on a grid of 262,144-column blocks, the
+   rescored path equals the end score, the strings spell the pair), and
+   ``backend="wavefront_sp"`` on a small pair against the host engine; the
+   path is driven first, alone, and held against the other routes after
+   its launch counts are read;
+11. the kernels' launch counts of each path: the pair path (phases 3-6),
+   the PWM path (phase 7), the huge-pair path (phase 8), the end-score
+   path (phase 9) and the column-blocked path (phase 10), each counted
+   from zero.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -97,7 +116,13 @@ N_SURVIVORS = 1_024  # survivor batch of the timing phase
 # the positions substituted), BLOSUM62, del 11 / ext 2
 PAIR_LEN = 65_536
 PAIR_SEED = 11
-WIDE_LEN = 262_144  # the width cap, timed only
+WIDE_LEN = 262_144  # the width cap of one plane
+BLOCKED_LEN = 524_288  # twice the cap: the column-blocked route by width alone
+BLOCKED_B = 4  # column blocks of the 65,536 x 65,536 pair
+CB_SWEEP = (32_768, 65_536, 131_072, 262_144)  # column-block widths at WIDE_LEN
+TILE_CB_SWEEP = (65_536, 131_072, 262_144)  # replay-tile widths at WIDE_LEN
+TR_SWEEP = (32_768, 131_072, 262_144)  # rows of a forward block at WIDE_LEN
+FORWARD_SWEEP = (32_768, 131_072, 262_144, 524_288)  # the same at BLOCKED_LEN
 TILE_SWEEP = ((2, 64), (4, 32), (4, 64), (4, 128), (4, 256), (8, 64), (8, 128), (8, 256))
 TB_SWEEP = (2_048, 8_192, 16_384, 32_768, 65_536)
 TB_TILE_ROWS = (64, 128)
@@ -118,6 +143,7 @@ REPLACES = {
     "row_scan": "aligner_tpu/ops/wavefront.py:127",
     "replay_walk": "aligner_tpu/ops/wavefront.py:1202",
     "band": "aligner_tpu/ops/wavefront.py:973",
+    "block_cs": "aligner_tpu/ops/wavefront.py:754",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, the only rate the
@@ -379,6 +405,81 @@ def band_vs_plain(dev, at, host, wf):
           f"run_block_band != plain (one band of {BAND_FULL_WIDTH_ROWS} rows by "
           f"{PAIR_LEN} columns)")
     return n + 1
+
+
+def same_block(got, want, rows, cols) -> bool:
+    """Two results of the column-block fill on the block's real rows and
+    columns: the last row, the right column, the end cell, the codes and
+    the checkpoint rows."""
+    return (torch.equal(got[0][:cols], want[0][:cols])
+            and torch.equal(got[1][:rows], want[1][:rows])
+            and same_scan(got[2:], want[2:], cols, rows))
+
+
+def block_cs_vs_plain(dev, at, wf, sp):
+    """K7 against its plain version on every block of ragged grids (x0 and
+    y_base zero and not, the block with cell (1,1), the block that owns the
+    end cell, the pair's last column on a block's last and first column),
+    scores with checkpoint rows and directions, every tile width and three
+    tile heights;
+    then the replay walk with a column base against its plain version on
+    every tile the walk crosses, leaving by the top and by the left edge."""
+    b62 = np.array(at.blosum62())
+    n = 0
+    exits = set()
+    # (C, R, column block, rows of a block, columns a lane, tile rows)
+    for C, R, cb, tb, K, tile in ((512, 128, 256, 64, 2, 16), (513, 100, 256, 64, 4, 32),
+                                  (700, 300, 512, 128, 8, 64), (300, 70, 512, 64, 4, 64),
+                                  (1, 1, 256, 16, 4, 16), (1000, 200, 256, 64, 8, 32),
+                                  (260, 1000, 256, 128, 2, 64)):
+        q, t = homologous_pair(SEED + C + R, C, R)
+        pp = sp._prep_sharded(-(-C // cb), q, t, b62, DEL, EXT, tb, tb, None, dev)
+        # every block's inputs come from the blocks above and left of it,
+        # each of which is held below: block (0, 0) takes closed forms
+        _, lb_hist, ckpts = sp._forward(pp, True)
+        Cb, TB = pp["Cb"], pp["tr"]
+        check(Cb == cb, f"{C} columns in blocks of {cb} came out {Cb} wide")
+        kw = dict(del_=int(DEL), ext=int(EXT))
+
+        def block_args(j, d):
+            h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+            return (pp["q_dev"][d * Cb:(d + 1) * Cb], pp["t_dev"][j * TB:(j + 1) * TB],
+                    pp["m_dev"], h0, lb, d * Cb, j * TB, C, R)
+
+        for j in range(pp["J"]):
+            for d in range(pp["n"]):
+                args = block_args(j, d)
+                for dirs in (False, True):
+                    ck = 0 if dirs else tile  # checkpoint rows as the forward fill asks
+                    got = wf.run_block_cs(*args, **kw, with_dirs=dirs, ckpt_every=ck,
+                                          tile_rows=tile, cols_per_thread=K)
+                    want = wf.run_block_cs_plain(*args, **kw, with_dirs=dirs,
+                                                 ckpt_every=ck)
+                    check(same_block(got, want, min(TB, R - j * TB), min(Cb, C - d * Cb)),
+                          f"run_block_cs != plain ({C}x{R}, block ({j}, {d}) of {TB}x{Cb}, "
+                          f"{K} columns a lane, {tile}-row tiles, dirs={dirs})")
+                    n += 1
+        size = pp["R_pad"] + pp["C_pad"] + 1
+        state, steps = wf.new_walk(R, C, size, dev)
+        state_p, steps_p = wf.new_walk(R, C, size, dev)
+        cy, cx = R, C
+        while cy > 0 and cx > 0:
+            j, d = (cy - 1) // TB, (cx - 1) // Cb
+            words = wf.run_block_cs(*block_args(j, d), **kw, with_dirs=True, tile_rows=tile,
+                                    cols_per_thread=K)[3]
+            if d:  # the tile to the left is not the cursor's: left alone
+                wf.replay_walk(words, state, steps, row_base=j * TB, col_base=(d - 1) * Cb)
+            wf.replay_walk(words, state, steps, row_base=j * TB, col_base=d * Cb)
+            wf.replay_walk_plain(words, state_p, steps_p, row_base=j * TB, col_base=d * Cb)
+            check(same_walk((state, steps), (state_p, steps_p)),
+                  f"replay_walk != plain (tile ({j}, {d}) of {C}x{R}, column base {d * Cb})")
+            cy, cx, _ = state.tolist()
+            if d:
+                exits.add("left" if cx == d * Cb and cy > j * TB else "top")
+            n += 1
+    check(exits == {"left", "top"},
+          f"the walks with a column base left their tiles only by {sorted(exits)}")
+    return n
 
 
 def phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine):
@@ -936,7 +1037,9 @@ def phase_repeat_search(at, native, host, cli_repeat, repeat, raw, planted, tmp)
             "--repeats", str(REPEATS), "--seed", "0", "--device", DEVICE]
     scan_log = _ScanLog()
     log.addHandler(scan_log)
-    log.setLevel(logging.INFO)
+    # the CLI sets the package logger's level from ALIGNER_LOG
+    level, env = log.level, os.environ.get("ALIGNER_LOG")
+    os.environ["ALIGNER_LOG"] = "info"
     counters.reset()
     try:
         t0 = time.perf_counter()
@@ -945,6 +1048,11 @@ def phase_repeat_search(at, native, host, cli_repeat, repeat, raw, planted, tmp)
         wall = time.perf_counter() - t0
     finally:
         log.removeHandler(scan_log)
+        log.setLevel(level)
+        if env is None:
+            del os.environ["ALIGNER_LOG"]
+        else:
+            os.environ["ALIGNER_LOG"] = env
     kstats = counters.snapshot()
     check(rc == 0, f"aligner-repeat-search exited {rc}")
 
@@ -1221,6 +1329,137 @@ def phase_band_timing(dev, at, wf, q, t):
     return [row], plain_end
 
 
+def phase_block_timing(dev, at, wf, sp):
+    """K7 and the replay walk with a column base at the column-blocked
+    path's shapes, each held against its plain version on the very call
+    that is timed: the last forward block of the 524,288 x 524,288 pair
+    (262,144 rows from row 262,144 by 131,072 columns from column 393,216,
+    scores with a checkpoint row every 32,768 rows; it owns the end cell),
+    the pair's last replay tile (32,768 x 131,072, with directions), then
+    the walk over that tile.  Then that pair's whole forward fill by the
+    rows of a forward block and, on the 262,144 x 262,144 pair, a replay
+    tile by its width and the whole forward fill by the rows of a forward
+    block and the width of a column block.  Returns the kernels' rows."""
+    m = np.array(at.blosum62())
+    kw = dict(del_=int(DEL), ext=int(EXT))
+    lines, rows = [], []
+
+    def tile_of(pp, lb_hist, ckpts, j, d):
+        Cb, TB = pp["Cb"], pp["tb"]
+        h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+        return (pp["q_dev"][d * Cb:(d + 1) * Cb], pp["t_dev"][j * TB:(j + 1) * TB],
+                pp["m_dev"], h0, lb, d * Cb, j * TB, pp["C_real"], pp["R_real"])
+
+    qa, ta = homologous_pair(PAIR_SEED + 5, BLOCKED_LEN, BLOCKED_LEN)
+    pp = sp._prep_sharded(None, qa, ta, m, DEL, EXT, None, sp.TB_ROWS, None, dev)
+    end_a, lb_hist, ckpts = sp._forward(pp, True)
+    d, Cb, TB, tr = pp["n"] - 1, pp["Cb"], pp["tb"], pp["tr"]
+    y0 = (pp["J"] - 1) * tr  # the last row block starts on a checkpoint row
+    check(y0 > 0 and y0 % TB == 0 and d > 0, "the wide pair's last forward block has a "
+                                            "border for an edge")
+    forward = (pp["q_dev"][d * Cb:], pp["t_dev"][y0:], pp["m_dev"],
+               ckpts[y0 // TB - 1, d * Cb:].contiguous(), lb_hist[d, y0 - 1:].contiguous(),
+               d * Cb, y0, pp["C_real"], pp["R_real"])
+    tile = tile_of(pp, lb_hist, ckpts, pp["R_pad"] // TB - 1, d)
+    for args, extra, ops, counter, what in (
+            (forward, dict(ckpt_every=TB), OPS_SCAN, "block_cs", "scores, checkpoints"),
+            (tile, dict(with_dirs=True), OPS_SCAN_DIRS, "block_cs_dirs", "directions")):
+        R_b, C_b = args[1].numel(), args[0].numel()
+        got, ms, want, plain_ms = timed_pair(
+            lambda: wf.run_block_cs(*args, **kw, **extra, check_codes=False),
+            lambda: wf.run_block_cs_plain(*args, **kw, **extra), 3)
+        check(same_block(got, want, R_b, C_b),
+              f"run_block_cs != plain at the path's shape ({R_b}x{C_b}, {what})")
+        rows.append(dict(
+            name=f"wavefront_block_cs ({what}, one {R_b} x {C_b} block at column "
+                 f"{args[5]})", route="cuda",
+            source="aligner_tpu_torch/csrc/wavefront_block.cu",
+            replaces=REPLACES["block_cs"], path="column_blocked", counter=counter,
+            max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want) if a is not None),
+            ms=ms, plain_ms=plain_ms, shape=f"{R_b}x{C_b} int32",
+            **bound(ops * R_b * C_b, nbytes(*args[:5], *got))))
+        lines.append(f"K7 {what}: {R_b}x{C_b} block {ms:.3f} ms ({R_b * C_b / ms / 1e6:.1f} "
+                     f"GCUPS), {R_b // wf.TILE_ROWS + C_b // (32 * wf.COLS_PER_THREAD) - 1}"
+                     f" launches a call; plain {plain_ms / 1e3:.1f} s")
+    words = got[3]
+    del want, forward
+    # the pair's whole forward fill with its records by the rows of a block
+    for rows_f in FORWARD_SWEEP:
+        ppf = sp._prep_sharded(None, qa, ta, m, DEL, EXT, rows_f, sp.TB_ROWS, None, dev)
+        before = wf.launches.block_cs_tile_launches
+        out = {}
+        ms = gpu_ms(lambda: out.update(end=sp._forward(ppf, True)[0]), 1)
+        check(torch.equal(out["end"], end_a),
+              f"the end score depends on the blocks ({rows_f} rows)")
+        lines.append(f"forward-block sweep, forward {BLOCKED_LEN}x{BLOCKED_LEN} with its "
+                     f"records: blocks of {rows_f} rows x {Cb} columns ({ppf['J']} x "
+                     f"{ppf['n']} blocks): {ms:.3f} ms "
+                     f"({BLOCKED_LEN * BLOCKED_LEN / ms / 1e6:.1f} GCUPS), "
+                     f"{(wf.launches.block_cs_tile_launches - before) // 2} launches")
+    # the walk over that tile, from the pair's end cell
+    size = pp["R_pad"] + pp["C_pad"] + 1
+
+    def walk_tile(fn):
+        st = wf.new_walk(BLOCKED_LEN, BLOCKED_LEN, size, dev)
+        fn(words, *st, row_base=tile[6], col_base=tile[5])
+        return st
+
+    ms_walk = gpu_ms(lambda: walk_tile(wf.replay_walk), 3)
+    got = walk_tile(wf.replay_walk)
+    t0 = time.perf_counter()
+    want = walk_tile(wf.replay_walk_plain)
+    plain_walk_ms = (time.perf_counter() - t0) * 1e3
+    check(same_walk(got, want), "replay_walk != plain on the column-blocked path's tile")
+    n_steps = int(got[0][2])
+    rows.append(dict(
+        name=f"wavefront_replay_walk (one replay tile, column base {tile[5]})",
+        route="cuda", source="aligner_tpu_torch/csrc/wavefront.cu",
+        replaces=REPLACES["replay_walk"], path="column_blocked", counter="replay_walk",
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)), ms=ms_walk,
+        plain_ms=plain_walk_ms, shape=f"{n_steps} steps",
+        **bound(OPS_WALK_STEP * n_steps, 4 * n_steps + n_steps // 4 + 24)))
+    del words, got, want, tile, lb_hist, ckpts, pp
+
+    # a replay tile with directions by its width, and the tiles a diagonal
+    # path through the 524,288 x 524,288 pair would cross at that width
+    q, t = homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN)
+    for cb in TILE_CB_SWEEP:
+        ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, None, sp.TB_ROWS, None,
+                               dev)
+        end_c, *records = sp._forward(ppc, True)
+        tile = tile_of(ppc, *records, ppc["R_pad"] // ppc["tb"] - 1, ppc["n"] - 1)
+        ms = gpu_ms(lambda: wf.run_block_cs(*tile, **kw, with_dirs=True,
+                                            check_codes=False), 2)
+        crossed = BLOCKED_LEN // sp.TB_ROWS + BLOCKED_LEN // cb - 1
+        lines.append(f"replay-tile sweep: {sp.TB_ROWS} rows x {cb} columns with "
+                     f"directions: {ms:.3f} ms, {sp.TB_ROWS * cb // 4 / 2**20:.0f} MiB of "
+                     f"words; {crossed} tiles across {BLOCKED_LEN}x{BLOCKED_LEN}: "
+                     f"{ms * crossed:.1f} ms")
+    del tile, records
+    # the whole forward fill by the rows of a forward block and the width
+    # of a column block, scores only and with the alignment's records
+    cells = WIDE_LEN * WIDE_LEN
+    for tr in TR_SWEEP:
+        for cb in CB_SWEEP:
+            ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, tr, sp.TB_ROWS, None,
+                                   dev)
+            before = wf.launches.block_cs_tile_launches
+            ms = gpu_ms(lambda: sp._forward(ppc, False), 1)
+            launched = (wf.launches.block_cs_tile_launches - before) // 2
+            out = {}
+            ms_rec = gpu_ms(lambda: out.update(end=sp._forward(ppc, True)[0]), 1)
+            check(torch.equal(out["end"], end_c),
+                  f"the end score depends on the blocks ({tr} rows x {cb} columns)")
+            lines.append(f"block sweep, forward {WIDE_LEN}x{WIDE_LEN}: blocks of {tr} rows "
+                         f"x {cb} columns ({ppc['J']} x {ppc['n']} blocks): {ms:.3f} ms "
+                         f"({cells / ms / 1e6:.1f} GCUPS), {launched} launches; with the "
+                         f"boundary and checkpoint records {ms_rec:.3f} ms")
+    print_rows(rows)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return rows
+
+
 def forward_end_cell(dev, at, wf, q, t) -> int:
     """H[R, C] from K5's forward fill, an independent kernel."""
     m = torch.as_tensor(np.array(at.blosum62()).astype(np.int32), device=dev)
@@ -1392,14 +1631,23 @@ def phase_huge_pair(at, native, host, wf, cli_align, plain, tmp):
           and a.coords == coords == ((1, C), (1, R)) and a.f == 0.0,
           "align_global != the alignment of the plain versions' step stream")
     check(spells(at, a, q, t), "the aligned strings do not spell the pair")
+    # the rescoring hold, proved here on a path that is held already: the
+    # plain versions' step stream, and the same stream read back from the
+    # aligned strings, both score the end cell
+    n_steps = int(plain["state"][2])
+    rescored = wf.rescore_steps(plain["steps"].cpu().numpy(), n_steps, q, t, m, DEL, EXT)
+    back, n_back = wf.alignment_steps(a.query, a.target)
+    check(rescored == int(end) and n_back == n_steps
+          and wf.rescore_steps(back, n_back, q, t, m, DEL, EXT) == int(end),
+          f"the rescored path {rescored} != the end score {int(end)}")
     fwd, rep = kstats[f"{DEVICE}/wavefront"], kstats[f"{DEVICE}/wavefront-replay"]
     i = infos[True]
     print(f"  align_global {R}x{C}: wall {wall:.3f} s (forward {fwd.seconds:.4f} s, "
           f"{fwd.gcups:.1f} GCUPS; replay and walks {rep.seconds:.4f} s), "
           f"{i['blocks']} of {i['n_blocks']} blocks of {i['tb_rows']} rows crossed, "
           f"{int(plain['state'][2])} steps, alignment length {len(a.query)}, end score "
-          f"{int(end)}; checkpoints and step stream equal the plain versions'",
-          flush=True)
+          f"{int(end)}; checkpoints and step stream equal the plain versions'; the "
+          f"path rescored on the host gives {rescored}", flush=True)
     for sync in (True, False):
         i = infos[sync]
         print(f"  block loop, cursor read after every block={sync}: device part "
@@ -1443,8 +1691,8 @@ def phase_huge_pair(at, native, host, wf, cli_align, plain, tmp):
         print(f"  aligner-align -g {' '.join(extra)}: {CLI_PAIR_LEN}-residue records, "
               f"wall {wall:.3f} s, stdout equals the host engine's rendering", flush=True)
 
-    # the width cap, timed only: nothing holds this result against a
-    # reference; the aligned strings are only checked to spell the pair
+    # the width cap: timed, and its path held by the rescoring: the walked
+    # path's score under the fill's own rules equals the band fill's end score
     q4, t4 = homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN)
     counters.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1452,14 +1700,193 @@ def phase_huge_pair(at, native, host, wf, cli_align, plain, tmp):
     a = at.align_global(q4, t4, m, DEL, EXT, device=DEVICE).alignment
     wall = time.perf_counter() - t0
     kstats = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**20
     check(spells(at, a, q4, t4),
           "the aligned strings at the width cap do not spell the pair")
+    score = at.global_end_score(q4, t4, m, DEL, EXT, device=DEVICE)
+    rescored = wf.rescore_steps(*wf.alignment_steps(a.query, a.target), q4, t4, m, DEL, EXT)
+    check(rescored == score,
+          f"the rescored path at the width cap {rescored} != global_end_score {score}")
     fwd, rep = kstats[f"{DEVICE}/wavefront"], kstats[f"{DEVICE}/wavefront-replay"]
-    print(f"  align_global {WIDE_LEN}x{WIDE_LEN} (timed only, not held against a "
-          f"reference): wall {wall:.3f} s (forward {fwd.seconds:.4f} s, "
-          f"{fwd.gcups:.1f} GCUPS; replay and walks {rep.seconds:.4f} s), alignment "
-          f"length {len(a.query)}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    print(f"  align_global {WIDE_LEN}x{WIDE_LEN}: wall {wall:.3f} s (forward "
+          f"{fwd.seconds:.4f} s, {fwd.gcups:.1f} GCUPS; replay and walks "
+          f"{rep.seconds:.4f} s), alignment length {len(a.query)}, peak device memory "
+          f"{peak:.0f} MiB; the path rescored on the host gives {rescored}, equal to "
+          f"global_end_score", flush=True)
+    return dict(q=q4, t=t4, alignment=a, score=score, pair_b=res.alignment)
+
+
+def same_alignment(a, b) -> bool:
+    return (np.array_equal(a.query, b.query) and np.array_equal(a.target, b.target)
+            and tuple(map(tuple, a.coords)) == tuple(map(tuple, b.coords)))
+
+
+def phase_column_blocked(at, wf, sp, plain, wide):
+    """Drives the column-blocked path, and nothing else, so that the launch
+    counts read after it are the path's own: the 65,536 x 65,536 pair as 4
+    column blocks and the 262,144 x 262,144 pair as 2 through the module's
+    entry points, 524,288 x 524,288 through ``align_global`` and
+    ``global_end_score`` by its width alone, and ``backend="wavefront_sp"`` on
+    a small pair.  Returns what it computed, for
+    :func:`hold_column_blocked`."""
+    import warnings
+
+    from aligner_tpu_torch.observability import counters
+
+    m = at.blosum62()
+    m_np = np.asarray(m)
+    L = wf.launches
+    out = {}
+    for name, n_blocks, q, t in (("B", BLOCKED_B, plain["q"], plain["t"]),
+                                 ("C", 2, wide["q"], wide["t"])):
+        t0 = time.perf_counter()
+        res = sp.sharded_global_align(n_blocks, q, t, m_np, DEL, EXT, device=DEVICE)
+        wall = time.perf_counter() - t0
+        es = sp.sharded_global_end_score(n_blocks, q, t, m_np, DEL, EXT, device=DEVICE)
+        out[name] = dict(q=q, t=t, n_blocks=n_blocks, res=res, es=es, wall=wall)
+
+    # pair A: wider than one plane, through the entry points, no backend named
+    q, t = homologous_pair(PAIR_SEED + 5, BLOCKED_LEN, BLOCKED_LEN)
+    C = R = BLOCKED_LEN
+    check(C > wf.MAX_WIDTH, "the wide pair is not wider than one plane")
+    counters.reset()
+    before = (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.replay_walk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        a = at.align_global(q, t, m, DEL, EXT, device=DEVICE).alignment
+        wall = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    kstats = counters.snapshot()
+    blocks, tiles, launched, walks = (
+        L.block_cs - before[0], L.block_cs_dirs - before[1],
+        L.block_cs_tile_launches - before[2], L.replay_walk - before[3])
+    check(blocks > 0 and tiles > 0 and walks == tiles,
+          f"align_global {R}x{C} did not take the column-blocked route ({blocks} blocks, "
+          f"{tiles} tiles, {walks} walks)")
+    t0 = time.perf_counter()
+    score = at.global_end_score(q, t, m, DEL, EXT, device=DEVICE)
+    wall_es = time.perf_counter() - t0
+    blocks_es = L.block_cs - before[0] - blocks
+    launched_es = L.block_cs_tile_launches - before[2] - launched
+    check(blocks_es > 0, f"global_end_score {R}x{C} did not take the column-blocked route")
+    fwd = kstats[f"{DEVICE}/wavefront-sp"]
+    rep = kstats[f"{DEVICE}/wavefront-sp-replay"]
+    print(f"  align_global {R}x{C} (no backend named: by its width): wall {wall:.3f} s "
+          f"({R * C / wall / 1e9:.1f} GCUPS end to end; forward {fwd.seconds:.4f} s, "
+          f"{fwd.gcups:.1f} GCUPS; replay and walks {rep.seconds:.4f} s), {blocks} forward "
+          f"blocks run, {tiles} tiles replayed, {launched} kernel launches and {walks} "
+          f"walks, {len(flagged)} synchronising calls flagged by torch's sync debug mode "
+          f"(one after the forward fill, one cursor read a tile, the uploads and "
+          f"downloads), peak device memory {peak:.0f} MiB, alignment length "
+          f"{len(a.query)}", flush=True)
+    print(f"  global_end_score {R}x{C}: wall {wall_es:.3f} s "
+          f"({R * C / wall_es / 1e9:.1f} GCUPS), {blocks_es} forward blocks run, "
+          f"{launched_es} kernel launches", flush=True)
+    out["A"] = dict(q=q, t=t, alignment=a, score=score)
+
+    # backend="wavefront_sp" by name, on a small pair
+    q5, t5 = homologous_pair(PAIR_SEED + 3, *SMALL_PAIR)
+    out["small"] = dict(
+        q=q5, t=t5,
+        alignment=at.align_global(q5, t5, m, DEL, EXT, backend="wavefront_sp",
+                                  device=DEVICE).alignment,
+        score=at.global_end_score(q5, t5, m, DEL, EXT, backend="wavefront_sp",
+                                  device=DEVICE))
+    check(L.row_scan + L.row_scan_dirs + L.band == 0,
+          "the column-blocked path launched a single-plane kernel")
+    return out
+
+
+def hold_column_blocked(dev, at, host, wf, sp, plain, wide, out):
+    """What :func:`phase_column_blocked` computed against the other routes:
+    the 4-block pair's strings, end score, checkpoint rows and step stream
+    against the single-plane routes and the plain versions'; the 2-block
+    pair's strings and end score against the single-plane run; the
+    524,288 x 524,288 pair's end score against the band fill on a grid of
+    262,144-column blocks (an independent kernel) and its path rescored;
+    the small pair against the host engine."""
+    from aligner_tpu_torch.result import Alignment
+
+    m = at.blosum62()
+    m_np = np.asarray(m)
+
+    # pair B: every checkpoint value has passed through the right columns
+    # of the blocks to its left
+    b = out["B"]
+    q, t = b["q"], b["t"]
+    C, R = len(q), len(t)
+    end, qa, ta, coords = b["res"]
+    check(same_alignment(Alignment(qa, ta, coords, 0.0, at.Protein), wide["pair_b"]),
+          f"{BLOCKED_B} column blocks: strings or coordinates != align_global's")
+    k5 = forward_end_cell(dev, at, wf, q, t)
+    k6 = at.global_end_score(q, t, m, DEL, EXT, device=DEVICE)
+    check(end == b["es"] == k5 == k6,
+          f"{BLOCKED_B} column blocks: end score {end} / {b['es']} != K5's end cell {k5} "
+          f"or global_end_score {k6}")
+    pp = sp._prep_sharded(BLOCKED_B, q, t, m_np, DEL, EXT, None, wf.TB_ROWS, None, DEVICE)
+    _, _, ckpts, state, steps, info = sp._sharded_walk(pp)
+    check(torch.equal(ckpts[:, :C], plain["ckpts"][:, :C]),
+          "the column-blocked checkpoints != the plain row-scan fill's")
+    check(same_walk((state, steps), (plain["state"], plain["steps"])),
+          "the column-blocked step stream != the plain versions'")
+    rescored = wf.rescore_steps(*wf.alignment_steps(qa, ta), q, t, m, DEL, EXT)
+    check(rescored == end, f"the rescored path {rescored} != the end score {end}")
+    print(f"  sharded_global_align {R}x{C}, {pp['n']} column blocks of {pp['Cb']}: wall "
+          f"{b['wall']:.3f} s (forward {info['forward_s']:.4f} s in "
+          f"{info['forward_blocks']} blocks, replay {info['replay_s']:.4f} s in "
+          f"{info['tiles']} tiles, {info['syncs']} waits for the device); strings, "
+          f"coordinates, end score, checkpoint rows and step stream equal the "
+          f"single-plane routes' and the plain versions'", flush=True)
+
+    # pair C: 2 column blocks of 131,072 against the single-plane run
+    c = out["C"]
+    q, t = c["q"], c["t"]
+    end, qa, ta, coords = c["res"]
+    check(same_alignment(Alignment(qa, ta, coords, 0.0, at.Protein), wide["alignment"]),
+          "2 column blocks at the width cap: strings != align_global's single-plane run")
+    rescored = wf.rescore_steps(*wf.alignment_steps(qa, ta), q, t, m, DEL, EXT)
+    check(end == c["es"] == rescored == wide["score"],
+          f"2 column blocks at the width cap: end score {end} / {c['es']} / rescored "
+          f"{rescored} != global_end_score {wide['score']}")
+    print(f"  sharded_global_align {len(t)}x{len(q)}, 2 column blocks of {len(q) // 2}: "
+          f"wall {c['wall']:.3f} s; strings equal align_global's single-plane run, end "
+          f"score {int(end)} equals global_end_score and the rescored path", flush=True)
+
+    # pair A: both entry points ran K7, so the end score is held by the band
+    # fill on a 2 x 2 grid of blocks, and the path by its rescoring
+    a = out["A"]
+    q, t, aln, score = a["q"], a["t"], a["alignment"], a["score"]
+    C, R = len(q), len(t)
+    t0 = time.perf_counter()
+    k6 = int(wf.band_grid(q, t, m_np, DEL, EXT, tb=wf.BAND_ROWS, cb=wf.MAX_WIDTH,
+                          device=dev, check_codes=False)[0])
+    wall_k6 = time.perf_counter() - t0
+    check(score == k6, f"{R}x{C}: global_end_score {score} != the band fill's {k6} on "
+                       f"a grid of {wf.BAND_ROWS} x {wf.MAX_WIDTH} blocks")
+    rescored = wf.rescore_steps(*wf.alignment_steps(aln.query, aln.target), q, t, m, DEL,
+                                EXT)
+    check(rescored == score,
+          f"{R}x{C}: the rescored path {rescored} != global_end_score {score}")
+    check(spells(at, aln, q, t) and tuple(map(tuple, aln.coords)) == ((1, C), (1, R)),
+          f"{R}x{C}: the aligned strings do not spell the pair")
+    print(f"  {R}x{C}: global_end_score {int(score)} equals the band fill's end score on "
+          f"a grid of {wf.BAND_ROWS} x {wf.MAX_WIDTH} blocks ({wall_k6:.3f} s) and the "
+          f"rescored path of align_global; the strings spell the pair", flush=True)
+
+    s5 = out["small"]
+    ref = host.align_global(s5["q"], s5["t"], m, DEL, EXT)
+    check(np.array_equal(s5["alignment"].query, ref.query_aligned)
+          and np.array_equal(s5["alignment"].target, ref.target_aligned)
+          and tuple(map(tuple, s5["alignment"].coords)) == tuple(map(tuple, ref.coords))
+          and s5["score"] == ref.score[len(s5["t"]), len(s5["q"])],
+          "backend=wavefront_sp on a small pair != the host engine")
+    print(f"  backend=wavefront_sp {SMALL_PAIR[1]}x{SMALL_PAIR[0]}: align_global and "
+          f"global_end_score equal the host engine ({s5['score']})", flush=True)
 
 
 def main() -> int:
@@ -1475,6 +1902,7 @@ def main() -> int:
     from aligner_tpu_torch.io import read_fasta_file
     from aligner_tpu_torch.ops import _build, device_walk, dp_fill, scan_engine
     from aligner_tpu_torch.ops import wavefront as wf
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
 
     dev = torch.device(DEVICE)
     print(card_line(), flush=True)  # "<name>, <power limit>" as nvidia-smi gives it
@@ -1490,6 +1918,7 @@ def main() -> int:
         n = phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine)
         n += wavefront_vs_plain(dev, at, wf)
         n += band_vs_plain(dev, at, host, wf)
+        n += block_cs_vs_plain(dev, at, wf, sp)
         print(f"  {n} variants bit-identical", flush=True)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1506,6 +1935,7 @@ def main() -> int:
         rows += wf_rows
         band_rows, plain_end = phase_band_timing(dev, at, wf, plain["q"], plain["t"])
         rows += band_rows
+        rows += phase_block_timing(dev, at, wf, sp)
 
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
@@ -1515,7 +1945,10 @@ def main() -> int:
                     row_scan_dirs=wf.launches.row_scan_dirs,
                     replay_walk=wf.launches.replay_walk,
                     tile_launches=wf.launches.tile_launches, band=wf.launches.band,
-                    band_tile_launches=wf.launches.band_tile_launches)
+                    band_tile_launches=wf.launches.band_tile_launches,
+                    block_cs=wf.launches.block_cs,
+                    block_cs_dirs=wf.launches.block_cs_dirs,
+                    block_cs_tile_launches=wf.launches.block_cs_tile_launches)
 
     def reset_counts():
         dp_fill.launches.reset()
@@ -1546,19 +1979,27 @@ def main() -> int:
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         with phase("huge global pair"):
-            phase_huge_pair(at, native, host, wf, cli_align, plain, tmp)
+            wide = phase_huge_pair(at, native, host, wf, cli_align, plain, tmp)
     counts["huge"] = launch_counts()
     reset_counts()
     with phase("huge-pair end score"):
         phase_end_score(dev, at, native, host, wf, plain["q"], plain["t"], plain_end, pq,
                         pt)
     counts["end_score"] = launch_counts()
+    reset_counts()
+    with phase("column-blocked pair"):
+        blocked = phase_column_blocked(at, wf, sp, plain, wide)
+    counts["column_blocked"] = launch_counts()
+    with phase("column-blocked pair against the other routes"):
+        hold_column_blocked(dev, at, host, wf, sp, plain, wide, blocked)
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "walk")),
                 ("pwm", "phase 7", ("pwm_scores", "pwm_dirs", "walk")),
                 ("huge", "phase 8", ("row_scan", "row_scan_dirs", "replay_walk")),
-                ("end_score", "phase 9", ("band",))):
+                ("end_score", "phase 9", ("band",)),
+                ("column_blocked", "phase 10",
+                 ("block_cs", "block_cs_dirs", "replay_walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,

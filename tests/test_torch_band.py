@@ -233,6 +233,18 @@ def test_band_grid_streamed_left_boundary_matches_host_plane(C, R, tb, cb):
                 assert np.array_equal(b.numpy()[:n], H[y, ci * cb + 1 : ci * cb + 1 + n])
 
 
+def test_band_grid_takes_a_pair_wider_than_one_plane(monkeypatch):
+    """The width cap is one plane's: a grid of column blocks no wider than
+    the cap holds a wider pair, and the single-plane prep still refuses it."""
+    monkeypatch.setattr(wf, "MAX_WIDTH", 128)
+    q, t = _pair(77, 300, 150)
+    H = host.align_global(q, t, B62, 11.0, 2.0).score
+    end, _, _ = wf.band_grid(q, t, B62, 11.0, 2.0, tb=128, cb=wf.MAX_WIDTH, device="cpu")
+    assert int(end) == H[150, 300]
+    with pytest.raises(ValueError):
+        wf._prep(q, t, B62, 11.0, 2.0, "cpu")
+
+
 LANE0 = [(2, 1), (2, 2), (3, 2), (4, 1), (1, 2), (5, 4)]
 
 
@@ -314,13 +326,16 @@ def test_global_end_score_errors_match_reference(monkeypatch):
     with pytest.raises(port.ValidationError) as got:
         port.global_end_score(z5, z5, B62, 11.0, 2.0, backend="nope", device="cpu")
     assert str(got.value) == str(want.value)
-    # the column-sharded route over several cards is not ported yet
-    with pytest.raises(port.ValidationError, match="multi-GPU"):
-        port.global_end_score(z5, z5, B62, 11.0, 2.0, backend="wavefront_sp",
+    # the column-blocked route takes a narrow pair by name and a wide one by
+    # its width, and refuses what its block engine does not take
+    want = port.global_end_score(z5, z5, B62, 11.0, 2.0, device="cpu")
+    assert port.global_end_score(z5, z5, B62, 11.0, 2.0, backend="wavefront_sp",
+                                 device="cpu") == want
+    with pytest.raises(port.ValidationError, match="wavefront_sp requires"):
+        port.global_end_score(z5, z5, B62 * 0.5, 11.0, 2.0, backend="wavefront_sp",
                               device="cpu")
     monkeypatch.setattr(wf, "MAX_WIDTH", 3)
-    with pytest.raises(port.ValidationError, match="multi-GPU"):
-        port.global_end_score(z5, z5, B62, 11.0, 2.0, device="cpu")
+    assert port.global_end_score(z5, z5, B62, 11.0, 2.0, device="cpu") == want
     with pytest.raises(port.ValidationError, match="diag backend requires"):
         port.global_end_score(z5, z5, B62, 11.0, 2.0, backend="diag", device="cpu")
 

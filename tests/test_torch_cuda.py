@@ -1,8 +1,9 @@
 """CUDA kernels against their plain PyTorch versions on the card, bit for
 bit (the cases of chip_smoke.py's kernel phase): the fill kernel in pair
 mode (K1/K2) and in PWM mode (K3), the walk (K4), the row-scan fill of
-one global pair (K5), the replay walk, and the band fill (K6) with the
-end score built on it.
+one global pair (K5), the replay walk (also with a column base), the band
+fill (K6) with the end score built on it, and the column-block fill (K7)
+with the column-blocked pipeline built on it.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -367,3 +368,155 @@ def test_global_end_score_on_the_card_matches_the_host_engine(dev, C, R):
                                                      tb=tb, device=dev)
         assert got == ref.score[R, C]
     assert global_end_score(q, t, blosum62(), 11.0, 2.0, device=dev) == ref.score[R, C]
+
+
+def _block_case(seed, C, R, cb, tr, d, j, dev, m=None, del_=11, ext=2):
+    """The inputs of block (row block ``j``, column block ``d``) of a seeded
+    pair on the card, as the column-blocked pipeline builds them from the
+    records of its forward fill."""
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    rng = np.random.default_rng(seed)
+    m = np.array(blosum62()) if m is None else m
+    q = rng.integers(0, m.shape[0], C)
+    t = rng.integers(0, m.shape[0], R)
+    pp = sp._prep_sharded(-(-C // cb), q, t, m, del_, ext, tr, tr, None, dev)
+    _, lb_hist, ckpts = sp._forward(pp, True)
+    h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+    Cb, tr = pp["Cb"], pp["tr"]  # a block is no taller than the padded target
+    assert Cb == cb
+    return (pp["q_dev"][d * Cb:(d + 1) * Cb], pp["t_dev"][j * tr:(j + 1) * tr],
+            pp["m_dev"], h0, lb, d * Cb, j * tr, C, R)
+
+
+def _same_block(got, want, rows, cols):
+    """Two results of the column-block fill on the block's real rows and
+    columns: the last row, the right column, the end cell, the words and the
+    checkpoint rows."""
+    ok = torch.equal(got[0][:cols], want[0][:cols])
+    ok = ok and torch.equal(got[1][:rows], want[1][:rows]) and torch.equal(got[2], want[2])
+    if got[3] is not None:
+        d, d_p = (wavefront._unpack_dir_words(w.cpu().numpy())[:rows, :cols]
+                  for w in (got[3], want[3]))
+        ok = ok and np.array_equal(d, d_p)
+    if got[4] is not None:
+        ok = ok and torch.equal(got[4][:, :cols], want[4][:, :cols])
+    return ok
+
+
+# (C, R, column block, rows of a block, column block d, row block j): x0 and
+# y_base zero and not, the block with cell (1,1), the block that owns the end
+# cell, C_real on a block's last column (512 = 2 x 256) and on the first
+# column of the last block (513)
+BLOCK_CASES = [(512, 128, 256, 64, 0, 0), (512, 128, 256, 64, 1, 1),
+               (513, 100, 256, 64, 2, 1), (513, 100, 256, 64, 1, 0),
+               (700, 300, 512, 128, 1, 2), (300, 70, 512, 64, 0, 1),
+               (1, 1, 256, 16, 0, 0)]
+
+
+@pytest.mark.parametrize("K,tile", [(2, 16), (4, 32), (8, 64), (4, 64)])
+@pytest.mark.parametrize("with_dirs", [False, True], ids=["scores", "dirs"])
+@pytest.mark.parametrize("C,R,cb,tr,d,j", BLOCK_CASES,
+                         ids=[f"{c}x{r}-blk{j}.{d}" for c, r, _, _, d, j in BLOCK_CASES])
+def test_block_cs_kernel_matches_plain(dev, C, R, cb, tr, d, j, K, tile, with_dirs):
+    args = _block_case(40, C, R, cb, tr, d, j, dev)
+    rows = args[1].numel()
+    # checkpoint rows inside the call with the scores, as the forward fill asks
+    kw = dict(del_=11, ext=2, with_dirs=with_dirs,
+              ckpt_every=0 if with_dirs else min(tile, rows))
+    got = wavefront.run_block_cs(*args, **kw, tile_rows=min(tile, rows),
+                                 cols_per_thread=K)
+    torch.cuda.synchronize()
+    want = wavefront.run_block_cs_plain(*args, **kw)
+    x0, y_base = args[5], args[6]
+    assert _same_block(got, want, min(rows, R - y_base), min(args[0].numel(), C - x0))
+    assert (got[3] is None) == (not with_dirs) and (got[4] is None) == with_dirs
+
+
+def test_block_cs_kernel_wide_range_matrix(dev):
+    m = np.random.default_rng(41).integers(-30, 30, (4, 4)).astype(np.float64)
+    args = _block_case(42, 600, 200, 256, 64, 1, 1, dev, m=m, del_=5, ext=2)
+    kw = dict(del_=5, ext=2, with_dirs=True)
+    got = wavefront.run_block_cs(*args, **kw)
+    assert _same_block(got, wavefront.run_block_cs_plain(*args, **kw), 64, 256)
+
+
+@pytest.mark.parametrize("C,R", [(600, 300), (300, 600), (1000, 64)])
+def test_replay_walk_kernel_with_a_column_base(dev, C, R):
+    """Every tile the cursor crosses, kernel against plain: the walk leaves
+    a tile by its top or by its left edge and reports a global column; a
+    tile the cursor is not in is left alone."""
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    rng = np.random.default_rng(43)
+    qn = rng.integers(0, 20, C)
+    tn = np.resize(qn, R).copy()
+    mask = rng.random(R) < 0.25
+    tn[mask] = rng.integers(0, 20, int(mask.sum()))
+    pp = sp._prep_sharded(-(-C // 256), qn, tn, np.array(blosum62()), 11, 2, 64, 64, None,
+                          dev)
+    _, lb_hist, ckpts = sp._forward(pp, True)
+    got = wavefront.new_walk(R, C, pp["R_pad"] + pp["C_pad"] + 1, dev)
+    want = wavefront.new_walk(R, C, pp["R_pad"] + pp["C_pad"] + 1, dev)
+    cy, cx, left = R, C, 0
+    while cy > 0 and cx > 0:
+        j, d = (cy - 1) // 64, (cx - 1) // 256
+        h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+        words = sp._block(pp, d, pp["t_dev"][j * 64:(j + 1) * 64], h0, lb, j * 64,
+                          with_dirs=True)[3]
+        if d:  # the tile to the left is not the cursor's
+            wavefront.replay_walk(words, *got, row_base=j * 64, col_base=(d - 1) * 256)
+            assert got[0].tolist()[:2] == [cy, cx]
+        wavefront.replay_walk(words, *got, row_base=j * 64, col_base=d * 256)
+        torch.cuda.synchronize()
+        wavefront.replay_walk_plain(words, *want, row_base=j * 64, col_base=d * 256)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cy, cx, _ = got[0].tolist()
+        left += cx == d * 256 and cy > j * 64
+    assert left > 0 or C <= 256 or R > C
+
+
+def test_block_cs_launch_counters_count_kernel_launches(dev):
+    args = _block_case(44, 512, 128, 256, 64, 1, 1, dev)
+    L = wavefront.launches
+    before = (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.row_scan)
+    wavefront.run_block_cs(*args, del_=11, ext=2, tile_rows=32, cols_per_thread=4)
+    wavefront.run_block_cs(*args, del_=11, ext=2, with_dirs=True, tile_rows=32,
+                           cols_per_thread=4)
+    tiles = 2 * (64 // 32 + 256 // 128 - 1)
+    assert (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.row_scan) == \
+        (before[0] + 1, before[1] + 1, before[2] + tiles, before[3])
+
+
+def test_column_blocked_pair_on_the_card(dev):
+    """An 8,192 x 8,192 pair as 4 column blocks of 2,048: strings and
+    coordinates equal the single-plane route's, the end score equals the band
+    fill's and the rescored path, and the checkpoint rows, every value of
+    which has passed through the right columns of the blocks to its left,
+    equal the row-scan fill's."""
+    from aligner_tpu_torch import align_global, global_end_score
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    rng = np.random.default_rng(45)
+    n = 8192
+    q = rng.integers(0, 20, n).astype(np.int8)
+    t = q.copy()
+    mask = rng.random(n) < 0.25
+    t[mask] = rng.integers(0, 20, int(mask.sum()))
+    m = np.array(blosum62())
+    end, qa, ta, coords = sp.sharded_global_align(4, q, t, m, 11.0, 2.0, tb_rows=1024,
+                                                  device=dev)
+    a = align_global(q, t, m, 11.0, 2.0, device=dev).alignment
+    assert np.array_equal(qa, a.query) and np.array_equal(ta, a.target)
+    assert coords == a.coords
+    assert end == global_end_score(q, t, m, 11.0, 2.0, device=dev)
+    assert end == sp.sharded_global_end_score(4, q, t, m, 11.0, 2.0, device=dev)
+    assert wavefront.rescore_steps(*wavefront.alignment_steps(qa, ta), q, t, m, 11, 2) == end
+    b = align_global(q, t, m, 11.0, 2.0, backend="wavefront_sp", device=dev).alignment
+    assert np.array_equal(b.query, qa) and np.array_equal(b.target, ta)
+    pp = sp._prep_sharded(4, q, t, m, 11, 2, None, 1024, None, dev)
+    assert pp["tr"] == n and pp["tb"] == 1024  # one forward block, 8 checkpoints in it
+    _, _, ckpts = sp._forward(pp, True)
+    pp1 = wavefront._prep(q, t, m, 11, 2, dev)
+    _, _, ck1 = wavefront._scan(pp1, pp["t_dev"], None, 0, with_dirs=False, ckpt_every=1024)
+    assert torch.equal(ckpts[:, :n], ck1[:, :n])

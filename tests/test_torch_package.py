@@ -1,7 +1,9 @@
-"""The PyTorch port's package: imports without JAX, and its copied
+"""The PyTorch port's package: imports without JAX, its copied
 framework-free layer (alphabets, matrices, FASTA I/O) equals the JAX
-package's on the example files."""
+package's on the example files, and its logging set-up keeps to its own
+logger."""
 
+import logging
 import pathlib
 import re
 import subprocess
@@ -28,6 +30,7 @@ def test_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['aligner_tpu'] = None\n"
         "import aligner_tpu_torch, aligner_tpu_torch.cli.search\n"
         "import aligner_tpu_torch.ops.dp_fill, aligner_tpu_torch.ops.device_walk\n"
+        "import aligner_tpu_torch.ops.wavefront, aligner_tpu_torch.parallel.wavefront_sp\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "print('ok')\n"
     )
@@ -71,3 +74,26 @@ def test_matrices_match_reference(rng):
     a = ref.transform_matrix(ref.blosum62(), 0.3, 40.0, freqs)
     b = port.transform_matrix(port.blosum62(), 0.3, 40.0, freqs)
     assert np.array_equal(a, b)
+
+
+def test_configure_logging_keeps_to_the_package_logger(monkeypatch):
+    """``ALIGNER_LOG`` sets the level of the ``aligner_tpu_torch`` logger;
+    the root logger's level is untouched (the JAX package's
+    ``configure_logging`` sets the root's)."""
+    from aligner_tpu_torch.observability import configure_logging, log
+
+    root = logging.getLogger()
+    monkeypatch.setattr(root, "level", logging.ERROR)
+    monkeypatch.setattr(log, "level", logging.NOTSET)
+    monkeypatch.setenv("ALIGNER_LOG", "info")
+    configure_logging()
+    assert log.name == "aligner_tpu_torch" and log.level == logging.INFO
+    assert root.level == logging.ERROR
+    configure_logging("debug")
+    assert log.level == logging.DEBUG and root.level == logging.ERROR
+    monkeypatch.setenv("ALIGNER_LOG", "disable")  # names no level
+    configure_logging()
+    assert log.level == logging.WARNING and root.level == logging.ERROR
+    monkeypatch.delenv("ALIGNER_LOG")
+    configure_logging()
+    assert log.level == logging.WARNING

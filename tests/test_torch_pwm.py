@@ -152,6 +152,22 @@ def test_dtype_follows_the_data():
         assert dtype_for(cpu, m, 11.0, 2.0) == torch.float64
 
 
+def test_dtype_guards_the_f32_integer_range():
+    """Integral scoring stays in f32 only while no score of the given
+    lengths can pass 2^24, where f32 stops holding every integer."""
+    b62 = np.array(port.blosum62())
+    cuda = torch.device("cuda")
+    assert dtype_for(cuda, b62, 11.0, 2.0, lengths=(400, 400)) == torch.float32
+    assert dtype_for(cuda, b62, 1e7, 2.0, lengths=(400, 400)) == torch.float64
+    assert dtype_for(cuda, b62, 1e7, 2.0) == torch.float32  # no lengths, no guard
+    # two identical 1.6 M-residue sequences: 11 a match down the diagonal
+    assert dtype_for(cuda, b62, 11.0, 2.0, lengths=(1_600_000, 1_600_000)) == torch.float64
+    assert dtype_for(cuda, b62, 11.0, 2.0, lengths=(1_600_000, 400)) == torch.float64
+    assert dtype_for(cuda, b62, 11.0, 2.0, lengths=(2_000, 100_000)) == torch.float32
+    assert dtype_for(cuda, np.ones((4, 300)), 30.0, 7.0, lengths=(336, 300)) == torch.float32
+    assert dtype_for("cpu", b62, 11.0, 2.0, lengths=(400, 400)) == torch.float64
+
+
 def _dna(rng, n, lo, hi):
     return [rng.integers(0, 4, rng.integers(lo, hi + 1)).astype(np.int8)
             for _ in range(n)]

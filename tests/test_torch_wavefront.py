@@ -227,10 +227,13 @@ def test_align_global_refusals(monkeypatch):
     with pytest.raises(port.ValidationError) as got:
         port.align_global(z4, z4, m, 11.0, 2.0, device="cpu")
     assert str(got.value) == str(want.value)
-    # too wide for one card: the multi-GPU route is not there yet
+    # too wide for one plane: the column-blocked route takes it, and
+    # refuses a matrix its block engine does not take
     monkeypatch.setattr(wf, "MAX_WIDTH", 3)
-    with pytest.raises(port.ValidationError, match="multi-GPU"):
-        port.align_global(z4, z4, B62, 11.0, 2.0, device="cpu")
+    a = port.align_global(z4, z4, B62, 11.0, 2.0, device="cpu")
+    _same_alignment(a, ref.align_global(z4, z4, B62, 11.0, 2.0, backend="oracle"))
+    with pytest.raises(port.ValidationError, match="int8"):
+        port.align_global(z4, z4, np.full((24, 24), 200.0), 11.0, 2.0, device="cpu")
 
 
 def test_range_guard_matches_reference():
@@ -361,6 +364,9 @@ NO_CARD = {
     "local_max_score": lambda: port.local_max_score(_Q, _Q, B62, 11.0, 2.0),
     "end_score_single_global_diag": lambda: wf.end_score_single_global_diag(
         _Q, _Q, B62, 11.0, 2.0),
+    "sharded_global_align": lambda: port.sharded_global_align(2, _Q, _Q, B62, 11.0, 2.0),
+    "sharded_global_end_score": lambda: port.sharded_global_end_score(
+        2, _Q, _Q, B62, 11.0, 2.0),
 }
 
 
