@@ -128,17 +128,28 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def bind_fill(lib: ctypes.CDLL) -> None:
+    """The argument types of ``csrc/dp_fill.cu``'s entry points."""
     p, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     lib.dp_fill_launch.argtypes = [
         p, p, p, p, p, i64,  # qT, tT, qlen, tlen, matrix, matrix batch stride
         i32, i32, i32, i32,  # V, B, C, R8
         f64, f64,  # del, ext
         i32, i32, i32, i32, i32,  # is_f64, is_pwm, is_global, track_argmax, with_dirs
-        p, p, p, p, p, p,  # colbuf, fmax, fy, fx, end, words
-        i32, p,  # threads per block, stream
+        p, p, p, p, p, p,  # spilled rows, fmax, fy, fx, end, words
+        i32, i32,  # threads a block, rows on chip
+        i32, i32, p,  # matrix in smem, smem, stream
     ]
     lib.dp_fill_launch.restype = i32
+    lib.dp_fill_device_limits.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.dp_fill_device_limits.restype = i32
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    bind_fill(lib)
     lib.device_walk_launch.argtypes = [
         p, i64, p, p,  # words, words per problem, sy, sx
         i32, i32, i32, i32,  # B, C, S, is_global
@@ -177,8 +188,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(i32), p,  # launches made (out), stream
     ]
     lib.wavefront_band_launch.restype = i32
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -189,7 +198,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def threads_for(batch: int, device) -> int:
-    """Threads per block for one-thread-per-problem kernels: the largest
+    """Threads per block for the one-thread-per-problem walk: the largest
     of 128/64/32 that still gives every SM at least one block, so a small
     batch (the p-value's 4,999 problems) spreads over all SMs instead of
     piling onto a few."""

@@ -11,9 +11,17 @@ tensors and take the plain versions
 (:func:`aligner_tpu_torch.ops.scan_engine.fill_batch`,
 :func:`~aligner_tpu_torch.ops.scan_engine.fill_pwm_batch`) for CPU
 tensors.
+
+Each problem's DP column stays on chip: :func:`plan_fill` picks the
+threads a block and the rows of each column held in shared memory (all of
+them wherever they fit); the rest of a column taller than that lives in a
+device buffer allocated for those rows alone.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,9 +43,109 @@ class _Launches:
     def reset(self) -> None:
         self.scores = self.dirs = 0
         self.pwm_scores = self.pwm_dirs = 0
+        self.spilled = 0  # of all the above: launches with rows off chip
 
 
 launches = _Launches()
+
+# a warp's problems are the unit of a block; more than this many warps a
+# block never keeps more problems resident
+MAX_WARPS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class CardLimits:
+    """What the launch plan needs to know of a card."""
+
+    sms: int
+    smem_per_block: int  # the dynamic shared memory a block may opt in to
+    smem_per_sm: int
+    smem_reserved: int  # the shared memory the runtime keeps per resident block
+
+
+@dataclasses.dataclass(frozen=True)
+class FillPlan:
+    """One launch of the fill kernel: ``threads`` a block (one problem
+    each), ``rows_on_chip`` (S) rows 0..S-1 of each column in shared
+    memory, ``smem_bytes`` of dynamic shared memory a block (the shared
+    matrix, the columns, the row codes), ``resident_per_sm`` problems an SM
+    can hold at once by shared memory, ``mat_bytes`` of shared matrix in
+    shared memory (0: read through the L1 cache)."""
+
+    threads: int
+    rows_on_chip: int
+    smem_bytes: int
+    resident_per_sm: int
+    mat_bytes: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def plan_fill(R8: int, itemsize: int, B: int, card: CardLimits, mat_bytes: int, *,
+              warps: int | None = None) -> FillPlan:
+    """The fill kernel's launch plan for B problems of ``R8`` rows in a
+    float type of ``itemsize`` bytes, with ``mat_bytes`` of shared matrix
+    in shared memory (0: none).
+
+    A problem keeps S rows of its column in shared memory (``itemsize``
+    bytes each) and the codes of rows 1..S-1 (a byte each); S = 1 + 8k, at
+    most R8 + 1, so the rows off chip start on an 8-row block.  Over
+    1..``MAX_WARPS`` warps a block (only ``warps`` if given), the plan
+    takes the most rows on chip, then the most problems resident per SM,
+    then the fewest warps.  A block of more than one warp must still leave
+    every SM a block: a small batch runs in one-warp blocks, as spread out
+    as it can be.
+    """
+    room = card.smem_per_block - _round16(mat_bytes)
+    best = None
+    for w in (warps,) if warps else range(1, MAX_WARPS + 1):
+        nt = 32 * w
+        if w > 1 and warps is None and -(-B // nt) < card.sms:
+            break
+        # S * itemsize + (S - 1) bytes a problem, S = 1 + 8k
+        k = min(R8 // 8, (room // nt - itemsize) // (8 * (itemsize + 1)))
+        if k < 0:
+            continue
+        S = 1 + 8 * k
+        smem = _round16(mat_bytes) + nt * (S * itemsize + S - 1)
+        blocks_per_sm = min(card.smem_per_sm // (smem + card.smem_reserved), 32, 2048 // nt)
+        plan = FillPlan(nt, S, smem, nt * blocks_per_sm, mat_bytes)
+        key = (S, plan.resident_per_sm, -w)
+        if best is None or key > best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"no launch of the fill kernel fits {mat_bytes} bytes of "
+                         f"matrix in {card.smem_per_block} bytes of shared memory")
+    return best[1]
+
+
+_CARDS: dict[int, CardLimits] = {}
+
+
+def card_limits(dev) -> CardLimits:
+    """The launch plan's limits of CUDA device ``dev``, read once."""
+    idx = torch.device(dev).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _CARDS:
+        lib = _build.load()
+        out = (ctypes.c_int * 4)()
+        _build.check(lib, lib.dp_fill_device_limits(idx, out), "dp_fill_device_limits")
+        _CARDS[idx] = CardLimits(*out)
+    return _CARDS[idx]
+
+
+def launch_plan(B: int, R8: int, matrix: torch.Tensor) -> FillPlan:
+    """The plan of one launch on ``matrix``'s card: a shared matrix may sit
+    in shared memory when it takes at most half of a block's."""
+    card = card_limits(matrix.device)
+    mat_bytes = matrix.numel() * matrix.element_size()
+    if matrix.dim() == 3 or mat_bytes > card.smem_per_block // 2:
+        mat_bytes = 0
+    return plan_fill(R8, matrix.element_size(), B, card, mat_bytes)
+
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -155,16 +263,23 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
     C = matrix.shape[-1] if is_pwm else q.shape[1]
     R8 = round8(R)
     V = matrix.shape[-2]
+    if not is_pwm and V > 256:
+        raise ValueError(f"the fill kernel keeps row codes in bytes: at most 256 "
+                         f"symbols, got a {V} x {V} matrix")
     dtype = matrix.dtype
     lib = _build.load()
     with torch.cuda.device(dev):
+        plan = launch_plan(B, R8, matrix)
+        S = plan.rows_on_chip
         # (R8, B) and (C, B): a warp's 32 problems read 32 neighbouring words
         tT = t.T if R == R8 and t.T.is_contiguous() else None
         if tT is None:
             tT = torch.zeros((R8, B), dtype=torch.int32, device=dev)
             tT[:R] = t.T
         qT = None if is_pwm else q.T.contiguous()
-        col = torch.empty((R8 + 1, B), dtype=dtype, device=dev)
+        # rows S..R8 of each column, when the whole column does not fit on chip
+        spill = (torch.empty((R8 + 1 - S, B), dtype=dtype, device=dev)
+                 if S <= R8 else None)
         fmax = torch.empty(B, dtype=dtype, device=dev)
         fy = torch.empty(B, dtype=torch.int32, device=dev)
         fx = torch.empty(B, dtype=torch.int32, device=dev)
@@ -179,12 +294,15 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
             matrix.data_ptr(), matrix[0].numel() if matrix.dim() == 3 else 0,
             V, B, C, R8, float(del_), float(ext),
             int(dtype == torch.float64), int(is_pwm), int(is_global), int(track),
-            int(with_dirs), col.data_ptr(), fmax.data_ptr(), fy.data_ptr(),
-            fx.data_ptr(), end.data_ptr(),
+            int(with_dirs), None if spill is None else spill.data_ptr(),
+            fmax.data_ptr(), fy.data_ptr(), fx.data_ptr(), end.data_ptr(),
             words.data_ptr() if with_dirs else None,
-            _build.threads_for(B, dev), torch.cuda.current_stream(dev).cuda_stream,
+            plan.threads, S, int(plan.mat_bytes > 0), plan.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "dp_fill")
+        if spill is not None:
+            launches.spilled += 1
         if is_pwm:
             if with_dirs:
                 launches.pwm_dirs += 1

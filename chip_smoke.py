@@ -19,8 +19,11 @@ against the native C++ host engine or the frozen golden fixtures:
    on every block of ragged grids and the replay walk with a column base
    on every tile a walk crosses, real cells only), and
    each kernel's time beside its plain version's and its bound at the
-   shapes the main path gives it, with the repeat scan's chunk size timed
-   at 8,192 and 65,536 windows, the row-scan's tile and replay-block
+   shapes the main path gives it, the batched fill's launch plan beside
+   each of its rows (threads a block, rows of the column on chip, shared
+   memory, ns a cell per problem), the fill on every length bucket of the
+   100k search and held whole on the tallest (its columns partly off chip), the
+   repeat scan's chunk size timed at 8,192 and 65,536 windows, the row-scan's tile and replay-block
    sizes and the band fill's tile and band sizes swept at 65,536 x 65,536,
    the column-block fill held and timed on the last forward block and the
    last replay tile of the 524,288 x 524,288 pair, and the column block's
@@ -29,7 +32,8 @@ against the native C++ host engine or the frozen golden fixtures:
 3. golden fixtures: ``batch_align`` on the three example FASTAs;
 4. ``calculate_p_value`` with 5,000 sequences on ``examples/protein.fasta``;
 5. ``aligner-search`` on a seeded 100,000-sequence protein database (local)
-   and its first 5,000 records (global); then the local search once more
+   and its first 5,000 records (global), every record of the buckets whose
+   columns spill off chip held against native C++; then the local search once more
    under ``torch.profiler`` for the device's busy time and idle share;
 6. a full-mode batch of 4,096 pairs of 400 residues, local and global;
 7. ``aligner-repeat-search`` in exploring mode with a checkpoint on a
@@ -71,16 +75,16 @@ Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
 a JSON object with one entry per kernel (its launches on its path, its
 time, its plain version's time and its bound: the larger of the bytes it
-must move over 3.35 TB/s and its operations over 67 T/s, the data
-sheet's float32 rate outside the tensor cores, the only rate it gives
-for scalar arithmetic); the last line is the JSON device record.  Imports
-nothing of JAX.
+must move over 3.35 TB/s and its operations over the data sheet's scalar
+rate for their type, 34 T/s in float64 and 67 T/s otherwise); the last
+line is the JSON device record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import io
 import json
 import logging
@@ -146,11 +150,12 @@ REPLACES = {
     "block_cs": "aligner_tpu/ops/wavefront.py:754",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and the float32 rate outside the tensor cores, the only rate the
-# data sheet gives for scalar arithmetic (the kernels' integer and float64
-# operations run no faster, so the bound stays a lower bound)
+# rate, the float32 rate outside the tensor cores (the kernels' integer
+# operations run no faster, so the bound stays a lower bound) and the
+# float64 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_F64_S = 34e12
 # operations a cell: diag + s, two gap subtractions, the maxima (three in
 # a local fill, two in the global int32 fill); with directions two
 # comparisons, a shift and an or more.  A walk step: a shift, a mask, two
@@ -161,10 +166,12 @@ OPS_BAND = 3  # hat coordinates carry the penalty: diag + s and two maxima
 OPS_WALK_STEP = 10
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take for ``ops`` operations and
-    ``nbytes`` bytes moved, and which of the two sets it."""
-    t_ops, t_bytes = ops / PEAK_OPS_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+def bound(ops: float, nbytes: float, f64: bool = False) -> dict:
+    """The least time the card could take for ``ops`` operations (float64
+    ones if ``f64``) and ``nbytes`` bytes moved, and which of the two sets
+    it."""
+    t_ops = ops / (PEAK_F64_S if f64 else PEAK_OPS_S) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -577,13 +584,31 @@ def print_rows(rows) -> None:
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.3f} ms, "
               f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, max_abs_err {r['max_abs_err']}", flush=True)
+        if "plan" in r:
+            print(f"    {r['plan']}", flush=True)
 
 
 def fill_bound(cells, ops_cell, args, matrix, res) -> dict:
     """Bound of one batched fill: its cells' operations against its inputs
     read once and its outputs written once."""
     return bound(ops_cell * cells, nbytes(*args, matrix, res.fmax, res.fy, res.fx,
-                                          res.end, res.words))
+                                          res.end, res.words),
+                 f64=matrix.dtype == torch.float64)
+
+
+def plan_line(dp_fill, B, R8, C, matrix, ms) -> str:
+    """The fill's launch plan for B problems of R8 x C cells, and the chain
+    measure: the launch's time over the cells of one problem, in total and
+    for each wave of resident problems."""
+    p = dp_fill.launch_plan(B, R8, matrix)
+    sms = dp_fill.card_limits(matrix.device).sms
+    waves = -(-B // (p.resident_per_sm * sms))
+    ns = ms * 1e6 / max(R8 * C, 1)
+    return (f"plan: {p.threads} threads a block, S = {p.rows_on_chip} of {R8 + 1} rows "
+            f"on chip, {p.smem_bytes} B shared memory a "
+            f"block, matrix {'in shared memory' if p.mat_bytes else 'through L1'}, "
+            f"{p.resident_per_sm} problems resident an SM, {waves} wave(s); "
+            f"{ns:.2f} ns a cell per problem, {ns / waves:.2f} ns a wave")
 
 
 def walk_bound(sy, sx, wk) -> dict:
@@ -596,8 +621,9 @@ def walk_bound(sy, sx, wk) -> dict:
 
 def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
     """Each kernel's time beside its plain version's at the main path's
-    shapes: the p-value launch (4,999 x ~400^2, scores only, no argmax)
-    and the full-mode batch (4,096 x 400^2, directions, then the walk)."""
+    shapes: the p-value launch (4,999 x ~400^2, scores only, no argmax),
+    the full-mode batch (4,096 x 400^2, directions, then the walk) and the
+    100k search's buckets."""
     from aligner_tpu_torch.align import pad_batch
 
     m = torch.as_tensor(np.array(at.blosum62()), dtype=torch.float32, device=dev)
@@ -617,6 +643,7 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
                      max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms,
                      plain_ms=plain_ms,
                      shape=f"{len(sh)}x{tt.shape[1]}x{qq.shape[1]}",
+                     plan=plan_line(dp_fill, len(sh), tt.shape[1], qq.shape[1], m, ms),
                      **fill_bound(int((qql.astype(np.int64) * ttl).sum()), OPS_FILL,
                                   args, m, got)))
 
@@ -636,6 +663,7 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
                                      max_abs_err(got.words, want.words)),
                      ms=ms, plain_ms=plain_ms,
                      shape=f"{N_FULL}x{tt.shape[1]}x{qq.shape[1]}",
+                     plan=plan_line(dp_fill, N_FULL, tt.shape[1], qq.shape[1], m, ms),
                      **fill_bound(int((qql.astype(np.int64) * ttl).sum()),
                                   OPS_FILL_DIRS, args, m, got)))
 
@@ -651,8 +679,48 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
                      max_abs_err=max(max_abs_err(a, b) for a, b in zip(wk, wp)),
                      ms=ms, plain_ms=plain_ms, shape=f"{N_FULL}x{S} steps",
                      **walk_bound(got.fy, got.fx, wk)))
+    rows.append(search_buckets(dev, at, dp_fill, scan_engine, q, m))
     print_rows(rows)
     return rows
+
+
+def search_buckets(dev, at, dp_fill, scan_engine, query, m):
+    """The fill on every length bucket of the 100k search, as
+    ``search_database`` launches it (local, argmax tracked), timed one
+    launch each with its plan; then the tallest bucket, whose columns do
+    not fit on chip, held whole against its plain version (about a minute
+    and a half of plain run)."""
+    from aligner_tpu_torch.align import pad_batch
+    from aligner_tpu_torch.search import length_buckets
+
+    codes = search_db(at)[1]
+    qq, qql = pad_batch([query])
+    total = 0.0
+    for bucket in length_buckets([len(c) for c in codes]):
+        tt, ttl = pad_batch([codes[i] for i in bucket])
+        B = len(bucket)
+        args = tensors(dev, np.repeat(qq, B, 0), np.repeat(qql, B), tt, ttl)
+        ms = gpu_ms(lambda: dp_fill.fill(*args, m, DEL, EXT), 1)
+        total += ms
+        print(f"  search bucket {B} x {tt.shape[1]} x {qq.shape[1]}: {ms:.3f} ms; "
+              f"{plan_line(dp_fill, B, tt.shape[1], qq.shape[1], m, ms)}", flush=True)
+    print(f"  search buckets in all: {total:.3f} ms", flush=True)
+    B, R8 = len(bucket), tt.shape[1]
+    check(dp_fill.launch_plan(B, R8, m).rows_on_chip < R8 + 1,
+          "the tallest search bucket keeps its whole column on chip")
+    args = tensors(dev, np.repeat(qq, B, 0), np.repeat(qql, B), tt, ttl)
+    got, ms, want, plain_ms = timed_pair(
+        lambda: dp_fill.fill(*args, m, DEL, EXT),
+        lambda: scan_engine.fill_batch(*args, m, DEL, EXT), 3)
+    check(same_fill(got, want), "dp_fill != plain on the tallest search bucket")
+    cells = int((args[1].cpu().numpy().astype(np.int64) * ttl).sum())
+    return dict(name="dp_fill (scores only, tallest search bucket, spilled rows)",
+                route="cuda", source="aligner_tpu_torch/csrc/dp_fill.cu",
+                replaces=REPLACES["dp_fill"], path="pair", counter="spilled",
+                max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms, plain_ms=plain_ms,
+                shape=f"{B}x{R8}x{qq.shape[1]}",
+                plan=plan_line(dp_fill, B, R8, qq.shape[1], m, ms),
+                **fill_bound(cells, OPS_FILL, args, m, got))
 
 
 def scan_pwm(at, rng):
@@ -686,6 +754,7 @@ def phase_pwm_timing(dev, at, dp_fill, device_walk, scan_engine, repeat, seq):
                      replaces=REPLACES["dp_fill"], path="pwm", counter="pwm_scores",
                      max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms,
                      plain_ms=plain_ms, shape=f"{B}x{R8}x{PWM_W} f64",
+                     plan=plan_line(dp_fill, B, R8, PWM_W, pwm64, ms),
                      **fill_bound(B * win * PWM_W, OPS_FILL, (qb, qlb), pwm64, got)))
     pwm32 = pwm64.float()
     ms32 = gpu_ms(lambda: dp_fill.fill_pwm(qb, qlb, pwm32, PWM_DEL, PWM_EXT, **kw), 3)
@@ -693,6 +762,7 @@ def phase_pwm_timing(dev, at, dp_fill, device_walk, scan_engine, repeat, seq):
     lines.append(f"scan shape {B}x{R8}x{PWM_W}: f64 {ms:.3f} ms "
                  f"({gcups(ms, B):.1f} GCUPS), f32 {ms32:.3f} ms "
                  f"({gcups(ms32, B):.1f} GCUPS), plain f64 {plain_ms:.1f} ms")
+    lines.append(f"f32 {plan_line(dp_fill, B, R8, PWM_W, pwm32, ms32)}")
 
     for c in SCAN_CHUNKS:
         ms_c = gpu_ms(lambda: dp_fill.fill_pwm(q[:c], ql[:c], pwm64, PWM_DEL, PWM_EXT,
@@ -744,6 +814,7 @@ def phase_pwm_timing(dev, at, dp_fill, device_walk, scan_engine, repeat, seq):
                                      max_abs_err(got.words, want.words)),
                      ms=ms, plain_ms=plain_ms,
                      shape=f"{N_SURVIVORS}x{R8}x{PWM_W} f64",
+                     plan=plan_line(dp_fill, N_SURVIVORS, R8, PWM_W, pwm64, ms),
                      **fill_bound(N_SURVIVORS * win * PWM_W, OPS_FILL_DIRS, (qs, qls),
                                   pwm64, got)))
     S = win + PWM_W + 1
@@ -819,6 +890,14 @@ def write_db(path, seqs, names):
             fh.write(b">" + name.encode() + b"\n" + s + b"\n")
 
 
+@functools.lru_cache(maxsize=1)
+def search_db(at):
+    """The seeded 100k-sequence protein database of the search phase: its
+    records and their codes."""
+    db = make_database(np.random.default_rng(SEED + 1))
+    return db, [at.Protein.encode(s, strict=True) for s in db]
+
+
 def make_database(rng):
     lengths = np.clip(np.round(rng.lognormal(np.log(300.0), 0.6, N_DB)), 30, 2000)
     lengths = lengths.astype(np.int64)
@@ -850,15 +929,17 @@ def run_cli(main, argv):
 def phase_search(at, native, host, cli_search, query, tmp):
     """aligner-search in-process: 100k-sequence database in local mode,
     its first 5,000 records in global mode."""
+    from aligner_tpu_torch.backend import dtype_for
     from aligner_tpu_torch.observability import counters
+    from aligner_tpu_torch.ops import dp_fill
+    from aligner_tpu_torch.ops.scan_engine import round8
+    from aligner_tpu_torch.search import length_buckets
 
-    rng = np.random.default_rng(SEED + 1)
-    db = make_database(rng)
+    db, codes = search_db(at)
     names = [f"db{i}" for i in range(len(db))]
     m = at.blosum62()
     here = os.path.dirname(os.path.abspath(__file__))
     qfile = os.path.join(here, "examples", "protein.fasta")
-    codes = [at.Protein.encode(s, strict=True) for s in db]
     argvs = {}
     for mode, n in (("local", N_DB), ("global", N_DB_GLOBAL)):
         path = os.path.join(tmp, f"db_{mode}.fasta")
@@ -890,6 +971,19 @@ def phase_search(at, native, host, cli_search, query, tmp):
         sample = np.random.default_rng(SEED + 2).choice(n, min(500, n), replace=False)
         for i in sample:
             check(scores[i] == native_score(int(i)), f"{mode}: db{i} score != native")
+        # every record of the buckets whose columns spill off chip, which
+        # the sample meets only by chance
+        lens = [len(c) for c in codes[:n]]
+        spilled = []
+        for bucket in length_buckets(lens):
+            R8 = round8(max(lens[i] for i in bucket))
+            dt = dtype_for(DEVICE, m, DEL, EXT, lengths=(R8, len(query)))
+            mt = torch.as_tensor(np.array(m), dtype=dt, device=DEVICE)
+            if dp_fill.launch_plan(len(bucket), R8, mt).rows_on_chip <= R8:
+                spilled.extend(int(i) for i in bucket)
+        check(mode != "local" or spilled, "local: no search bucket spills")
+        for i in spilled:
+            check(scores[i] == native_score(i), f"{mode}: db{i} (spilled) score != native")
         # the winners' alignments: strings from the CLI, coords from the
         # port's batch path, both against the host engine
         res = at.batch_align([query] * 10, [codes[i] for i in idx], m, DEL, EXT,
@@ -908,7 +1002,8 @@ def phase_search(at, native, host, cli_search, query, tmp):
         print(f"  {mode}: {n} records, {cells / 1e9:.3f} Gcells, CLI wall "
               f"{wall:.3f} s ({cells / wall / 1e9:.2f} GCUPS end to end), fills "
               f"{fill_s:.3f} s ({fill_cells / fill_s / 1e9:.2f} GCUPS), top score "
-              f"{hits[0]['score']}", flush=True)
+              f"{hits[0]['score']}; {len(spilled)} records of spilled buckets equal "
+              f"native", flush=True)
         argvs[mode] = argv
     return argvs
 
@@ -1940,7 +2035,8 @@ def main() -> int:
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
                     pwm_scores=dp_fill.launches.pwm_scores,
-                    pwm_dirs=dp_fill.launches.pwm_dirs, walk=device_walk.launches.walk,
+                    pwm_dirs=dp_fill.launches.pwm_dirs, spilled=dp_fill.launches.spilled,
+                    walk=device_walk.launches.walk,
                     row_scan=wf.launches.row_scan,
                     row_scan_dirs=wf.launches.row_scan_dirs,
                     replay_walk=wf.launches.replay_walk,
@@ -1994,7 +2090,7 @@ def main() -> int:
         hold_column_blocked(dev, at, host, wf, sp, plain, wide, blocked)
     with phase("launch counts"):
         for path, phases, keys in (
-                ("pair", "phases 3-6", ("scores", "dirs", "walk")),
+                ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
                 ("pwm", "phase 7", ("pwm_scores", "pwm_dirs", "walk")),
                 ("huge", "phase 8", ("row_scan", "row_scan_dirs", "replay_walk")),
                 ("end_score", "phase 9", ("band",)),

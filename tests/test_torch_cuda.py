@@ -1,9 +1,10 @@
 """CUDA kernels against their plain PyTorch versions on the card, bit for
 bit (the cases of chip_smoke.py's kernel phase): the fill kernel in pair
-mode (K1/K2) and in PWM mode (K3), the walk (K4), the row-scan fill of
-one global pair (K5), the replay walk (also with a column base), the band
-fill (K6) with the end score built on it, and the column-block fill (K7)
-with the column-blocked pipeline built on it.
+mode (K1/K2) and in PWM mode (K3), also around the rows of a column it
+keeps on chip, the walk (K4), the row-scan fill of one global pair (K5),
+the replay walk (also with a column base), the band fill (K6) with the
+end score built on it, and the column-block fill (K7) with the
+column-blocked pipeline built on it.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -100,6 +101,70 @@ def test_launch_counters_count_kernel_launches(dev):
     device_walk.walk(r.words, r.fy, r.fx, S=33, mode="local")
     assert (dp_fill.launches.scores, dp_fill.launches.dirs, device_walk.launches.walk) \
         == (s0 + 1, d0 + 1, w0 + 1)
+
+
+def _rows_on_chip_at_most(matrix, B):
+    """S of the fill's launch plan for B problems whose columns are too
+    tall for the chip."""
+    return dp_fill.launch_plan(B, 8_000, matrix).rows_on_chip
+
+
+@pytest.mark.parametrize("where", [-8, 0, 8], ids=["below", "at", "spilled"])
+@pytest.mark.parametrize("dirs", [False, True], ids=["scores", "dirs"])
+@pytest.mark.parametrize("kind", ["local", "global", "pwm-shared", "pwm-batched"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fill_kernel_around_the_rows_on_chip(dev, dtype, kind, dirs, where):
+    """Columns of R8 = S - 1 + where rows: one 8-row block short of the
+    most the chip holds, exactly that (S = R8 + 1), and one block more
+    (rows S..R8 in the device buffer)."""
+    B, C = 40, 5
+    rng = np.random.default_rng(11)
+    if kind.startswith("pwm"):
+        shape = (B, 4, C) if kind == "pwm-batched" else (4, C)
+        matrix = torch.as_tensor(rng.normal(0.0, 3.0, shape), dtype=dtype, device=dev)
+    else:
+        matrix = torch.as_tensor(np.array(blosum62()), dtype=dtype, device=dev)
+    R8 = _rows_on_chip_at_most(matrix, B) - 1 + where
+    assert (dp_fill.launch_plan(B, R8, matrix).rows_on_chip < R8 + 1) == (where > 0)
+    # most rows reach the bottom of the column; a few problems are ragged
+    rl = np.clip(R8 - rng.integers(0, 20, B), 0, R8).astype(np.int32)
+    rl[::7] = rng.integers(0, R8 + 1, len(rl[::7]))
+    spilled = dp_fill.launches.spilled
+    if kind.startswith("pwm"):
+        q = torch.as_tensor(rng.integers(0, 4, (B, R8)), dtype=torch.int32, device=dev)
+        ql = torch.as_tensor(rl, device=dev)
+        kw = dict(with_dirs=dirs)
+        got = dp_fill.fill_pwm(q, ql, matrix, 6.5, 1.75, **kw)
+        want = fill_pwm_batch(q, ql, matrix, 6.5, 1.75, **kw)
+    else:
+        q = torch.as_tensor(rng.integers(0, V, (B, C)), dtype=torch.int32, device=dev)
+        ql = torch.as_tensor(rng.integers(0, C + 1, B), dtype=torch.int32, device=dev)
+        t = torch.as_tensor(rng.integers(0, V, (B, R8)), dtype=torch.int32, device=dev)
+        tl = torch.as_tensor(rl, device=dev)
+        kw = dict(mode=kind, with_dirs=dirs)
+        got = dp_fill.fill(q, ql, t, tl, matrix, 11.0, 2.0, **kw)
+        want = fill_batch(q, ql, t, tl, matrix, 11.0, 2.0, **kw)
+    torch.cuda.synchronize()
+    assert dp_fill.launches.spilled == spilled + (where > 0)
+    _equal(got, want)
+
+
+def test_fill_kernel_refuses_more_shared_memory_than_the_card_has(dev, monkeypatch):
+    """A plan that asks for more shared memory than a block may have is
+    refused at launch and raises; it never runs with less."""
+    roomy = dp_fill.CardLimits(sms=132, smem_per_block=10**7, smem_per_sm=10**7,
+                               smem_reserved=1024)
+    monkeypatch.setattr(dp_fill, "card_limits", lambda d: roomy)
+    q, ql, t, tl = _batch(12, 40, 8, 2000, True, dev)
+    m = torch.as_tensor(np.array(blosum62()), dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError, match="dp_fill launch failed"):
+        dp_fill.fill(q, ql, t, tl, m, 11.0, 2.0)
+
+
+def test_fill_kernel_takes_at_most_256_symbols(dev):
+    q, ql, t, tl = _batch(13, 8, 4, 4, True, dev)
+    with pytest.raises(ValueError, match="at most 256"):
+        dp_fill.fill(q, ql, t, tl, torch.zeros((300, 300), device=dev), 11.0, 2.0)
 
 
 def _pwm_batch(seed, B, R, W, batched, integral, dev):
