@@ -5,13 +5,14 @@
 // aligner_tpu/ops/wavefront.py::walk_tile_inner (the lax.while_loop that
 // walks a replayed block inside _replay_walk_all).
 //
-// The fill is the tile kernel of wavefront_tile.cuh (what it computes, what
+// The fill is the strip walk of wavefront_tile.cuh (what it computes, what
 // bounds it on the H100 and what the design does about it are set out
 // there), instantiated for a call that spans the pair's width: the left
 // column and, from row 0, the top row are the plane's borders in closed
-// form.  The TPU kernel evaluates a whole row as a max-prefix-scan; none of
-// that is carried over: integers give the same bits in any order, so the
-// kernel evaluates cells directly.
+// form.  One launch a call: the warps take the call's strips of TR rows by
+// ticket and hand rows down through one (C_pad,) row of tagged words.  The TPU kernel evaluates a whole row as a max-prefix-scan;
+// none of that is carried over: integers give the same bits in any order,
+// so the kernel evaluates cells directly.
 //
 // The walk is one cursor, so one warp: it loads the 32 direction words
 // that end at the cursor's column with one coalesced read and then moves
@@ -68,30 +69,39 @@ replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
 
 }  // namespace
 
-// Fill R_pad = n_tr * TR rows by C_pad = n_tc * 32 * K columns.  Returns
-// the last CUDA error of its launches (0 on success) or -1 for an
-// unsupported K.
+// Fill R_pad = n_tr * TR rows by C_pad = n_tc * 32 * K columns in one
+// launch of `blocks` blocks of `warps` warps; `hand` (C_pad,) 64-bit words
+// and `sync` one int, both zeroed on the launch's stream.  Returns the CUDA
+// error of the launch (0 on success) or -1 for an unsupported K or warp
+// count.
 extern "C" int wavefront_row_scan_launch(
     const void* q, const void* t, const void* matrix, int V, const void* h0,
-    void* hrow, void* hcol, int y_offset, int C_real, int R_real, int del, int ext,
+    void* hand, void* sync, int y_offset, int C_real, int R_real, int del, int ext,
     int K, int TR, int n_tr, int n_tc, void* end_out, void* words, void* ckpts,
-    int ckpt_every, void* stream) {
+    int ckpt_every, int warps, int blocks, void* stream) {
     TileArgs a;
     a.q = static_cast<const int*>(q);
     a.t = static_cast<const int*>(t);
     a.matrix = static_cast<const int*>(matrix);
     a.top = static_cast<const int*>(h0);
     a.lbound = nullptr;
-    a.hrow = static_cast<int*>(hrow);
-    a.hcol = static_cast<int*>(hcol);
+    a.hrow = nullptr;
+    a.hand = static_cast<unsigned long long*>(hand);
     a.rights = nullptr;
     a.end_out = static_cast<int*>(end_out);
     a.words = static_cast<int*>(words);
     a.ckpts = static_cast<int*>(ckpts);
+    a.sync = static_cast<int*>(sync);
     a.V = V; a.x0 = 0; a.y_offset = y_offset; a.C_real = C_real; a.R_real = R_real;
     a.del = del; a.ext = ext; a.TR = TR; a.n_tr = n_tr; a.n_tc = n_tc;
     a.ckpt_every = ckpt_every;
-    return launch_tiles<false>(a, K, static_cast<cudaStream_t>(stream));
+    return launch_strips<false>(a, K, warps, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// The blocks of `warps` warps one SM holds of the row-scan fill's instance.
+extern "C" int wavefront_row_scan_occupancy(int K, int dirs, int warps, int V, int TR,
+                                            int* blocks_per_sm) {
+    return strip_occupancy<false>(K, dirs, warps, V, TR, blocks_per_sm);
 }
 
 extern "C" int wavefront_replay_walk_launch(

@@ -159,12 +159,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.device_walk_launch.restype = i32
     lib.wavefront_row_scan_launch.argtypes = [
         p, p, p, i32, p,  # q, t, matrix, V, h0
-        p, p,  # hrow, hcol (scratch)
+        p, p,  # hand (zeroed tagged row), sync (zeroed ticket)
         i32, i32, i32, i32, i32,  # y_offset, C_real, R_real, del, ext
-        i32, i32, i32, i32,  # columns per lane, tile rows, tile rows/cols of the call
-        p, p, p, i32, p,  # end, words, ckpts, ckpt_every, stream
+        i32, i32, i32, i32,  # columns per lane, strip rows, strips, chunks
+        p, p, p, i32,  # end, words, ckpts, ckpt_every
+        i32, i32, p,  # warps a block, blocks, stream
     ]
     lib.wavefront_row_scan_launch.restype = i32
+    for fn in (lib.wavefront_row_scan_occupancy, lib.wavefront_block_cs_occupancy):
+        # columns per lane, directions, warps a block, V, strip rows, blocks an SM (out)
+        fn.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+        fn.restype = i32
     lib.wavefront_replay_walk_launch.argtypes = [
         p, i64, i32, i32, i32,  # words, C_pad, row_base, col_base, rows
         p, p, i32, p,  # state, steps, step budget, stream
@@ -172,10 +177,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.wavefront_replay_walk_launch.restype = i32
     lib.wavefront_block_cs_launch.argtypes = [
         p, p, p, i32, p, p,  # q, t, matrix, V, h_prev, lbound
-        p, p, p,  # hrow (the new last row), hcol (scratch), rights
+        p, p, p, p,  # hrow (the new last row), hand (zeroed tagged row), sync, rights
         i32, i32, i32, i32, i32, i32,  # x0, y_base, C_real, R_real, del, ext
-        i32, i32, i32, i32,  # columns per lane, tile rows, tile rows/cols of the call
-        p, p, p, i32, p,  # end, words, ckpts, ckpt_every, stream
+        i32, i32, i32, i32,  # columns per lane, strip rows, strips, chunks
+        p, p, p, i32,  # end, words, ckpts, ckpt_every
+        i32, i32, p,  # warps a block, blocks, stream
     ]
     lib.wavefront_block_cs_launch.restype = i32
     lib.wavefront_band_launch.argtypes = [

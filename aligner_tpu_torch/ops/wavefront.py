@@ -1,7 +1,8 @@
 """One huge global pair on the card: the row-scan fill, the replay walk
 (``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``), the
 column-block fill (``csrc/wavefront_block.cu``; it and the row-scan fill
-share one tile body, ``csrc/wavefront_tile.cuh``), their plain versions, the
+share one kernel body, the strip walk of ``csrc/wavefront_tile.cuh``, one
+launch a call planned by :func:`plan_strips`), their plain versions, the
 checkpoint-and-replay alignment built on the first two and the end score
 built on the third.  The fourth fills one column block of a pair from a
 streamed left boundary (:func:`run_block_cs`); the column-blocked pipeline
@@ -48,7 +49,11 @@ enums.rs:18-28 (tie policy).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -70,16 +75,29 @@ DIRECT_PLANE_CELLS = 1 << 26
 # columns are padded to a multiple of this: 32 lanes x the most columns a
 # lane of the fill kernel owns
 COL_PAD = 256
-# The kernel's tile: TILE_ROWS rows by 32 * COLS_PER_THREAD columns, one
-# warp each; and the rows of one replay block.  Chosen by the sweeps that
-# chip_smoke.py prints at 65,536 x 65,536 on an H100 (PERF.md, Findings):
-# 128-row tiles fill forward a few percent faster, 64-row tiles replay with
-# directions a tenth faster, and the replay is the larger share; a larger
-# block means fewer launches for the same cells, each doubling buying
-# less, and 32,768 rows keep a block's words at 2 GiB for the widest pair.
-TILE_ROWS = 64
-COLS_PER_THREAD = 4
+# The strip walk's shape: strips of TILE_ROWS rows (FORWARD_TILE_ROWS for a
+# call without directions), walked in chunks of 32 * COLS_PER_THREAD
+# columns, a warp a strip; and the rows of one replay block.  Chosen by the
+# strip-shape sweeps of ops/tile_probe.py at the four shapes of the paths
+# and of chip_smoke.py at 65,536 x 65,536 on an H100 (PERF.md, Findings): 8
+# columns a lane beat 4 and 2 everywhere; 256-row strips fill forward
+# fastest, 128-row strips replay with directions within 8 % of the best at
+# both replay shapes; a larger block means fewer calls for the same cells,
+# each doubling buying less, and 32,768 rows keep a block's words at 2 GiB
+# for the widest pair.
+TILE_ROWS = 128
+FORWARD_TILE_ROWS = 256
+COLS_PER_THREAD = 8
 TB_ROWS = 32768
+# warps a block of the strip walk (they share the matrix in shared memory);
+# the kernel's launch bounds allow STRIP_MAX_WARPS
+STRIP_WARPS = 4
+STRIP_MAX_WARPS = 8
+# RS of csrc/wavefront_tile.cuh: a lane runs two rows of its columns a step
+STRIP_ROWS_PER_STEP = 2
+# the grid holds at most this many times the strips that can be under way
+# at once (a strip's steps over the lag between strips): more would spin
+STRIP_SPARE = 1.25
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -90,12 +108,12 @@ class _Launches:
     """Launch counts of this module's kernels (plain integers, bumped only
     where a kernel is launched): ``row_scan`` and ``row_scan_dirs`` count
     calls of the fill without and with directions, ``tile_launches`` the
-    kernel launches those calls made (one per anti-diagonal of tiles), and
-    ``replay_walk`` the walk kernel; ``band`` counts calls of the band fill
-    and ``band_tile_launches`` the kernel launches those calls made;
+    kernel launches those calls made (one a call), and ``replay_walk`` the
+    walk kernel; ``band`` counts calls of the band fill and
+    ``band_tile_launches`` the kernel launches those calls made;
     ``block_cs`` and ``block_cs_dirs`` count calls of the column-block fill
     without and with directions and ``block_cs_tile_launches`` the kernel
-    launches those calls made."""
+    launches those calls made (one a call)."""
 
     def __init__(self):
         self.reset()
@@ -143,6 +161,148 @@ def supported(qlen: int, matrix, del_, ext, tlen: int | None = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the strip walk's launch plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StripPlan:
+    """One launch of the strip walk (``csrc/wavefront_tile.cuh``) over
+    ``n_tr`` strips of ``TR`` rows by ``n_tc`` chunks of 32·K columns:
+    ``blocks`` blocks of ``warps`` warps, each warp taking strips by ticket;
+    ``smem_bytes`` of dynamic shared memory a block (the (V, V) matrix, then
+    each warp's TR codes and its ring of ``ring_slots`` ints, which carries
+    lane 31's column to lane 0 of the next chunk); zeroed device memory:
+    ``sync_ints`` ints (the ticket) and ``hand_words`` 64-bit words (the row
+    handed from strip to strip, tagged); ``under_way``, the strips that can
+    run at once (a strip's steps over the lag); ``steps_per_chunk`` (P =
+    max(TR / 2, 32): a lane runs two rows a step, and a chunk of fewer than
+    64 rows waits for lane 31), ``steps_per_strip``, the least lag in steps from a
+    strip's start of a chunk to the next strip's (``lag_steps``) and the
+    launch's critical path in steps (``critical_steps``): the last strip's
+    start behind the lags, or behind the rounds of strips when fewer warps
+    are resident than there are strips, and then its own steps."""
+
+    TR: int
+    K: int
+    n_tr: int
+    n_tc: int
+    warps: int
+    blocks: int
+    smem_bytes: int
+    ring_slots: int
+    sync_ints: int
+    hand_words: int
+    under_way: int
+    steps_per_chunk: int
+    steps_per_strip: int
+    lag_steps: int
+    critical_steps: int
+
+
+def strip_warps(n_tr: int, warps: int | None = None) -> int:
+    """Warps a block: ``warps`` (by default :data:`STRIP_WARPS`), and never
+    more than there are strips."""
+    warps = STRIP_WARPS if warps is None else warps
+    if not 1 <= warps <= STRIP_MAX_WARPS:
+        raise ValueError(f"warps must lie in [1, {STRIP_MAX_WARPS}]")
+    return min(warps, n_tr)
+
+
+def strip_smem_bytes(V: int, TR: int, warps: int) -> int:
+    """A block's dynamic shared memory (``strip_smem_bytes`` of the kernel):
+    the int32 matrix, then each warp's TR codes and TR ring slots."""
+    return 4 * (V * V + 2 * TR * warps)
+
+
+def _strips(R_pad: int, width: int, TR: int, K: int) -> tuple[int, int]:
+    """(strips, chunks) of a call, or ValueError for a shape the strip walk
+    does not take."""
+    if K not in (2, 4, 8):
+        raise ValueError("cols_per_thread must be 2, 4 or 8")
+    if TR < ROWS_PER_WORD or TR % ROWS_PER_WORD or R_pad <= 0 or R_pad % TR:
+        raise ValueError(f"rows {R_pad} must be a positive multiple of tile_rows {TR}, "
+                         f"itself a positive multiple of {ROWS_PER_WORD}")
+    if width <= 0 or width % (32 * K):
+        raise ValueError(f"width {width} must be a positive multiple of {32 * K}")
+    return R_pad // TR, width // (32 * K)
+
+
+def _strip_rows(rows: int, ckpt_every: int, tile_rows: int | None, with_dirs: bool) -> int:
+    """``tile_rows``, or by default the largest strip height up to
+    :data:`TILE_ROWS` (:data:`FORWARD_TILE_ROWS` without directions) that
+    divides the call's rows and its checkpoint cadence (16 at the least, for
+    rows that are multiples of 16)."""
+    if tile_rows is not None:
+        return int(tile_rows)
+    tallest = TILE_ROWS if with_dirs else FORWARD_TILE_ROWS
+    return math.gcd(int(rows), int(ckpt_every), tallest)
+
+
+def plan_strips(R_pad: int, width: int, TR: int, K: int, V: int, *, sms: int,
+                blocks_per_sm: int, warps: int | None = None) -> StripPlan:
+    """The launch plan of one call of the strip walk: ``R_pad`` rows by
+    ``width`` columns in strips of ``TR`` rows and chunks of 32·``K``
+    columns, on a card of ``sms`` SMs that holds ``blocks_per_sm`` blocks of
+    ``strip_warps(n_tr, warps)`` warps resident (what
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` says).  The grid is
+    what the card holds resident, but never more warps than strips, nor
+    more than :data:`STRIP_SPARE` times the strips that can be under way at
+    once: a warp past those would only spin on the strip above.  ``TR`` is
+    a positive multiple of 16; a lane runs :data:`STRIP_ROWS_PER_STEP` rows
+    a step, and below 64 rows a chunk still takes 32 steps, since lane 0
+    starts a chunk's rows only after lane 31 has finished them in the chunk
+    before."""
+    n_tr, n_tc = _strips(R_pad, width, TR, K)
+    w = strip_warps(n_tr, warps)
+    if blocks_per_sm < 1:
+        raise ValueError(f"a block of {w} warps and {strip_smem_bytes(V, TR, w)} B of "
+                         "shared memory does not fit on an SM")
+    Q = TR // STRIP_ROWS_PER_STEP
+    P = max(Q, 32)
+    per_strip = (n_tc - 1) * P + Q + 31
+    lag = Q + 31
+    under_way = _cdiv(per_strip, lag)
+    blocks = min(_cdiv(n_tr, w), blocks_per_sm * sms,
+                 _cdiv(math.ceil(STRIP_SPARE * under_way), w))
+    rounds = _cdiv(n_tr, blocks * w)
+    return StripPlan(
+        TR=TR, K=K, n_tr=n_tr, n_tc=n_tc, warps=w, blocks=blocks,
+        smem_bytes=strip_smem_bytes(V, TR, w), ring_slots=TR, sync_ints=1,
+        hand_words=width, under_way=under_way, steps_per_chunk=P,
+        steps_per_strip=per_strip, lag_steps=lag,
+        critical_steps=max((n_tr - 1) * lag, (rounds - 1) * per_strip) + per_strip)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, block: bool, K: int, dirs: bool, warps: int, V: int,
+                   TR: int) -> int:
+    lib = _build.load()
+    fn = lib.wavefront_block_cs_occupancy if block else lib.wavefront_row_scan_occupancy
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(lib, fn(K, int(dirs), warps, V, TR, ctypes.byref(n)),
+                     "wavefront strip occupancy")
+    return n.value
+
+
+def strip_plan(dev, block: bool, R_pad: int, width: int, TR: int, K: int, V: int,
+               dirs: bool) -> StripPlan:
+    """:func:`plan_strips` on CUDA device ``dev`` for the row-scan
+    (``block`` false) or the column-block instance."""
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    w = strip_warps(_strips(R_pad, width, TR, K)[0])
+    return plan_strips(R_pad, width, TR, K, V, sms=_sms(index),
+                       blocks_per_sm=_blocks_per_sm(index, block, K, dirs, w, V, TR))
+
+
+# ---------------------------------------------------------------------------
 # the fill
 # ---------------------------------------------------------------------------
 
@@ -182,7 +342,7 @@ def _check_scan(q, t, matrix, h0, y_offset, C_real, R_real, ckpt_every, check_co
 
 def row_scan(q, t, matrix, del_: int, ext: int, h0, y_offset: int, C_real: int,
              R_real: int, *, with_dirs: bool, ckpt_every: int = 0,
-             tile_rows: int = TILE_ROWS, cols_per_thread: int = COLS_PER_THREAD,
+             tile_rows: int | None = None, cols_per_thread: int = COLS_PER_THREAD,
              check_codes: bool = True):
     """Fill ``R_pad`` rows of one global pair, from absolute row
     ``y_offset`` + 1 on.
@@ -199,9 +359,12 @@ def row_scan(q, t, matrix, del_: int, ext: int, h0, y_offset: int, C_real: int,
     row H[y_offset + (k+1)·ckpt_every].  Cells of padded rows and columns
     are unspecified.
 
-    CUDA tensors launch the kernel (``R_pad`` and ``ckpt_every`` must then
-    be multiples of ``tile_rows``, ``C_pad`` of 32·``cols_per_thread``);
-    CPU tensors take :func:`row_scan_plain`.
+    CUDA tensors launch the kernel, once (``R_pad`` and ``ckpt_every``
+    must then be multiples of ``tile_rows``, by default the largest strip
+    height up to :data:`TILE_ROWS` (:data:`FORWARD_TILE_ROWS` without
+    directions) that divides both, ``C_pad`` of
+    32·``cols_per_thread``; :func:`plan_strips` sizes the launch); CPU
+    tensors take :func:`row_scan_plain`.
     """
     _check_scan(q, t, matrix, h0, y_offset, C_real, R_real, ckpt_every, check_codes)
     dev = q.device
@@ -211,37 +374,33 @@ def row_scan(q, t, matrix, del_: int, ext: int, h0, y_offset: int, C_real: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     C_pad, R_pad = q.numel(), t.numel()
-    K, TR = int(cols_per_thread), int(tile_rows)
-    if K not in (2, 4, 8):
-        raise ValueError("cols_per_thread must be 2, 4 or 8")
-    if TR < ROWS_PER_WORD or TR % ROWS_PER_WORD or R_pad % TR or C_pad % (32 * K):
-        raise ValueError(f"R_pad {R_pad} must be a multiple of tile_rows {TR} (itself "
-                         f"of {ROWS_PER_WORD}) and C_pad {C_pad} of {32 * K}")
+    K, TR = int(cols_per_thread), _strip_rows(R_pad, ckpt_every, tile_rows, with_dirs)
     if ckpt_every % TR:
         raise ValueError("ckpt_every must be a multiple of tile_rows")
-    n_tr, n_tc = R_pad // TR, C_pad // (32 * K)
-    lib = _build.load()
     with torch.cuda.device(dev):
+        plan = strip_plan(dev, False, R_pad, C_pad, TR, K, matrix.shape[0], with_dirs)
+        lib = _build.load()
         i32 = dict(dtype=torch.int32, device=dev)
         end = torch.zeros(1, **i32)
-        hrow = torch.empty(C_pad, **i32)
-        hcol = torch.empty((n_tr, TR + 1), **i32)
+        # the call's own handoff row and ticket, zeroed on its stream
+        hand = torch.zeros(plan.hand_words, dtype=torch.int64, device=dev)
+        sync = torch.zeros(plan.sync_ints, **i32)
         words = torch.empty((R_pad // ROWS_PER_WORD, C_pad), **i32) if with_dirs else None
         ckpts = torch.empty((R_pad // ckpt_every, C_pad), **i32) if ckpt_every else None
         err = lib.wavefront_row_scan_launch(
             q.data_ptr(), t.data_ptr(), matrix.data_ptr(), matrix.shape[0],
-            h0.data_ptr() if y_offset > 0 else None, hrow.data_ptr(), hcol.data_ptr(),
-            int(y_offset), int(C_real), int(R_real), int(del_), int(ext), K, TR, n_tr,
-            n_tc, end.data_ptr(), words.data_ptr() if with_dirs else None,
-            ckpts.data_ptr() if ckpt_every else None, int(ckpt_every),
-            torch.cuda.current_stream(dev).cuda_stream,
+            h0.data_ptr() if y_offset > 0 else None, hand.data_ptr(), sync.data_ptr(),
+            int(y_offset), int(C_real), int(R_real), int(del_), int(ext), K, TR,
+            plan.n_tr, plan.n_tc, end.data_ptr(), words.data_ptr() if with_dirs else None,
+            ckpts.data_ptr() if ckpt_every else None, int(ckpt_every), plan.warps,
+            plan.blocks, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "wavefront_row_scan")
         if with_dirs:
             launches.row_scan_dirs += 1
         else:
             launches.row_scan += 1
-        launches.tile_launches += n_tr + n_tc - 1
+        launches.tile_launches += 1
     return end, words, ckpts
 
 
@@ -644,7 +803,9 @@ def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
     # --- forward: scores only, one checkpoint row every TB rows ---
     t0 = time.perf_counter()
     with measure(f"{dev.type}/wavefront", R_real * C_real, 1, device=dev):
-        end, _, ckpts = _scan(pp, t_dev, None, 0, with_dirs=False, ckpt_every=TB, tr=tr)
+        # the forward fill in the forward strip height, unless a tile was asked for
+        end, _, ckpts = _scan(pp, t_dev, None, 0, with_dirs=False, ckpt_every=TB,
+                              tr=None if tr == TILE_ROWS else tr)
     t1 = time.perf_counter()
     syncs = 1
 
@@ -1091,7 +1252,7 @@ def _check_block(q_blk, t_rows, matrix, h_prev, lbound, x0, y_base, C_real, R_re
 def run_block_cs(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: int,
                  C_real: int, R_real: int, *, del_: int, ext: int,
                  with_dirs: bool = False, ckpt_every: int = 0,
-                 tile_rows: int = TILE_ROWS, cols_per_thread: int = COLS_PER_THREAD,
+                 tile_rows: int | None = None, cols_per_thread: int = COLS_PER_THREAD,
                  check_codes: bool = True):
     """Fill TR rows of one **column block** of a global pair: the absolute
     rows ``y_base`` + 1 … ``y_base`` + TR of the columns ``x0`` + 1 … ``x0`` + Cb.
@@ -1117,9 +1278,12 @@ def run_block_cs(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: int,
     the row H[y_base + (k+1)·ckpt_every], as :func:`row_scan` returns them,
     else None.  Cells of padded rows and columns are unspecified.
 
-    CUDA tensors launch the kernel (TR and ``ckpt_every`` must then be
-    multiples of ``tile_rows``, Cb of 32·``cols_per_thread``); CPU tensors
-    take :func:`run_block_cs_plain`.  The reference's operands (the packed
+    CUDA tensors launch the kernel, once (TR and ``ckpt_every`` must then
+    be multiples of ``tile_rows``, by default the largest strip height up to
+    :data:`TILE_ROWS` (:data:`FORWARD_TILE_ROWS` without directions) that
+    divides both, Cb of 32·``cols_per_thread``;
+    :func:`plan_strips` sizes the launch); CPU tensors take
+    :func:`run_block_cs_plain`.  The reference's operands (the packed
     per-query score words, (S, 128) tiles, SMEM scalars) are not carried
     over.
     """
@@ -1134,38 +1298,36 @@ def run_block_cs(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     Cb, TR = q_blk.numel(), t_rows.numel()
-    K, TRt = int(cols_per_thread), int(tile_rows)
-    if K not in (2, 4, 8):
-        raise ValueError("cols_per_thread must be 2, 4 or 8")
-    if TRt < ROWS_PER_WORD or TRt % ROWS_PER_WORD or TR % TRt or Cb % (32 * K):
-        raise ValueError(f"TR {TR} must be a multiple of tile_rows {TRt} (itself of "
-                         f"{ROWS_PER_WORD}) and Cb {Cb} of {32 * K}")
+    K, TRt = int(cols_per_thread), _strip_rows(TR, ckpt_every, tile_rows, with_dirs)
     if ckpt_every % TRt:
         raise ValueError("ckpt_every must be a multiple of tile_rows")
-    n_tr, n_tc = TR // TRt, Cb // (32 * K)
-    lib = _build.load()
     with torch.cuda.device(dev):
+        plan = strip_plan(dev, True, TR, Cb, TRt, K, matrix.shape[0], with_dirs)
+        lib = _build.load()
         i32 = dict(dtype=torch.int32, device=dev)
         end = torch.zeros(1, **i32)  # only the block that holds the end cell writes it
         h_new = torch.empty(Cb, **i32)
-        hcol = torch.empty((n_tr, TRt + 1), **i32)
+        # the call's own handoff row and ticket, zeroed on its stream
+        hand = torch.zeros(plan.hand_words, dtype=torch.int64, device=dev)
+        sync = torch.zeros(plan.sync_ints, **i32)
         rights = torch.empty(TR, **i32)
         words = torch.empty((TR // ROWS_PER_WORD, Cb), **i32) if with_dirs else None
         ckpts = torch.empty((TR // ckpt_every, Cb), **i32) if ckpt_every else None
         err = lib.wavefront_block_cs_launch(
             q_blk.data_ptr(), t_rows.data_ptr(), matrix.data_ptr(), matrix.shape[0],
-            h_prev.data_ptr(), lbound.data_ptr(), h_new.data_ptr(), hcol.data_ptr(),
+            h_prev.data_ptr(), lbound.data_ptr(), h_new.data_ptr(), hand.data_ptr(),
+            sync.data_ptr(),
             rights.data_ptr(), x0, y_base, C_real, R_real, int(del_), int(ext), K, TRt,
-            n_tr, n_tc, end.data_ptr(), words.data_ptr() if with_dirs else None,
-            ckpts.data_ptr() if ckpt_every else None, int(ckpt_every),
-            torch.cuda.current_stream(dev).cuda_stream,
+            plan.n_tr, plan.n_tc, end.data_ptr(), words.data_ptr() if with_dirs else None,
+            ckpts.data_ptr() if ckpt_every else None, int(ckpt_every), plan.warps,
+            plan.blocks, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "wavefront_block_cs")
         if with_dirs:
             launches.block_cs_dirs += 1
         else:
             launches.block_cs += 1
-        launches.block_cs_tile_launches += n_tr + n_tc - 1
+        launches.block_cs_tile_launches += 1
     return h_new, rights, end, words, ckpts
 
 

@@ -42,7 +42,6 @@ Cites: simple/mod.rs:42-144 (fill, borders), simple/mod.rs:99-127
 
 from __future__ import annotations
 
-import math
 import time
 
 import numpy as np
@@ -166,13 +165,13 @@ def _corner(pp, x0: int):
 def _block(pp, d: int, t_rows, h_prev, lb, y_base: int, *, with_dirs: bool = False,
            ckpt_every: int = 0):
     """Column block ``d`` of the rows ``t_rows`` on the column-block fill,
-    in the largest kernel tile that divides the rows and the cadence."""
+    in the wrapper's strip height: the largest that divides the rows and
+    the cadence."""
     Cb = pp["Cb"]
-    tile = math.gcd(t_rows.numel(), ckpt_every, wf.TILE_ROWS)
     return wf.run_block_cs(pp["q_dev"][d * Cb:(d + 1) * Cb], t_rows, pp["m_dev"], h_prev,
                            lb, d * Cb, y_base, pp["C_real"], pp["R_real"], del_=pp["del"],
                            ext=pp["ext"], with_dirs=with_dirs, ckpt_every=ckpt_every,
-                           tile_rows=tile, check_codes=False)
+                           check_codes=False)
 
 
 def _forward(pp, with_trace: bool):

@@ -69,15 +69,16 @@ against the native C++ host engine or the frozen golden fixtures:
 11. the kernels' launch counts of each path: the pair path (phases 3-6),
    the PWM path (phase 7), the huge-pair path (phase 8), the end-score
    path (phase 9) and the column-blocked path (phase 10), each counted
-   from zero.
+   from zero; the row-scan and column-block fills make one launch a call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
 a JSON object with one entry per kernel (its launches on its path, its
 time, its plain version's time and its bound: the larger of the bytes it
-must move over 3.35 TB/s and its operations over the data sheet's scalar
-rate for their type, 34 T/s in float64 and 67 T/s otherwise); the last
-line is the JSON device record.  Imports nothing of JAX.
+must move over 3.35 TB/s and its operations over the card's rate for
+their type: 67 T/s in float32 and 34 T/s in float64 outside the tensor
+cores, 16.7 T/s in int32, a DPX add-max one operation); the last line is
+the JSON device record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -150,27 +151,34 @@ REPLACES = {
     "block_cs": "aligner_tpu/ops/wavefront.py:754",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, the float32 rate outside the tensor cores (the kernels' integer
-# operations run no faster, so the bound stays a lower bound) and the
-# float64 rate outside the tensor cores
+# rate, the float32 rate outside the tensor cores (128 lanes an SM, an FMA
+# counted as two operations) and the float64 rate outside the tensor
+# cores; and the int32 rate of the integer kernels (K4-K7, W): the Hopper
+# architecture white paper gives an SM 64 INT32 lanes, so 64 x 132 SMs x
+# the data sheet's 1,980 MHz boost clock, about 16.7 T/s, a quarter of the
+# float32 figure
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_F64_S = 34e12
-# operations a cell: diag + s, two gap subtractions, the maxima (three in
-# a local fill, two in the global int32 fill); with directions two
-# comparisons, a shift and an or more.  A walk step: a shift, a mask, two
-# compares and decrements, the pack.
+PEAK_I32_S = 64 * 132 * 1.98e9
+# operations a cell of the batched float fill: diag + s, two gap
+# subtractions, three maxima in a local fill; with directions two
+# comparisons, a shift and an or more.  A cell of the int32 global fills
+# (K5, K7), a DPX add-max (__viaddmax_s32) counted as one operation: up -
+# pen, max(diag + s, that), max(left - pen, that); with directions left -
+# pen, two comparisons, a shift and an or more.  A walk step: a shift, a
+# mask, two compares and decrements, the pack.
 OPS_FILL, OPS_FILL_DIRS = 6, 10
-OPS_SCAN, OPS_SCAN_DIRS = 5, 9
-OPS_BAND = 3  # hat coordinates carry the penalty: diag + s and two maxima
+OPS_SCAN, OPS_SCAN_DIRS = 3, 8
+OPS_BAND = 2  # hat coordinates carry the penalty: max(diag + s, up), then left
 OPS_WALK_STEP = 10
 
 
-def bound(ops: float, nbytes: float, f64: bool = False) -> dict:
-    """The least time the card could take for ``ops`` operations (float64
-    ones if ``f64``) and ``nbytes`` bytes moved, and which of the two sets
-    it."""
-    t_ops = ops / (PEAK_F64_S if f64 else PEAK_OPS_S) * 1e3
+def bound(ops: float, nbytes: float, rate: float = PEAK_I32_S) -> dict:
+    """The least time the card could take for ``ops`` operations at
+    ``rate`` a second (int32 by default) and ``nbytes`` bytes moved, and
+    which of the two sets it."""
+    t_ops = ops / rate * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -593,7 +601,7 @@ def fill_bound(cells, ops_cell, args, matrix, res) -> dict:
     read once and its outputs written once."""
     return bound(ops_cell * cells, nbytes(*args, matrix, res.fmax, res.fy, res.fx,
                                           res.end, res.words),
-                 f64=matrix.dtype == torch.float64)
+                 rate=PEAK_F64_S if matrix.dtype == torch.float64 else PEAK_OPS_S)
 
 
 def plan_line(dp_fill, B, R8, C, matrix, ms) -> str:
@@ -609,6 +617,20 @@ def plan_line(dp_fill, B, R8, C, matrix, ms) -> str:
             f"block, matrix {'in shared memory' if p.mat_bytes else 'through L1'}, "
             f"{p.resident_per_sm} problems resident an SM, {waves} wave(s); "
             f"{ns:.2f} ns a cell per problem, {ns / waves:.2f} ns a wave")
+
+
+def strip_line(wf, dev, block, rows, width, dirs, ms, tr=None, k=None, ck=0) -> str:
+    """The strip walk's launch plan for one call (by default in the strip
+    height the wrapper picks) and the time of one step of its critical
+    path."""
+    tr = wf._strip_rows(rows, ck, tr, dirs)
+    k = wf.COLS_PER_THREAD if k is None else k
+    p = wf.strip_plan(dev, block, rows, width, tr, k, 24, dirs)  # BLOSUM62's 24 symbols
+    return (f"plan: {p.n_tr} strips of {tr} rows x {p.n_tc} chunks of {32 * k} columns, "
+            f"{p.blocks} blocks of {p.warps} warps, {p.smem_bytes} B shared memory a "
+            f"block, {p.steps_per_chunk} steps a chunk, lag {p.lag_steps} steps, "
+            f"critical path {p.critical_steps} steps: "
+            f"{ms * 1e6 / p.critical_steps:.1f} ns a step")
 
 
 def walk_bound(sy, sx, wk) -> dict:
@@ -1257,16 +1279,22 @@ def phase_wavefront_timing(dev, at, wf):
                            ckpt_every=ck, tile_rows=tr, cols_per_thread=K,
                            check_codes=False)
 
+    def launched(before):
+        return wf.launches.tile_launches - before
+
     for k, tr in TILE_SWEEP:
+        before = wf.launches.tile_launches
         ms = gpu_ms(lambda: forward(k, tr), 2)
         lines.append(f"tile sweep, forward {R}x{C}: {k} columns a lane, {tr} rows: "
                      f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
-                     f"{R // tr + C_pad // (32 * k) - 1} launches")
+                     f"{launched(before) / 3:g} launches a call; "
+                     f"{strip_line(wf, dev, False, td.numel(), C_pad, False, ms, tr, k)}")
+    before = wf.launches.tile_launches
     fwd, ms, fwd_p, plain_ms = timed_pair(
-        lambda: forward(K, TR, TB),
+        lambda: forward(K, None, TB),
         lambda: wf.row_scan_plain(qd, td, m, 11, 2, None, 0, C, R, False, TB), 3)
     check(same_scan(fwd, fwd_p, C, R), "row_scan != plain at the huge pair's shape")
-    n_launch = R // TR + C_pad // (32 * K) - 1
+    n_launch = launched(before) / 5  # a warm-up, 3 timed, 1 held
     rows.append(dict(name="wavefront_row_scan (scores, checkpoints)", route="cuda",
                      source="aligner_tpu_torch/csrc/wavefront.cu",
                      replaces=REPLACES["row_scan"], path="huge", counter="row_scan",
@@ -1274,9 +1302,11 @@ def phase_wavefront_timing(dev, at, wf):
                                      max_abs_err(fwd[2][:, :C], fwd_p[2][:, :C])),
                      ms=ms, plain_ms=plain_ms, shape=f"{R}x{C} int32",
                      **bound(OPS_SCAN * cells, nbytes(qd, td, m, fwd[0], fwd[2]))))
-    lines.append(f"forward {R}x{C}, {K} columns a lane, {TR} rows, checkpoints every "
-                 f"{TB}: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), {n_launch} kernel "
-                 f"launches a call")
+    lines.append(f"forward {R}x{C}, {K} columns a lane, "
+                 f"{wf._strip_rows(td.numel(), TB, None, False)} rows, checkpoints every "
+                 f"{TB}: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), {n_launch:g} kernel "
+                 f"launches a call; "
+                 f"{strip_line(wf, dev, False, td.numel(), C_pad, False, ms, ck=TB)}")
 
     def block(j, tb, tr=TR):
         return wf.row_scan(qd, td[j * tb:(j + 1) * tb], m, 11, 2,
@@ -1290,18 +1320,23 @@ def phase_wavefront_timing(dev, at, wf):
             ckpts_of[tb] = forward(K, TR, tb)[2]
         j = (R - 1) // tb
         for tr in TB_TILE_ROWS:
+            before = wf.launches.tile_launches
             ms_b = gpu_ms(lambda: block(j, tb, tr), 2)
             lines.append(f"replay-block sweep: {tb} rows with directions, {tr}-row "
-                         f"tiles: {ms_b:.3f} ms, {tb // tr + C_pad // (32 * K) - 1} "
-                         f"launches, {tb * C_pad // 4 / 2**20:.0f} MiB of words; "
+                         f"strips: {ms_b:.3f} ms, {launched(before) / 3:g} launches a "
+                         f"call, {tb * C_pad // 4 / 2**20:.0f} MiB of words; "
                          f"{j + 1} blocks a pair: {ms_b * (j + 1):.1f} ms")
     ckpts_of = {TB: fwd[2]}  # drop the sweep's rows
 
     # the shipped block: the kernels on the last block, then the plain
     # versions over every block of the pair
     j_last = (R - 1) // TB
+    before = wf.launches.tile_launches
     blk = block(j_last, TB)
     ms_blk = gpu_ms(lambda: block(j_last, TB), 3)
+    lines.append(f"one replay block, {TB} rows x {C} with directions: {ms_blk:.3f} ms, "
+                 f"{launched(before) / 5:g} kernel launches a call; "
+                 f"{strip_line(wf, dev, False, TB, C_pad, True, ms_blk)}")
 
     def walk_last(fn):
         st = wf.new_walk(R, C, td.numel() + C_pad + 1, dev)
@@ -1460,6 +1495,7 @@ def phase_block_timing(dev, at, wf, sp):
             (forward, dict(ckpt_every=TB), OPS_SCAN, "block_cs", "scores, checkpoints"),
             (tile, dict(with_dirs=True), OPS_SCAN_DIRS, "block_cs_dirs", "directions")):
         R_b, C_b = args[1].numel(), args[0].numel()
+        before = wf.launches.block_cs_tile_launches
         got, ms, want, plain_ms = timed_pair(
             lambda: wf.run_block_cs(*args, **kw, **extra, check_codes=False),
             lambda: wf.run_block_cs_plain(*args, **kw, **extra), 3)
@@ -1473,9 +1509,12 @@ def phase_block_timing(dev, at, wf, sp):
             max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want) if a is not None),
             ms=ms, plain_ms=plain_ms, shape=f"{R_b}x{C_b} int32",
             **bound(ops * R_b * C_b, nbytes(*args[:5], *got))))
+        n_launch = (wf.launches.block_cs_tile_launches - before) / 5
+        plan = strip_line(wf, dev, True, R_b, C_b, what == "directions", ms,
+                          ck=extra.get("ckpt_every", 0))
         lines.append(f"K7 {what}: {R_b}x{C_b} block {ms:.3f} ms ({R_b * C_b / ms / 1e6:.1f} "
-                     f"GCUPS), {R_b // wf.TILE_ROWS + C_b // (32 * wf.COLS_PER_THREAD) - 1}"
-                     f" launches a call; plain {plain_ms / 1e3:.1f} s")
+                     f"GCUPS), {n_launch:g} kernel launches a call; plain "
+                     f"{plain_ms / 1e3:.1f} s; {plan}")
     words = got[3]
     del want, forward
     # the pair's whole forward fill with its records by the rows of a block
@@ -1863,6 +1902,8 @@ def phase_column_blocked(at, wf, sp, plain, wide):
     check(blocks > 0 and tiles > 0 and walks == tiles,
           f"align_global {R}x{C} did not take the column-blocked route ({blocks} blocks, "
           f"{tiles} tiles, {walks} walks)")
+    check(launched == blocks + tiles, f"align_global {R}x{C}: {launched} launches for "
+                                      f"{blocks + tiles} column-block calls")
     t0 = time.perf_counter()
     score = at.global_end_score(q, t, m, DEL, EXT, device=DEVICE)
     wall_es = time.perf_counter() - t0
@@ -2100,6 +2141,12 @@ def main() -> int:
             for k in keys:
                 check(counts[path][k] > 0,
                       f"{k} kernel was never launched on the {path} path")
+            c = counts[path]
+            # the strip walk: one kernel launch a call of either fill
+            check(c["tile_launches"] == c["row_scan"] + c["row_scan_dirs"]
+                  and c["block_cs_tile_launches"] == c["block_cs"] + c["block_cs_dirs"],
+                  f"the {path} path's row-scan or column-block calls made other than "
+                  f"one launch each")
 
     kernels = []
     for r in rows:

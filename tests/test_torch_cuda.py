@@ -305,6 +305,8 @@ def test_replay_walk_kernel_matches_plain(dev, C, R, tr):
 
 
 def test_wavefront_launch_counters_count_kernel_launches(dev):
+    """One kernel launch a call of the row-scan fill, whatever its strips
+    and chunks (3 x 4 here)."""
     q, t, m, _ = _scan_case(23, 300, 130, 64, dev)
     L = wavefront.launches
     before = (L.row_scan, L.row_scan_dirs, L.tile_launches, L.replay_walk)
@@ -313,9 +315,100 @@ def test_wavefront_launch_counters_count_kernel_launches(dev):
     wavefront.row_scan(q, t, m, 11, 2, None, 0, 300, 130, with_dirs=False,
                        tile_rows=64, cols_per_thread=4)
     wavefront.replay_walk(words, *wavefront.new_walk(130, 300, 1000, dev), row_base=0)
-    tiles = 2 * (192 // 64 + 512 // 128 - 1)
     assert (L.row_scan, L.row_scan_dirs, L.tile_launches, L.replay_walk) == \
-        (before[0] + 1, before[1] + 1, before[2] + tiles, before[3] + 1)
+        (before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 1)
+
+
+def _scan_both(q, t, m, h0, y_offset, C, R_real, ckpt_every, **kw):
+    """The row-scan fill on the card against its plain version, forward
+    with checkpoints and with directions: end cell, checkpoint rows and
+    codes of the real cells (``R_real`` may lie past the call)."""
+    rows = min(t.numel(), R_real - y_offset)
+    for dirs in (False, True):
+        ck = 0 if dirs else ckpt_every
+        got = wavefront.row_scan(q, t, m, 11, 2, h0, y_offset, C, R_real, with_dirs=dirs,
+                                 ckpt_every=ck, **kw)
+        torch.cuda.synchronize()
+        want = wavefront.row_scan_plain(q, t, m, 11, 2, h0, y_offset, C, R_real, dirs, ck)
+        assert torch.equal(got[0], want[0])
+        if dirs:
+            d, d_p = (wavefront._unpack_dir_words(w.cpu().numpy())[:rows, :C]
+                      for w in (got[1], want[1]))
+            assert np.array_equal(d, d_p)
+        elif ck:
+            assert torch.equal(got[2][:, :C], want[2][:, :C])
+
+
+# (C, R, strip rows, columns a lane, y_offset, R_real past the call): one
+# strip, one chunk, 16/32/64-row strips, a call from the middle of the pair,
+# the end cell past the call
+STRIP_SCAN_CASES = [(300, 64, 64, 4, 0, 0), (256, 640, 64, 8, 0, 0),
+                    (128, 600, 32, 4, 0, 0), (1000, 700, 16, 2, 0, 0),
+                    (700, 500, 32, 8, 96, 0), (513, 300, 64, 2, 64, 50),
+                    (2048, 2048, 16, 8, 0, 0), (4096, 1024, 64, 2, 1024, 7)]
+
+
+@pytest.mark.parametrize("C,R,tr,K,y_offset,past", STRIP_SCAN_CASES,
+                         ids=[f"{c}x{r}-tr{tr}-k{k}-y{y}-p{p}"
+                              for c, r, tr, k, y, p in STRIP_SCAN_CASES])
+def test_strip_walk_row_scan_matches_plain(dev, C, R, tr, K, y_offset, past):
+    q, t, m, h0 = _scan_case(60 + C, C, R, tr, dev, y_offset=y_offset)
+    _scan_both(q, t, m, h0, y_offset, C, R + y_offset + past, tr, tile_rows=tr,
+               cols_per_thread=K)
+
+
+def _small_card(monkeypatch, blocks_per_sm=1, sms=1):
+    """Plans for a card that holds ``blocks_per_sm`` blocks on ``sms`` SMs,
+    so that a call has more strips than the grid has warps."""
+    monkeypatch.setattr(wavefront, "_sms", lambda index: sms)
+    monkeypatch.setattr(wavefront, "_blocks_per_sm", lambda *a: blocks_per_sm)
+
+
+@pytest.mark.parametrize("warps", [1, 4])
+def test_strip_walk_more_strips_than_the_grid_holds(dev, monkeypatch, warps):
+    """40 strips on one block of 1 or 4 warps: the warps take strips by
+    ticket in rounds."""
+    _small_card(monkeypatch)
+    monkeypatch.setattr(wavefront, "STRIP_WARPS", warps)
+    plan = wavefront.strip_plan(dev, False, 40 * 16, 768, 16, 4, V, False)
+    assert (plan.n_tr, plan.warps, plan.blocks) == (40, warps, 1)
+    q, t, m, _ = _scan_case(70, 700, 40 * 16, 16, dev)
+    _scan_both(q, t, m, None, 0, 700, 40 * 16, 32, tile_rows=16, cols_per_thread=4)
+    args = _block_case(71, 600, 640, 256, 640, 1, 0, dev)
+    for dirs in (False, True):
+        kw = dict(del_=11, ext=2, with_dirs=dirs, ckpt_every=0 if dirs else 32)
+        got = wavefront.run_block_cs(*args, **kw, tile_rows=16, cols_per_thread=2)
+        torch.cuda.synchronize()
+        assert _same_block(got, wavefront.run_block_cs_plain(*args, **kw), 640, 256)
+
+
+def test_strip_walk_back_to_back_on_one_stream(dev):
+    """Two calls in a row with no synchronisation between them: each has
+    its own counters, and the second does not read the first's."""
+    a = _scan_case(72, 900, 400, 32, dev)
+    b = _scan_case(73, 900, 400, 32, dev)
+    got = [wavefront.row_scan(q, t, m, 11, 2, None, 0, 900, 400, with_dirs=True,
+                              tile_rows=32) for q, t, m, _ in (a, b, a)]
+    torch.cuda.synchronize()
+    for (q, t, m, _), g in zip((a, b, a), got):
+        want = wavefront.row_scan_plain(q, t, m, 11, 2, None, 0, 900, 400, True)
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1][:, :900], want[1][:, :900])
+
+
+def test_strip_walk_on_two_streams(dev):
+    """Two calls on two streams at once, each with its own counters."""
+    cases = [_scan_case(74 + k, 2000, 1024, 64, dev) for k in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize()
+    got = []
+    for (q, t, m, _), st in zip(cases, streams):
+        with torch.cuda.stream(st):
+            got.append(wavefront.row_scan(q, t, m, 11, 2, None, 0, 2000, 1024,
+                                          with_dirs=False, ckpt_every=64))
+    torch.cuda.synchronize()
+    for (q, t, m, _), g in zip(cases, got):
+        want = wavefront.row_scan_plain(q, t, m, 11, 2, None, 0, 2000, 1024, False, 64)
+        assert torch.equal(g[0], want[0]) and torch.equal(g[2][:, :2000], want[2][:, :2000])
 
 
 @pytest.mark.parametrize("budget", [None, 1000], ids=["direct", "chunked"])
@@ -542,15 +635,38 @@ def test_replay_walk_kernel_with_a_column_base(dev, C, R):
 
 
 def test_block_cs_launch_counters_count_kernel_launches(dev):
+    """One kernel launch a call of the column-block fill."""
     args = _block_case(44, 512, 128, 256, 64, 1, 1, dev)
     L = wavefront.launches
     before = (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.row_scan)
     wavefront.run_block_cs(*args, del_=11, ext=2, tile_rows=32, cols_per_thread=4)
     wavefront.run_block_cs(*args, del_=11, ext=2, with_dirs=True, tile_rows=32,
                            cols_per_thread=4)
-    tiles = 2 * (64 // 32 + 256 // 128 - 1)
     assert (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.row_scan) == \
-        (before[0] + 1, before[1] + 1, before[2] + tiles, before[3])
+        (before[0] + 1, before[1] + 1, before[2] + 2, before[3])
+
+
+# (C, R, column block, rows of a block, column block d, row block j, strip
+# rows, columns a lane): x0 > 0 and y_base > 0, cell (1,1), the end cell in
+# the block and not, one strip (64 rows), one chunk (256 columns at K 8),
+# 16/32/64-row strips
+STRIP_BLOCK_CASES = [(1024, 512, 256, 256, 0, 0, 16, 2), (1024, 512, 256, 256, 3, 1, 32, 8),
+                     (1000, 512, 512, 512, 1, 0, 64, 4), (900, 300, 256, 64, 2, 3, 64, 4),
+                     (700, 700, 256, 128, 1, 2, 16, 8), (200, 300, 256, 64, 0, 2, 32, 8)]
+
+
+@pytest.mark.parametrize("with_dirs", [False, True], ids=["scores", "dirs"])
+@pytest.mark.parametrize("C,R,cb,tr,d,j,tile,K", STRIP_BLOCK_CASES,
+                         ids=[f"{c}x{r}-blk{j}.{d}-tr{t}-k{k}"
+                              for c, r, _, _, d, j, t, k in STRIP_BLOCK_CASES])
+def test_strip_walk_block_cs_matches_plain(dev, C, R, cb, tr, d, j, tile, K, with_dirs):
+    args = _block_case(80 + C, C, R, cb, tr, d, j, dev)
+    rows = args[1].numel()
+    kw = dict(del_=11, ext=2, with_dirs=with_dirs, ckpt_every=0 if with_dirs else tile)
+    got = wavefront.run_block_cs(*args, **kw, tile_rows=tile, cols_per_thread=K)
+    torch.cuda.synchronize()
+    want = wavefront.run_block_cs_plain(*args, **kw)
+    assert _same_block(got, want, min(rows, R - args[6]), min(args[0].numel(), C - args[5]))
 
 
 def test_column_blocked_pair_on_the_card(dev):
