@@ -73,22 +73,18 @@
 // little more than that (plan_strips in ops/wavefront.py), so few warps
 // spin.
 //
-// The CUDA-only primitives (the dynamic shared memory, the relaxed load and
-// store at GPU scope) sit under __CUDACC__; a host build of the body
-// supplies its own, with the warp intrinsics it uses.
+// The tagged words, the relaxed load and store at GPU scope and the bounded
+// wait's limit come from handoff.cuh, which the band walk shares; the
+// CUDA-only primitives sit under __CUDACC__ there, and a host build of the
+// body supplies its own, with the warp intrinsics it uses.
 #pragma once
-#include <cstdint>
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#endif
+#include "handoff.cuh"
 
 namespace {
 
 constexpr int TOP = 0, LEFT = 1, DIAG = 2;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_STRIP_WARPS = 8;    // warps a block at most (the launch bounds)
 constexpr int RS = 2;                 // rows a lane runs in one step
-constexpr long long WAIT_LIMIT_CYCLES = 1LL << 32;  // about 2 s of SM clock
 constexpr int NO_STEP = -(1 << 30);   // a step no lane reaches
 
 struct TileArgs {
@@ -108,23 +104,6 @@ struct TileArgs {
     int V, x0, y_offset, C_real, R_real, del, ext, TR, n_tr, n_tc, ckpt_every;
 };
 
-#ifdef __CUDACC__
-__device__ __forceinline__ int* dynamic_smem() {
-    extern __shared__ int smem[];
-    return smem;
-}
-
-__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p));
-    return v;
-}
-
-__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
-    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v));
-}
-#endif
-
 // Shared memory of a block: the matrix, then each warp's codes and ring.
 inline size_t strip_smem_bytes(int V, int TR, int warps) {
     return sizeof(int) * (size_t(V) * V + 2 * size_t(TR) * warps);
@@ -138,12 +117,6 @@ __device__ __forceinline__ int border_col(int y, int R_real, int del) {
 // H[0, x]: the top border with its far-corner overwrite.
 __device__ __forceinline__ int border_row(int x, int C_real, int del) {
     return x == C_real ? -(C_real + 1) * del : -x * del;
-}
-
-// A value handed down to strip `tag`.
-__device__ __forceinline__ unsigned long long tagged(int v, int tag) {
-    return (static_cast<unsigned long long>(static_cast<unsigned>(tag)) << 32) |
-           static_cast<unsigned>(v);
 }
 
 // My K values of the row handed down to strip `tag`, once every lane's

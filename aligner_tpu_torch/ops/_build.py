@@ -187,13 +187,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.wavefront_band_launch.argtypes = [
         p, p, p, p, p, p, p,  # t, q, f, c1, c2, fd, matrix
         i32, i32, i32, i32, i32,  # V, TB, D, Cb, ext
-        i32, i32,  # rows per lane, steps per tile
+        i32, i32,  # rows per lane, slots read ahead
         i32, i32, i32, i32,  # j_end, d_end, owned, with_rc
-        p, p, p,  # state, carry, w (scratch)
+        p, p,  # hand (zeroed tagged row), sync (zeroed ticket)
         p, p, p,  # rb, rc, end
-        ctypes.POINTER(i32), p,  # launches made (out), stream
+        i32, i32, i32, p,  # warps a block, blocks, copies of the table, stream
     ]
     lib.wavefront_band_launch.restype = i32
+    # rows per lane, slots read ahead, warps a block, V; out: blocks an SM,
+    # copies of the table, shared memory a block
+    lib.wavefront_band_occupancy.argtypes = [i32, i32, i32, i32, *[ctypes.POINTER(i32)] * 3]
+    lib.wavefront_band_occupancy.restype = i32
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -87,13 +87,15 @@ def variant_header(name: str) -> str:
     return src
 
 
-def build_variants(names, out_dir: str) -> dict[str, ctypes.CDLL]:
+def build_variants(names, out_dir: str, source=variant_header,
+                   file: str = "wavefront_tile.cuh") -> dict[str, ctypes.CDLL]:
     """Each named variant of the sources as a library bound like the
-    shipped one."""
+    shipped one: ``source(name)`` in place of ``csrc/<file>``, every other
+    source as shipped."""
     nvcc = _build._nvcc()
     jobs = []
     for name in names:
-        src = variant_header(name)
+        src = source(name)
         d = os.path.join(out_dir, "variants", name)
         os.makedirs(d, exist_ok=True)
         for f in os.listdir(_build._CSRC):
@@ -101,7 +103,7 @@ def build_variants(names, out_dir: str) -> dict[str, ctypes.CDLL]:
                 with open(os.path.join(_build._CSRC, f)) as fh:
                     text = fh.read()
                 with open(os.path.join(d, f), "w") as fh:
-                    fh.write(src if f == "wavefront_tile.cuh" else text)
+                    fh.write(src if f == file else text)
         objs = []
         for f in sorted(os.listdir(d)):
             if f.endswith(".cu"):

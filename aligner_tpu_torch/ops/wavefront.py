@@ -1,5 +1,6 @@
 """One huge global pair on the card: the row-scan fill, the replay walk
-(``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``), the
+(``csrc/wavefront.cu``), the band fill (``csrc/wavefront_band.cu``, the
+band walk, one launch a call planned by :func:`plan_band`), the
 column-block fill (``csrc/wavefront_block.cu``; it and the row-scan fill
 share one kernel body, the strip walk of ``csrc/wavefront_tile.cuh``, one
 launch a call planned by :func:`plan_strips`), their plain versions, the
@@ -110,7 +111,8 @@ class _Launches:
     calls of the fill without and with directions, ``tile_launches`` the
     kernel launches those calls made (one a call), and ``replay_walk`` the
     walk kernel; ``band`` counts calls of the band fill and
-    ``band_tile_launches`` the kernel launches those calls made;
+    ``band_tile_launches`` the kernel launches those calls made (one a
+    call);
     ``block_cs`` and ``block_cs_dirs`` count calls of the column-block fill
     without and with directions and ``block_cs_tile_launches`` the kernel
     launches those calls made (one a call)."""
@@ -877,15 +879,122 @@ def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
 # under max, and far enough from -2^31 to take a score on top
 NEG_I32 = -(2**30)
 LANES = 128  # band heights are multiples of this, as in the reference
-# The band fill's sizes: the rows of one band, the steps of one tile and the
-# rows a lane owns.  Chosen by the sweep that chip_smoke.py prints at
-# 65,536 x 65,536 on an H100 (PERF.md, Findings).  Tiles that hold no cell
-# of the plane are not launched, so a tall band costs no more than its
-# cells and saves the hand-offs between bands: up to the width cap squared
-# a pair is one band.
+# The band fill's sizes: the rows of one band, the rows a lane owns (a row
+# group is 32 of them a lane, a warp's work item), the slots a warp reads
+# ahead (the steps of one chunk: 16, 32 or 64) and the warps of a block.
+# Chosen by the sweeps that ops/band_probe.py and chip_smoke.py print at
+# 65,536 x 65,536 and 262,144 x 262,144 on an H100 (PERF.md, Findings).
+# Up to the width cap squared a pair is one band.  BAND_TD is what the end
+# score pads its streams to, as the reference tiles them, so that its bands
+# match the reference's stream for stream; the kernel does not read it.
 BAND_ROWS = 262144
 BAND_TD = 128
 BAND_ROWS_PER_LANE = 2
+BAND_READ_AHEAD = 32
+BAND_WARPS = 4
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """One launch of the band walk (``csrc/wavefront_band.cu``) over
+    ``n_g`` row groups of ``RW`` = 32·``K`` rows of a block ``Cb`` columns
+    wide: ``blocks`` blocks of ``warps`` warps, each warp taking groups by
+    ticket and walking a group's ``steps_per_group`` steps in chunks of
+    ``P`` steps, reading ``P`` slots of the row above a chunk ahead;
+    ``copies`` of the (V, V + 1) score table a block and ``smem_bytes`` of
+    dynamic shared memory a block, as the kernel lays them out (its
+    ``wavefront_band_occupancy`` says how many copies fit); zeroed device memory:
+    ``sync_ints`` ints (the ticket) and ``hand_words`` 64-bit words (the
+    row handed from group to group, tagged); ``lag_steps``, the least lag
+    from a group's start of a chunk to the next group's (RW + P: the row of
+    a chunk is written at the next chunk's start); ``under_way``, the
+    groups that can run at once; and the launch's critical path in steps
+    (``critical_steps``): the last group's start behind the lags, or behind
+    the rounds of groups when fewer warps are resident than there are
+    groups, and then its own steps."""
+
+    K: int
+    P: int
+    RW: int
+    n_g: int
+    warps: int
+    blocks: int
+    copies: int
+    smem_bytes: int
+    sync_ints: int
+    hand_words: int
+    steps_per_group: int
+    lag_steps: int
+    under_way: int
+    critical_steps: int
+
+
+def _band_groups(TB: int, Cb: int, D: int, K: int, P: int) -> int:
+    """The row groups of a call, or ValueError for a shape the band walk
+    does not take."""
+    if K not in (1, 2, 4, 8):
+        raise ValueError("rows_per_lane must be 1, 2, 4 or 8")
+    if P not in (16, 32, 64):
+        raise ValueError("read_ahead must be 16, 32 or 64")
+    if TB <= 0 or TB % (32 * K):
+        raise ValueError(f"TB {TB} must be a positive multiple of {32 * K}")
+    if Cb < 1 or D < Cb + TB - 1:
+        raise ValueError(f"need Cb >= 1 and D >= Cb + TB - 1 = {Cb + TB - 1}, got {D}")
+    return TB // (32 * K)
+
+
+def plan_band(TB: int, Cb: int, D: int, K: int, P: int, *, sms: int, blocks_per_sm: int,
+              copies: int, smem_bytes: int, warps: int | None = None) -> BandPlan:
+    """The launch plan of one call of the band walk: ``TB`` rows by ``Cb``
+    columns over streams of ``D`` slots, row groups of 32·``K`` rows read
+    ``P`` slots ahead, on a card of ``sms`` SMs that holds ``blocks_per_sm``
+    blocks of ``warps`` warps (by default :data:`BAND_WARPS`, never more
+    than there are groups) resident, each with ``copies`` of the score
+    table in ``smem_bytes`` of shared memory (what the kernel's
+    ``wavefront_band_occupancy`` says).  The grid is what the card holds
+    resident, but never more warps than groups."""
+    n_g = _band_groups(TB, Cb, D, K, P)
+    RW = 32 * K
+    warps = BAND_WARPS if warps is None else warps
+    if warps < 1:
+        raise ValueError("warps must be at least 1")
+    w = min(warps, n_g)
+    if blocks_per_sm < 1:
+        raise ValueError(f"a block of {w} warps and {smem_bytes} B of shared memory "
+                         f"({copies} copies of the score table) does not fit on an SM")
+    per_group = RW - 1 + Cb
+    lag = RW + P
+    blocks = min(_cdiv(n_g, w), blocks_per_sm * sms)
+    rounds = _cdiv(n_g, blocks * w)
+    return BandPlan(
+        K=K, P=P, RW=RW, n_g=n_g, warps=w, blocks=blocks, copies=copies,
+        smem_bytes=smem_bytes, sync_ints=1, hand_words=D, steps_per_group=per_group,
+        lag_steps=lag, under_way=_cdiv(per_group, lag),
+        critical_steps=max((n_g - 1) * lag, (rounds - 1) * per_group) + per_group)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_fit(index: int, K: int, P: int, warps: int, V: int) -> dict:
+    """The kernel's ``wavefront_band_occupancy`` on device ``index``: the
+    blocks an SM holds, the copies of the table and the shared memory of a
+    block."""
+    lib = _build.load()
+    n, copies, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(lib, lib.wavefront_band_occupancy(
+            K, P, warps, V, ctypes.byref(n), ctypes.byref(copies), ctypes.byref(smem)),
+            "wavefront band occupancy")
+    return dict(blocks_per_sm=n.value, copies=copies.value, smem_bytes=smem.value)
+
+
+def band_plan(dev, TB: int, Cb: int, D: int, K: int, P: int, V: int) -> BandPlan:
+    """:func:`plan_band` on CUDA device ``dev`` with :data:`BAND_WARPS` and
+    a ``V``-symbol matrix."""
+    w = min(BAND_WARPS, _band_groups(TB, Cb, D, K, P))
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    return plan_band(TB, Cb, D, K, P, sms=_sms(index), warps=w,
+                     **_band_fit(index, K, P, w, V))
 
 
 def _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb, check_codes):
@@ -922,7 +1031,7 @@ def _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb, check_codes):
 
 
 def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
-                   with_rc: bool = True, td: int = BAND_TD,
+                   with_rc: bool = True, read_ahead: int = BAND_READ_AHEAD,
                    rows_per_lane: int = BAND_ROWS_PER_LANE, check_codes: bool = True):
     """Fill one block of a global pair, TB rows by ``Cb`` columns, by
     anti-diagonal steps, scores only.
@@ -960,8 +1069,10 @@ def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
     :func:`band_streams` and :func:`band_handoff` for the two ends of a
     block.
 
-    CUDA tensors launch the kernel (TB must then be a multiple of
-    32·``rows_per_lane``; ``td`` is the steps of one tile); CPU tensors take
+    CUDA tensors launch the kernel, once (TB must then be a multiple of
+    32·``rows_per_lane``, the rows of a warp's group; ``read_ahead``, 16, 32
+    or 64, is the slots of the row above a warp reads a chunk ahead;
+    :func:`plan_band` sizes the launch); CPU tensors take
     :func:`run_block_band_plain`.
     """
     j_end, d_end, owned = _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb,
@@ -973,35 +1084,28 @@ def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
                                     with_rc=with_rc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    import ctypes
-
     TB, D = t_band.numel(), q.numel()
-    K, TD = int(rows_per_lane), int(td)
-    if K not in (1, 2, 4, 8):
-        raise ValueError("rows_per_lane must be 1, 2, 4 or 8")
-    if TB % (32 * K) or TD < 32:
-        raise ValueError(f"TB {TB} must be a multiple of {32 * K} and td {TD} >= 32")
-    lib = _build.load()
+    K, P, V = int(rows_per_lane), int(read_ahead), matrix.shape[0]
     with torch.cuda.device(dev):
+        plan = band_plan(dev, TB, int(Cb), D, K, P, V)
+        lib = _build.load()
         i32 = dict(dtype=torch.int32, device=dev)
-        state = torch.full((2, TB), NEG_I32, **i32)
-        carry = torch.full((TB // (32 * K), 2), NEG_I32, **i32)
-        w = torch.full((D,), NEG_I32, **i32)
+        # the call's own handoff row and ticket, zeroed on its stream
+        hand = torch.zeros(plan.hand_words, dtype=torch.int64, device=dev)
+        sync = torch.zeros(plan.sync_ints, **i32)
         rb = torch.full((D,), NEG_I32, **i32)
         rc = torch.zeros(TB, **i32)
         end = torch.zeros(1, **i32)
-        n_launched = ctypes.c_int(0)
         err = lib.wavefront_band_launch(
             t_band.data_ptr(), q.data_ptr(), f.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-            fd.data_ptr(), matrix.data_ptr(), matrix.shape[0], TB, D, int(Cb), int(ext),
-            K, TD, j_end, d_end, owned, int(bool(with_rc)), state.data_ptr(),
-            carry.data_ptr(), w.data_ptr(), rb.data_ptr(), rc.data_ptr(),
-            end.data_ptr(), ctypes.byref(n_launched),
-            torch.cuda.current_stream(dev).cuda_stream,
+            fd.data_ptr(), matrix.data_ptr(), V, TB, D, int(Cb), int(ext), K, P, j_end,
+            d_end, owned, int(bool(with_rc)), hand.data_ptr(), sync.data_ptr(),
+            rb.data_ptr(), rc.data_ptr(), end.data_ptr(), plan.warps, plan.blocks,
+            plan.copies, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "wavefront_band")
         launches.band += 1
-        launches.band_tile_launches += n_launched.value
+        launches.band_tile_launches += 1
     return rb, rc, end
 
 
@@ -1081,7 +1185,8 @@ def _band_end_score(pp, tb: int, td: int, rows_per_lane: int, block=None, trace=
     tensor on the device, nothing downloaded, and a record of the call.
     ``block`` is the fill of one band (:func:`run_block_band`, or its plain
     version to run that on the card too); a ``trace`` list receives every
-    band's ``(args, kwargs, outputs)``."""
+    band's ``(args, kwargs, outputs)``; ``td`` only pads the streams (see
+    :func:`end_score_single_global_diag`)."""
     C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
     del_, ext, V = pp["del"], pp["ext"], pp["V"]
     mult = max(LANES, 32 * rows_per_lane)
@@ -1104,7 +1209,7 @@ def _band_end_score(pp, tb: int, td: int, rows_per_lane: int, block=None, trace=
     extra = dict(with_rc=False)
     if block is None:
         block = run_block_band
-        extra.update(td=td, rows_per_lane=rows_per_lane, check_codes=False)
+        extra.update(rows_per_lane=rows_per_lane, check_codes=False)
     end = torch.full((1,), NEG_I32, **i32)
     for jb in range(n_bands):
         y_base = jb * TB
@@ -1132,7 +1237,10 @@ def end_score_single_global_diag(q, t, matrix, del_: float, ext: float, *,
     no plane, no directions, no traceback.  Requires :func:`supported`.
 
     ``tb`` is the band height (a multiple of 128, clamped to the padded
-    target length), ``td`` the steps of one tile of the kernel.  The bands
+    target length).  ``td`` is the reference's signature: it pads the
+    streams to a multiple of ``td`` steps, as the reference tiles them, so
+    that a band matches the reference's stream for stream; it changes
+    neither the band walk's steps nor its result.  The bands
     run one after another, each handing the next its last row; the streams
     of every band are built on the device and nothing comes back between
     bands: the call waits for the device once, for the end score.

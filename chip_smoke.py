@@ -14,7 +14,7 @@ against the native C++ host engine or the frozen golden fixtures:
    batches (pair mode local/global and PWM mode, shared and per-problem
    matrices, argmax on/off, directions on/off, f32/f64), the walk on
    words from the kernel fill, the row-scan fill of one global pair and
-   the replay walk on ragged shapes, the band fill on band and tile seams,
+   the replay walk on ragged shapes, the band fill on band and chunk seams,
    with a streamed left boundary and at full width, the column-block fill
    on every block of ragged grids and the replay walk with a column base
    on every tile a walk crosses, real cells only), and
@@ -24,7 +24,8 @@ against the native C++ host engine or the frozen golden fixtures:
    memory, ns a cell per problem), the fill on every length bucket of the
    100k search and held whole on the tallest (its columns partly off chip), the
    repeat scan's chunk size timed at 8,192 and 65,536 windows, the row-scan's tile and replay-block
-   sizes and the band fill's tile and band sizes swept at 65,536 x 65,536,
+   sizes and the band walk's rows a lane, read-ahead and band sizes swept at
+   65,536 x 65,536 with its launch plan,
    the column-block fill held and timed on the last forward block and the
    last replay tile of the 524,288 x 524,288 pair, and the column block's
    width and the forward block's rows swept at 262,144 x 262,144 and
@@ -69,7 +70,8 @@ against the native C++ host engine or the frozen golden fixtures:
 11. the kernels' launch counts of each path: the pair path (phases 3-6),
    the PWM path (phase 7), the huge-pair path (phase 8), the end-score
    path (phase 9) and the column-blocked path (phase 10), each counted
-   from zero; the row-scan and column-block fills make one launch a call.
+   from zero; the row-scan, column-block and band fills make one launch a
+   call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -131,10 +133,10 @@ FORWARD_SWEEP = (32_768, 131_072, 262_144, 524_288)  # the same at BLOCKED_LEN
 TILE_SWEEP = ((2, 64), (4, 32), (4, 64), (4, 128), (4, 256), (8, 64), (8, 128), (8, 256))
 TB_SWEEP = (2_048, 8_192, 16_384, 32_768, 65_536)
 TB_TILE_ROWS = (64, 128)
-# the band fill at 65,536 x 65,536: (rows a lane, steps a tile) for one band
-# as tall as the pair, then band heights at the shipped tile
-BAND_TILE_SWEEP = ((1, 128), (2, 128), (4, 64), (4, 128), (4, 256), (4, 512), (8, 128),
-                   (8, 256), (8, 512))
+# the band walk at 65,536 x 65,536: (rows a lane, slots read ahead) for one
+# band as tall as the pair, then band heights at the shipped shape
+BAND_SHAPE_SWEEP = ((1, 32), (2, 16), (2, 32), (2, 64), (4, 16), (4, 32), (4, 64),
+                    (8, 32))
 BAND_TB_SWEEP = (4_096, 16_384, 65_536)
 BAND_TB_WIDE = (65_536, 262_144)  # band heights timed at the width cap
 BAND_FULL_WIDTH_ROWS = 256  # the rows of the full-width band held against plain
@@ -358,41 +360,42 @@ def same_band(got, want, TB, n_cols, with_rc=True) -> bool:
 
 def band_vs_plain(dev, at, host, wf):
     """K6 against its plain version: band heights at, below and one past
-    the row count, widths at and one past a tile seam, every band of each
+    the row count, widths at and one past a chunk seam, every band of each
     pair (band 0 holds the border column and cell (1,1)), the right column
-    on and off, every tile shape, BLOSUM62 and a wide-range DNA matrix; a
-    grid of blocks with a streamed left boundary against the host engine's
-    plane; one full-width band."""
+    on and off, every rows a lane and read-ahead, BLOSUM62 and a wide-range
+    DNA matrix; a grid of blocks with a streamed left boundary against the
+    host engine's plane; one full-width band."""
     b62 = np.array(at.blosum62())
     wide = np.random.default_rng(SEED + 9).integers(-30, 30, (4, 4)).astype(np.float64)
     check(wide.max() - wide.min() > 15, "the DNA matrix is not wide-range")
     n = 0
-    # (C, R, band rows, rows a lane, steps a tile, matrix, del, ext)
-    for C, R, tb, K, td, m, d, e in (
+    # (C, R, band rows, rows a lane, slots read ahead, matrix, del, ext); the
+    # streams are padded to a multiple of the read-ahead
+    for C, R, tb, K, P, m, d, e in (
             (1, 1, 128, 1, 32, b62, 11, 2), (127, 128, 128, 2, 64, b62, 11, 2),
-            (128, 129, 128, 4, 128, b62, 11, 2), (129, 300, 128, 4, 128, b62, 7, 3),
-            (512, 255, 256, 8, 512, b62, 11, 2), (513, 257, 256, 8, 256, b62, 11, 2),
-            (150, 170, 128, 4, 128, wide, 5, 2), (700, 1300, 512, 4, 512, b62, 11, 2)):
+            (128, 129, 128, 4, 16, b62, 11, 2), (129, 300, 128, 4, 32, b62, 7, 3),
+            (512, 255, 256, 8, 64, b62, 11, 2), (513, 257, 256, 8, 16, b62, 11, 2),
+            (150, 170, 128, 4, 32, wide, 5, 2), (700, 1300, 512, 2, 16, b62, 11, 2)):
         V = m.shape[0]
         rng = np.random.default_rng(SEED + C + R)
         pp = wf._prep(rng.integers(0, V, C), rng.integers(0, V, R), m, d, e, dev)
         bands = []
-        wf._band_end_score(pp, tb, td, K, block=wf.run_block_band_plain, trace=bands)
+        wf._band_end_score(pp, tb, P, K, block=wf.run_block_band_plain, trace=bands)
         for jb, (args, kw, _) in enumerate(bands):
             for with_rc in (True, False):
-                got = wf.run_block_band(*args, **kw, with_rc=with_rc, td=td,
+                got = wf.run_block_band(*args, **kw, with_rc=with_rc, read_ahead=P,
                                         rows_per_lane=K)
                 want = wf.run_block_band_plain(*args, **kw, with_rc=with_rc)
                 check(same_band(got, want, args[0].numel(), kw["Cb"]),
                       f"run_block_band != plain ({C}x{R}, band {jb} of {tb} rows, "
-                      f"{K} rows a lane, {td} steps a tile, rc={with_rc})")
+                      f"{K} rows a lane, {P} slots read ahead, rc={with_rc})")
                 n += 1
     # a streamed left boundary: 3 column blocks by 3 bands, x0 > 0
     C, R, tb, cb = 600, 300, 128, 256
     q, t = homologous_pair(SEED + 10, C, R)
     H = host.align_global(q, t, b62, DEL, EXT).score
     end, rights, bottoms = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb, device=dev,
-                                        td=64)
+                                        read_ahead=64)
     end_p, rights_p, bottoms_p = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb,
                                               device=dev, block=wf.run_block_band_plain)
     check(int(end) == int(end_p) == H[R, C], "band grid: end score != the host engine")
@@ -1385,41 +1388,57 @@ def phase_wavefront_timing(dev, at, wf):
     return rows, dict(q=q, t=t, ckpts=fwd_p[2], state=state_p, steps=steps_p)
 
 
+def band_plan_line(wf, dev, args, kw, K, P, ms) -> str:
+    """The band walk's launch plan for one call, and the ns a step of its
+    critical path that the call's time works out to."""
+    TB, D = args[0].numel(), args[1].numel()
+    p = wf.band_plan(dev, TB, kw["Cb"], D, K, P, args[6].shape[0])
+    return (f"{p.n_g} groups of {p.RW} rows, {p.blocks} blocks of {p.warps} warps "
+            f"({p.copies} copies of the table, {p.smem_bytes} B shared memory a block), lag "
+            f"{p.lag_steps} steps, {p.under_way} groups under way, critical path "
+            f"{p.critical_steps} steps, {ms * 1e6 / p.critical_steps:.1f} ns a step of it")
+
+
 def phase_band_timing(dev, at, wf, q, t):
-    """K6 at the huge pair's shape, 65,536 x 65,536: the tile sweep on one
-    band as tall as the pair, the band-height sweep over the whole band
-    loop, then the kernel's time beside its plain version's and its bound at
-    the shipped sizes.  Returns the kernel's row and the plain version's end
-    score."""
+    """K6 at the huge pair's shape, 65,536 x 65,536: the shape sweep (rows
+    a lane, slots read ahead) on one band as tall as the pair, each with its
+    launch plan, the band-height sweep over the whole band loop, then the
+    kernel's time beside its plain version's and its bound at the shipped
+    sizes.  Every call is one launch.  Returns the kernel's row and the plain
+    version's end score."""
     m = np.array(at.blosum62())
     C, R = len(q), len(t)
     cells = C * R
     pp = wf._prep(q, t, m, DEL, EXT, dev)
-    TB, TD, K = wf.BAND_ROWS, wf.BAND_TD, wf.BAND_ROWS_PER_LANE
+    TB, TD, K, P = wf.BAND_ROWS, wf.BAND_TD, wf.BAND_ROWS_PER_LANE, wf.BAND_READ_AHEAD
     lines = []
 
-    def band_loop(tb, td, k, trace=None):
-        return wf._band_end_score(pp, tb, td, k, trace=trace)
+    def band_loop(tb, trace=None):
+        return wf._band_end_score(pp, tb, TD, K, trace=trace)
+
+    def one_launch_each(before, calls, what):
+        n_launch = wf.launches.band_tile_launches - before
+        check(n_launch == calls, f"{what}: {n_launch} kernel launches in {calls} calls")
 
     tall = max(BAND_TB_SWEEP)
-    for k, td in BAND_TILE_SWEEP:
-        bands = []
-        band_loop(tall, td, k, trace=bands)
-        args, kw, _ = bands[0]
+    bands = []
+    band_loop(tall, trace=bands)
+    args, kw, _ = bands[0]
+    for k, p in BAND_SHAPE_SWEEP:
         before = wf.launches.band_tile_launches
-        ms = gpu_ms(lambda: wf.run_block_band(*args, **kw, with_rc=False, td=td,
+        ms = gpu_ms(lambda: wf.run_block_band(*args, **kw, with_rc=False, read_ahead=p,
                                               rows_per_lane=k, check_codes=False), 2)
-        n_launch = (wf.launches.band_tile_launches - before) // 3
-        lines.append(f"tile sweep, one band of {tall} rows, {R}x{C}: {k} rows a lane, "
-                     f"{td} steps a tile: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
-                     f"{n_launch} launches")
+        one_launch_each(before, 3, "the band walk")
+        lines.append(f"shape sweep, one band of {tall} rows, {R}x{C}: {k} rows a lane, "
+                     f"{p} slots read ahead: {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS); "
+                     f"{band_plan_line(wf, dev, args, kw, k, p, ms)}")
     for tb in BAND_TB_SWEEP:
-        before = wf.launches.band_tile_launches
-        ms = gpu_ms(lambda: band_loop(tb, TD, K), 2)
-        n_launch = (wf.launches.band_tile_launches - before) // 3
+        before, calls = wf.launches.band_tile_launches, wf.launches.band
+        ms = gpu_ms(lambda: band_loop(tb), 2)
+        one_launch_each(before, wf.launches.band - calls, "the band loop")
         lines.append(f"band sweep, the whole band loop, {R}x{C}: bands of {tb} rows "
-                     f"({-(-R // tb)} bands), {K} rows a lane, {TD} steps a tile: "
-                     f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), {n_launch} launches")
+                     f"({-(-R // tb)} bands), {K} rows a lane, {P} slots read ahead: "
+                     f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), one launch a band")
 
     pp_w = wf._prep(*homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN), m, DEL, EXT, dev)
     for tb in BAND_TB_WIDE:
@@ -1430,15 +1449,14 @@ def phase_band_timing(dev, at, wf, q, t):
     # the shipped sizes: the first band of the pair (the only one when the
     # band is as tall as the pair), kernel against plain
     bands = []
-    band_loop(TB, TD, K, trace=bands)
+    band_loop(TB, trace=bands)
     args, kw, _ = bands[0]
     rows_b = args[0].numel()
     before = wf.launches.band_tile_launches
     got, ms, want, plain_ms = timed_pair(
-        lambda: wf.run_block_band(*args, **kw, with_rc=False, td=TD, rows_per_lane=K,
-                                  check_codes=False),
+        lambda: wf.run_block_band(*args, **kw, with_rc=False, check_codes=False),
         lambda: wf.run_block_band_plain(*args, **kw, with_rc=False), 3)
-    n_launch = (wf.launches.band_tile_launches - before) // 5
+    one_launch_each(before, 5, "the band walk at the shipped shape")
     check(same_band(got, want, rows_b, C, with_rc=False),
           "run_block_band != plain at the huge pair's shape")
     row = dict(name="wavefront_band (scores, one band of the huge pair)", route="cuda",
@@ -1449,9 +1467,9 @@ def phase_band_timing(dev, at, wf, q, t):
                                max_abs_err(got[2], want[2])),
                ms=ms, plain_ms=plain_ms, shape=f"{rows_b}x{C} int32",
                **bound(OPS_BAND * rows_b * C, nbytes(*args[:7], *got)))
-    lines.append(f"one band of {rows_b} rows by {C} columns, {K} rows a lane, {TD} steps "
-                 f"a tile: {ms:.3f} ms ({rows_b * C / ms / 1e6:.1f} GCUPS), {n_launch} "
-                 f"kernel launches a call")
+    lines.append(f"one band of {rows_b} rows by {C} columns, {K} rows a lane, {P} slots "
+                 f"read ahead: {ms:.3f} ms ({rows_b * C / ms / 1e6:.1f} GCUPS), one kernel "
+                 f"launch a call; {band_plan_line(wf, dev, args, kw, K, P, ms)}")
     print_rows([row])
     for line in lines:
         print(f"  {line}", flush=True)
@@ -1623,6 +1641,8 @@ def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
     wall = time.perf_counter() - t0
     band = counters.snapshot()[f"{DEVICE}/wavefront-band"]
     calls, tiles = L.band - before[0], L.band_tile_launches - before[1]
+    check(calls >= 1 and tiles == calls,
+          f"global_end_score {R}x{C}: {tiles} kernel launches in {calls} band calls")
     # the device part alone, and how often it waits: the loop itself never
     # does, the call reads the end score once
     pp = wf._prep(q, t, np.asarray(m), DEL, EXT, DEVICE)
@@ -1697,11 +1717,14 @@ def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
     wall = time.perf_counter() - t0
     band = counters.snapshot()[f"{DEVICE}/wavefront-band"]
     peak = torch.cuda.max_memory_allocated() / 2**20
+    calls, tiles = L.band - before[0], L.band_tile_launches - before[1]
+    check(calls >= 1 and tiles == calls,
+          f"global_end_score at the width cap: {tiles} kernel launches in {calls} calls")
     k5 = forward_end_cell(dev, at, wf, q4, t4)
     check(score == k5, f"global_end_score at the width cap {score} != K5's end cell {k5}")
     print(f"  global_end_score {WIDE_LEN}x{WIDE_LEN}: wall {wall:.4f} s (band loop to "
-          f"the score {band.seconds:.4f} s, {band.gcups:.1f} GCUPS), {L.band - before[0]} "
-          f"band calls, {L.band_tile_launches - before[1]} kernel launches, peak device "
+          f"the score {band.seconds:.4f} s, {band.gcups:.1f} GCUPS), {calls} "
+          f"band calls, {tiles} kernel launches, peak device "
           f"memory {peak:.0f} MiB; score {int(score)} equals K5's forward end cell",
           flush=True)
 
@@ -2142,11 +2165,12 @@ def main() -> int:
                 check(counts[path][k] > 0,
                       f"{k} kernel was never launched on the {path} path")
             c = counts[path]
-            # the strip walk: one kernel launch a call of either fill
+            # the strip walk and the band walk: one kernel launch a call
             check(c["tile_launches"] == c["row_scan"] + c["row_scan_dirs"]
-                  and c["block_cs_tile_launches"] == c["block_cs"] + c["block_cs_dirs"],
-                  f"the {path} path's row-scan or column-block calls made other than "
-                  f"one launch each")
+                  and c["block_cs_tile_launches"] == c["block_cs"] + c["block_cs_dirs"]
+                  and c["band_tile_launches"] == c["band"],
+                  f"the {path} path's row-scan, column-block or band calls made other "
+                  f"than one launch each")
 
     kernels = []
     for r in rows:

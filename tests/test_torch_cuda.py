@@ -458,12 +458,13 @@ BAND_SHAPES = [(1, 1, 256, 0), (255, 256, 256, 0), (257, 257, 256, 1), (256, 600
 
 
 @pytest.mark.parametrize("with_rc", [True, False], ids=["rc", "norc"])
-@pytest.mark.parametrize("K,td", [(1, 32), (2, 64), (4, 128), (8, 512)])
+@pytest.mark.parametrize("K,P", [(1, 16), (2, 32), (4, 64), (8, 32)])
 @pytest.mark.parametrize("C,R,TB,jb", BAND_SHAPES,
                          ids=[f"{c}x{r}-tb{tb}-band{j}" for c, r, tb, j in BAND_SHAPES])
-def test_band_kernel_matches_plain(dev, C, R, TB, jb, K, td, with_rc):
+def test_band_kernel_matches_plain(dev, C, R, TB, jb, K, P, with_rc):
     args, kw = _band_case(30, C, R, TB, jb, dev, K=K)
-    got = wavefront.run_block_band(*args, **kw, with_rc=with_rc, td=td, rows_per_lane=K)
+    got = wavefront.run_block_band(*args, **kw, with_rc=with_rc, read_ahead=P,
+                                   rows_per_lane=K)
     torch.cuda.synchronize()
     want = wavefront.run_block_band_plain(*args, **kw, with_rc=with_rc)
     assert _same_band(got, want, args[0].numel(), kw["Cb"])
@@ -488,7 +489,7 @@ def test_band_kernel_streamed_left_boundary(dev):
     m = np.array(blosum62())
     H = host.align_global(q, t, m, 11.0, 2.0).score
     end, rights, bottoms = wavefront.band_grid(q, t, m, 11.0, 2.0, tb=tb, cb=cb,
-                                               device=dev, td=64)
+                                               device=dev, read_ahead=64)
     end_p, rights_p, bottoms_p = wavefront.band_grid(
         q, t, m, 11.0, 2.0, tb=tb, cb=cb, device=dev, block=wavefront.run_block_band_plain)
     assert int(end) == int(end_p) == H[R, C]
@@ -506,12 +507,83 @@ def test_band_kernel_streamed_left_boundary(dev):
 
 
 def test_band_launch_counter_counts_kernel_launches(dev):
-    args, kw = _band_case(34, 300, 130, 256, 0, dev)
+    """One kernel launch a call, whatever the groups."""
     L = wavefront.launches
-    before = (L.band, L.band_tile_launches, L.row_scan)
-    wavefront.run_block_band(*args, **kw, td=128, rows_per_lane=4)
-    assert L.band == before[0] + 1 and L.band_tile_launches > before[1]
-    assert L.row_scan == before[2]
+    for C, R, TB, K in ((300, 130, 256, 4), (2000, 2000, 2048, 1), (70, 1, 128, 2)):
+        args, kw = _band_case(34, C, R, TB, 0, dev, K=K)
+        before = (L.band, L.band_tile_launches, L.row_scan)
+        wavefront.run_block_band(*args, **kw, rows_per_lane=K)
+        assert L.band == before[0] + 1 and L.band_tile_launches == before[1] + 1
+        assert L.row_scan == before[2]
+
+
+def test_band_kernel_more_groups_than_the_grid_holds(dev, monkeypatch):
+    """A grid of one warp takes every group in turn, by its ticket."""
+    args, kw = _band_case(36, 900, 1100, 1024, 0, dev, K=1)
+    fit = wavefront._band_fit
+    monkeypatch.setattr(wavefront, "BAND_WARPS", 1)
+    monkeypatch.setattr(wavefront, "_sms", lambda index: 1)
+    monkeypatch.setattr(wavefront, "_band_fit", lambda *a: dict(fit(*a), blocks_per_sm=1))
+    plan = wavefront.band_plan(dev, args[0].numel(), kw["Cb"], args[1].numel(), 1,
+                               wavefront.BAND_READ_AHEAD, V)
+    assert plan.warps * plan.blocks == 1 < plan.n_g
+    got = wavefront.run_block_band(*args, **kw, rows_per_lane=1)
+    want = wavefront.run_block_band_plain(*args, **kw)
+    assert _same_band(got, want, args[0].numel(), kw["Cb"])
+
+
+# V -> the copies of the score table a block of 4 warps reading 32 slots
+# ahead keeps on an H100 (228 KB of shared memory an SM): the most with
+# which two blocks share an SM, and one copy where only one block fits
+TABLE_COPIES = {4: 32, 24: 32, 48: 8, 64: 4, 200: 1}
+
+
+@pytest.mark.parametrize("V", list(TABLE_COPIES))
+def test_band_kernel_any_alphabet(dev, V):
+    """An integral matrix over V symbols: the block keeps as many copies of
+    the table as leave room for two blocks an SM, and the kernel matches
+    the plain version."""
+    m = np.random.default_rng(V).integers(-30, 30, (V, V)).astype(np.float64)
+    args, kw = _band_case(38, 700, 1000, 512, 1, dev, m=m, d=9, e=3, K=2)
+    plan = wavefront.band_plan(dev, args[0].numel(), kw["Cb"], args[1].numel(), 2,
+                               wavefront.BAND_READ_AHEAD, V)
+    assert plan.copies == TABLE_COPIES[V] and plan.blocks >= 1
+    got = wavefront.run_block_band(*args, **kw, rows_per_lane=2)
+    want = wavefront.run_block_band_plain(*args, **kw)
+    assert _same_band(got, want, args[0].numel(), kw["Cb"])
+
+
+def test_band_plan_refuses_an_alphabet_no_sm_holds(dev):
+    """A 256-symbol table does not fit in an SM's shared memory even once:
+    the plan says so before any launch."""
+    with pytest.raises(ValueError, match="does not fit on an SM"):
+        wavefront.band_plan(dev, 512, 700, 1211, 2, wavefront.BAND_READ_AHEAD, 256)
+
+
+def test_band_kernel_back_to_back_calls(dev):
+    """Calls queued one after another, no wait between them: each has its
+    own zeroed row and ticket."""
+    cases = [_band_case(37 + i, 500, 600, 512, i % 2, dev, K=2) for i in range(4)]
+    got = [wavefront.run_block_band(*a, **kw, rows_per_lane=2) for a, kw in cases]
+    torch.cuda.synchronize()
+    for (a, kw), g in zip(cases, got):
+        assert _same_band(g, wavefront.run_block_band_plain(*a, **kw), a[0].numel(),
+                          kw["Cb"])
+
+
+def test_band_kernel_on_two_streams(dev):
+    """Two calls running at once on two streams of one card."""
+    cases = [_band_case(41 + i, 3000, 2048, 2048, 0, dev, K=2) for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    got = []
+    for (a, kw), st in zip(cases, streams):
+        with torch.cuda.stream(st):
+            got.append(wavefront.run_block_band(*a, **kw, rows_per_lane=2))
+    torch.cuda.synchronize()
+    for (a, kw), g in zip(cases, got):
+        assert _same_band(g, wavefront.run_block_band_plain(*a, **kw), a[0].numel(),
+                          kw["Cb"])
 
 
 @pytest.mark.parametrize("C,R", [(700, 900), (1, 1), (129, 1), (3000, 70), (2500, 2500)])
