@@ -14,60 +14,12 @@
 // none of that is carried over: integers give the same bits in any order,
 // so the kernel evaluates cells directly.
 //
-// The walk is one cursor, so one warp: it loads the 32 direction words
-// that end at the cursor's column with one coalesced read and then moves
-// inside that 16-row by 32-column window by warp shuffles, without
-// touching memory, until the cursor leaves the window.
+// The walk is one cursor, so one warp, one launch a call: the walker core of
+// walk_core.cuh (what bounds it and what the design does about it are set
+// out there), 16 rows a word, REPLAY_DEPTH word rows staged ahead of the
+// cursor.
+#include "walk_core.cuh"
 #include "wavefront_tile.cuh"
-
-namespace {
-
-// One cursor walks the packed words of one replayed block.  `state` holds
-// (cy, cx, n): the absolute 1-based cell and the running step count; the
-// block holds the rows row_base + 1 .. row_base + rows and the columns
-// col_base + 1 .. col_base + C_pad, and the kernel does nothing unless the
-// cursor lies inside them.  The walk leaves the block by its top or its
-// left edge.
-__global__ void __launch_bounds__(32)
-replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
-                   int col_base, int rows, int* __restrict__ state,
-                   int* __restrict__ steps, int budget) {
-    const int lane = threadIdx.x;
-    int y = state[0] - row_base;  // 1-based row within the block
-    int x = state[1] - col_base;  // 1-based column within the block
-    int n = state[2];
-    if (y < 1 || y > rows || x < 1 || x > C_pad) return;
-    unsigned cur = unsigned(steps[n >> 4]);
-    // `budget` bounds the loop: a global interior holds no Beginning code,
-    // so every step moves the cursor and a real walk ends far below it
-    while (y > 0 && x > 0 && n < budget) {
-        const int g = (y - 1) >> 4;   // word row of the window
-        const int c0 = x - 32;        // 0-based column of lane 0's word
-        const int c = c0 + lane;
-        const int w = c >= 0 ? words[(long long)g * C_pad + c] : 0;
-        while (y > 0 && x > 0 && n < budget && ((y - 1) >> 4) == g && x - 1 >= c0) {
-            const int r = y - 1;
-            const int d = (__shfl_sync(FULL, w, x - 1 - c0) >> ((r & 15) * 2)) & 3;
-            const int sh = (n & 15) * 2;
-            cur = (cur & ~(3u << sh)) | (unsigned(d) << sh);
-            ++n;
-            if ((n & 15) == 0) {
-                if (lane == 0) steps[(n >> 4) - 1] = int(cur);
-                cur = 0xffffffffu;    // the next word starts Beginning-padded
-            }
-            if (d == TOP || d == DIAG) --y;
-            if (d == LEFT || d == DIAG) --x;
-        }
-    }
-    if (lane == 0) {
-        if ((n & 15) != 0 && n < budget) steps[n >> 4] = int(cur);
-        state[0] = row_base + y;
-        state[1] = col_base + x;
-        state[2] = n;
-    }
-}
-
-}  // namespace
 
 // Fill R_pad = n_tr * TR rows by C_pad = n_tc * 32 * K columns in one
 // launch of `blocks` blocks of `warps` warps; `hand` (C_pad,) 64-bit words
@@ -104,12 +56,28 @@ extern "C" int wavefront_row_scan_occupancy(int K, int dirs, int warps, int V, i
     return strip_occupancy<false>(K, dirs, warps, V, TR, blocks_per_sm);
 }
 
+// The replay walk over a block's words with a ring of walk::REPLAY_DEPTH
+// word rows of `span` columns, copied 16 bytes at a time where the words
+// allow it; `stats` null or three ints the walk adds its rows asked for, its
+// refills and its rounds to.  Returns the CUDA error of the launch (0 on
+// success) or -1 for an unsupported span.
 extern "C" int wavefront_replay_walk_launch(
     const void* words, long long C_pad, int row_base, int col_base, int rows,
-    void* state, void* steps, int budget, void* stream) {
+    void* state, void* steps, int budget, int span, void* stats, void* stream) {
     cudaGetLastError();
-    replay_walk_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    if (span < 4) return -1;
+    const bool vec = C_pad % 4 == 0 && span % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    const size_t smem = sizeof(int) * size_t(walk::ring_ints(walk::REPLAY_DEPTH, span));
+    auto kernel = vec ? replay_walk_kernel<4> : replay_walk_kernel<1>;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(words), C_pad, row_base, col_base, rows,
-        static_cast<int*>(state), static_cast<int*>(steps), budget);
+        static_cast<int*>(state), static_cast<int*>(steps), budget, span,
+        static_cast<int*>(stats));
     return static_cast<int>(cudaGetLastError());
 }

@@ -151,10 +151,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     bind_fill(lib)
     lib.device_walk_launch.argtypes = [
-        p, i64, p, p,  # words, words per problem, sy, sx
-        i32, i32, i32, i32,  # B, C, S, is_global
+        p, i32, i32, p, p,  # words, word rows, C, sy, sx
+        i32, i32, i32,  # B, S, is_global
         p, p, p, p,  # steps, n, ey, ex
-        i32, p,  # threads per block, stream
+        i32, i32, i32, p, p,  # warps a block, blocks, span, stats, stream
     ]
     lib.device_walk_launch.restype = i32
     lib.wavefront_row_scan_launch.argtypes = [
@@ -172,7 +172,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.wavefront_replay_walk_launch.argtypes = [
         p, i64, i32, i32, i32,  # words, C_pad, row_base, col_base, rows
-        p, p, i32, p,  # state, steps, step budget, stream
+        p, p, i32,  # state, steps, step budget
+        i32, p, p,  # span, stats, stream
     ]
     lib.wavefront_replay_walk_launch.restype = i32
     lib.wavefront_block_cs_launch.argtypes = [
@@ -206,16 +207,3 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
-
-def threads_for(batch: int, device) -> int:
-    """Threads per block for the one-thread-per-problem walk: the largest
-    of 128/64/32 that still gives every SM at least one block, so a small
-    batch (the p-value's 4,999 problems) spreads over all SMs instead of
-    piling onto a few."""
-    import torch
-
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for t in (128, 64):
-        if -(-batch // t) >= sms:
-            return t
-    return 32

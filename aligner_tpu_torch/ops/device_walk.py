@@ -16,6 +16,9 @@ in ``"local"`` mode there).
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -23,6 +26,60 @@ from . import _build
 
 TOP, LEFT, DIAG, BEG = 0, 1, 2, 3
 BLANK = np.int16(98)
+
+# the kernel's launch plan: one warp a problem, at most WALK_WARPS warps a
+# block, a ring of word rows of WALK_SPAN columns a warp (its WALK_DEPTH rows
+# are csrc/walk_core.cuh's; timed by ops/walk_probe.py on an H100: PERF.md,
+# Findings)
+WALK_WARPS = 4
+WALK_SPAN = 128
+
+
+@dataclass(frozen=True)
+class WalkPlan:
+    """The launch of one batched walk: ``blocks`` blocks of ``warps`` warps,
+    one warp a problem, each keeping word rows of ``span`` columns in shared
+    memory."""
+
+    warps: int
+    blocks: int
+    span: int
+
+
+def plan_walk(B: int, C: int, *, sms: int, warps: int | None = None,
+              span: int | None = None) -> WalkPlan:
+    """The plan for B problems of C columns on a card of ``sms`` SMs, from
+    at most ``warps`` warps a block and rows of ``span`` columns (by default
+    WALK_WARPS, WALK_SPAN): a staged row is at most as wide as the plane (C
+    rounded up to 4 columns), so a plane that narrow never refills; and the
+    warps a block halve, down to one, while the blocks would leave an SM
+    without one."""
+    warps = WALK_WARPS if warps is None else warps
+    span = WALK_SPAN if span is None else span
+    if B < 1 or C < 1 or sms < 1:
+        raise ValueError(f"B, C and sms must be positive, got {B}, {C}, {sms}")
+    if not 1 <= warps <= 8 or span < 4:
+        raise ValueError(f"1 <= warps <= 8 and span >= 4 expected, got {warps}, {span}")
+    span = min(span, _cdiv(C, 4) * 4)
+    while warps > 1 and _cdiv(B, warps) < sms:
+        warps //= 2
+    return WalkPlan(warps, _cdiv(B, warps), span)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def walk_plan(B: int, C: int, device) -> WalkPlan:
+    """:func:`plan_walk` for ``device``'s card."""
+    dev = torch.device(device)
+    return plan_walk(B, C, sms=_sms(dev.index if dev.index is not None
+                                    else torch.cuda.current_device()))
 
 
 class _Launches:
@@ -39,7 +96,7 @@ class _Launches:
 launches = _Launches()
 
 
-def walk(words, sy, sx, *, S: int, mode: str):
+def walk(words, sy, sx, *, S: int, mode: str, stats=None):
     """Walk B packed planes for ``S`` steps.
 
     ``words``: (B, R8/8, C) int32 problem-major packed directions (word
@@ -47,7 +104,11 @@ def walk(words, sy, sx, *, S: int, mode: str):
     int32 start cells.  Global borders are synthesised as Left/Top, local
     borders are Beginning.  Returns (steps (ceil(S/16), B) int32 — 16
     two-bit codes per word, Beginning-padded —, n, end_y, end_x).  CUDA
-    tensors launch the kernel; CPU tensors take :func:`walk_plain`.
+    tensors launch the kernel (plan :func:`walk_plan`); CPU tensors take
+    :func:`walk_plain`.  ``stats``: None, or an int32 (3,) tensor on the
+    card to which the kernel adds the word rows its walks asked for, the
+    rows they refilled and the rounds they walked (the plain version leaves
+    it as it is).
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
@@ -66,6 +127,9 @@ def walk(words, sy, sx, *, S: int, mode: str):
         raise ValueError("sy and sx must be (B,)")
     if S < 1:
         raise ValueError("S must be positive")
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int32
+                              or tuple(stats.shape) != (3,)):
+        raise ValueError("stats must be an int32 (3,) tensor on the words' device")
     if dev.type == "cpu":
         return walk_plain(words, sy, sx, S=S, mode=mode)
     if dev.type != "cuda":
@@ -78,10 +142,12 @@ def walk(words, sy, sx, *, S: int, mode: str):
         ex = torch.empty(B, dtype=torch.int32, device=dev)
         if B == 0:
             return steps, n, ey, ex
+        p = walk_plan(B, max(C, 1), dev)
         err = lib.device_walk_launch(
-            words.data_ptr(), words.shape[1] * C, sy.data_ptr(), sx.data_ptr(),
-            B, C, S, int(mode == "global"), steps.data_ptr(), n.data_ptr(),
-            ey.data_ptr(), ex.data_ptr(), _build.threads_for(B, dev),
+            words.data_ptr(), words.shape[1], C, sy.data_ptr(), sx.data_ptr(),
+            B, S, int(mode == "global"), steps.data_ptr(), n.data_ptr(),
+            ey.data_ptr(), ex.data_ptr(), p.warps, p.blocks, p.span,
+            None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "device_walk")

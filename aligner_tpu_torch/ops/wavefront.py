@@ -90,6 +90,10 @@ TILE_ROWS = 128
 FORWARD_TILE_ROWS = 256
 COLS_PER_THREAD = 8
 TB_ROWS = 32768
+# the replay walk's ring (csrc/walk_core.cuh): its REPLAY_DEPTH word rows of
+# REPLAY_SPAN columns staged ahead of the cursor (timed by ops/walk_probe.py
+# on an H100: PERF.md, Findings)
+REPLAY_SPAN = 256
 # warps a block of the strip walk (they share the matrix in shared memory);
 # the kernel's launch bounds allow STRIP_MAX_WARPS
 STRIP_WARPS = 4
@@ -576,7 +580,8 @@ def new_walk(R_real: int, C_real: int, n_steps: int, device):
     return state, steps
 
 
-def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0) -> None:
+def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0,
+                stats=None) -> None:
     """Walk one replayed block, **in place**: ``state`` and ``steps`` (from
     :func:`new_walk`) are updated where they lie.
 
@@ -588,7 +593,12 @@ def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0) -> Non
     (cx == ``col_base``: the left border of the plane for a block that
     starts at column 0); a cursor outside the block's rows or columns, or
     already on one of those edges, is left as it is.  CUDA tensors launch
-    the kernel; CPU tensors take :func:`replay_walk_plain`.
+    the kernel, one warp that keeps word rows of REPLAY_SPAN columns staged
+    ahead of the cursor; CPU tensors take
+    :func:`replay_walk_plain`.
+    ``stats``: None, or an int32 (3,) tensor on the card to which the kernel
+    adds the word rows it asked for, the rows it refilled and the rounds it
+    walked (the plain version leaves it as it is).
     """
     dev = words.device
     for name, a in (("words", words), ("state", state), ("steps", steps)):
@@ -600,6 +610,9 @@ def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0) -> Non
             raise ValueError(f"{name} must be contiguous")
     if words.dim() != 2 or tuple(state.shape) != (3,) or steps.dim() != 1:
         raise ValueError("words (rows/16, C_pad), state (3,), steps (W,) expected")
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int32
+                              or tuple(stats.shape) != (3,)):
+        raise ValueError("stats must be an int32 (3,) tensor on the words' device")
     if dev.type == "cpu":
         return replay_walk_plain(words, state, steps, row_base=row_base,
                                  col_base=col_base)
@@ -610,7 +623,9 @@ def replay_walk(words, state, steps, *, row_base: int, col_base: int = 0) -> Non
         err = lib.wavefront_replay_walk_launch(
             words.data_ptr(), words.shape[1], int(row_base), int(col_base),
             words.shape[0] * ROWS_PER_WORD, state.data_ptr(), steps.data_ptr(),
-            steps.numel() * 16, torch.cuda.current_stream(dev).cuda_stream,
+            steps.numel() * 16, REPLAY_SPAN,
+            None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "wavefront_replay_walk")
         launches.replay_walk += 1

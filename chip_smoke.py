@@ -17,11 +17,16 @@ against the native C++ host engine or the frozen golden fixtures:
    the replay walk on ragged shapes, the band fill on band and chunk seams,
    with a streamed left boundary and at full width, the column-block fill
    on every block of ragged grids and the replay walk with a column base
-   on every tile a walk crosses, real cells only), and
+   on every tile a walk crosses, real cells only, both walks on words whose
+   paths run past the staged span and refill), and
    each kernel's time beside its plain version's and its bound at the
    shapes the main path gives it, the batched fill's launch plan beside
    each of its rows (threads a block, rows of the column on chip, shared
-   memory, ns a cell per problem), the fill on every length bucket of the
+   memory, ns a cell per problem), the walks' plans beside theirs (the
+   ring's span, warps a block, ns a step, rows asked for and refills; a
+   walk's time queued behind a busy kernel, so the host's launch time does
+   not count, where the other kernels are timed back to back), the fill on
+   every length bucket of the
    100k search and held whole on the tallest (its columns partly off chip), the
    repeat scan's chunk size timed at 8,192 and 65,536 windows, the row-scan's tile and replay-block
    sizes and the band walk's rows a lane, read-ahead and band sizes swept at
@@ -572,6 +577,50 @@ def phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine):
     return n
 
 
+def pack_codes(codes, rows_per_word):
+    """(..., R, C) 2-bit codes -> (..., R/rows_per_word, C) int32 words, row r
+    at bit 2 * (r % rows_per_word)."""
+    *lead, R, C = codes.shape
+    c = codes.astype(np.int64).reshape(*lead, R // rows_per_word, rows_per_word, C)
+    w = (c << (2 * np.arange(rows_per_word))[:, None]).sum(-2) & 0xFFFFFFFF
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+def walks_that_refill(dev, wf, device_walk) -> int:
+    """Both walks on words whose paths run left past the staged span again
+    and again (a near-diagonal path with LEFT runs of 600 columns every 16
+    rows for W, planes of 3,000 columns whose rows are LEFT past column 50
+    for K4): each held equal to its plain version, each refilling."""
+    rng = np.random.default_rng(SEED + 9)
+    R, C = 1024, 16_384
+    codes = rng.choice([2, 0, 1], size=(R, C), p=[0.9, 0.05, 0.05])
+    for y in range(5, R, 16):
+        codes[y, np.arange(C) % 1000 < 600] = 1
+    words = pack_codes(codes, 16).to(dev)
+    start = wf.new_walk(R, C, R + C + 1, dev)
+    got = start[0].clone(), start[1].clone()
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    wf.replay_walk(words, *got, row_base=0, stats=stats)
+    wf.replay_walk_plain(words, *start, row_base=0)
+    check(same_walk(got, start), "replay_walk != plain on a walk that refills")
+    check(int(stats[1]) > 0, f"the replay walk that should refill did not ({stats.tolist()})")
+    B = 64
+    codes = rng.choice([2, 0, 1], size=(B, 16, 3000), p=[0.8, 0.1, 0.1])
+    codes[:, :, 50:] = 1
+    words = pack_codes(codes, 8).to(dev)
+    sy = torch.as_tensor(rng.integers(1, 17, B), dtype=torch.int32, device=dev)
+    sx = torch.full((B,), 3000, dtype=torch.int32, device=dev)
+    stats.zero_()
+    for mode in ("local", "global"):
+        got = device_walk.walk(words, sy, sx, S=3017, mode=mode, stats=stats)
+        want = device_walk.walk_plain(words, sy, sx, S=3017, mode=mode)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"device_walk != plain on walks that refill ({mode})")
+    check(int(stats[1]) > 0, f"the batched walks that should refill did not "
+                             f"({stats.tolist()})")
+    return 3
+
+
 def shuffles_for_p_value(at, q, t, n_sequences):
     """The exact shuffles ``calculate_p_value`` draws with this seed."""
     rng = np.random.default_rng(SEED)
@@ -636,6 +685,61 @@ def strip_line(wf, dev, block, rows, width, dirs, ms, tr=None, k=None, ck=0) -> 
             f"{ms * 1e6 / p.critical_steps:.1f} ns a step")
 
 
+def walk_plan_line(device_walk, dev, words, wk, ms, stats) -> str:
+    """The batched walk's launch plan for one call, the ns a step of its
+    longest walk (the walks run side by side), and its rows asked for and
+    refilled."""
+    B, _, C = words.shape
+    p = device_walk.walk_plan(B, C, dev)
+    longest = int(wk[1].max())
+    return (f"one warp a problem, {p.blocks} blocks of {p.warps} warps, each warp's "
+            f"ring of word rows {p.span} columns wide; longest walk {longest} "
+            f"steps, {ms * 1e6 / max(longest, 1):.1f} ns a step of it; {stats[0]} rows "
+            f"asked for, {stats[1]} refills, {stats[2]} rounds in all")
+
+
+def replay_plan_line(wf, ms, n_steps, stats) -> str:
+    """The replay walk's shape for one call (one warp, one launch), the ns a
+    step of it, and its rows asked for and refilled."""
+    return (f"one warp, one launch a call, its ring of word rows {wf.REPLAY_SPAN} "
+            f"columns wide; {n_steps} steps, {ms * 1e6 / max(n_steps, 1):.1f} ns "
+            f"a step; {stats[0]} rows asked for, {stats[1]} refills, {stats[2]} rounds "
+            f"({ms * 1e6 / max(stats[2], 1):.1f} ns a round)")
+
+
+def timed_replay(wf, words, start, **kw):
+    """The replay walk from copies of ``start`` (state, steps) on the card,
+    timed queued (the copies are device-to-device); returns the walk's
+    (state, steps), its ms and its (rows asked for, refills)."""
+    from aligner_tpu_torch.ops.walk_probe import queued_ms
+
+    def run(stats=None):
+        st = start[0].clone(), start[1].clone()
+        wf.replay_walk(words, *st, stats=stats, **kw)
+        return st
+
+    ms = queued_ms(run, 5)
+    stats = torch.zeros(3, dtype=torch.int32, device=words.device)
+    got = run(stats)
+    torch.cuda.synchronize()
+    return got, ms, stats.tolist()
+
+
+def timed_walk(device_walk, words, sy, sx, S, dev):
+    """K4 on the card, timed queued, with its rows asked for and refills;
+    then its plain version, timed once."""
+    from aligner_tpu_torch.ops.walk_probe import queued_ms
+
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    ms = queued_ms(lambda: device_walk.walk(words, sy, sx, S=S, mode="local"), 20)
+    got = device_walk.walk(words, sy, sx, S=S, mode="local", stats=stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = device_walk.walk_plain(words, sy, sx, S=S, mode="local")
+    torch.cuda.synchronize()
+    return got, ms, want, (time.perf_counter() - t0) * 1e3, stats.tolist()
+
+
 def walk_bound(sy, sx, wk) -> dict:
     """Bound of one batched walk from the steps this run's data took: a
     4-byte word read per step, the packed streams and the end cells
@@ -693,16 +797,15 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
                                   OPS_FILL_DIRS, args, m, got)))
 
     S = tt.shape[1] + qq.shape[1] + 1
-    wk, ms, wp, plain_ms = timed_pair(
-        lambda: device_walk.walk(got.words, got.fy, got.fx, S=S, mode="local"),
-        lambda: device_walk.walk_plain(got.words, got.fy, got.fx, S=S, mode="local"), 5)
+    wk, ms, wp, plain_ms, stats = timed_walk(device_walk, got.words, got.fy, got.fx, S, dev)
     check(all(torch.equal(a, b) for a, b in zip(wk, wp)),
           "device_walk != plain at the full-mode shape")
     rows.append(dict(name="device_walk (full-mode batch)", route="cuda",
-                     source="aligner_tpu_torch/csrc/device_walk.cu",
+                     source="aligner_tpu_torch/csrc/walk_core.cuh",
                      replaces=REPLACES["device_walk"], path="pair", counter="walk",
                      max_abs_err=max(max_abs_err(a, b) for a, b in zip(wk, wp)),
                      ms=ms, plain_ms=plain_ms, shape=f"{N_FULL}x{S} steps",
+                     plan=walk_plan_line(device_walk, dev, got.words, wk, ms, stats),
                      **walk_bound(got.fy, got.fx, wk)))
     rows.append(search_buckets(dev, at, dp_fill, scan_engine, q, m))
     print_rows(rows)
@@ -843,16 +946,15 @@ def phase_pwm_timing(dev, at, dp_fill, device_walk, scan_engine, repeat, seq):
                      **fill_bound(N_SURVIVORS * win * PWM_W, OPS_FILL_DIRS, (qs, qls),
                                   pwm64, got)))
     S = win + PWM_W + 1
-    wk, ms, wp, plain_ms = timed_pair(
-        lambda: device_walk.walk(got.words, got.fy, got.fx, S=S, mode="local"),
-        lambda: device_walk.walk_plain(got.words, got.fy, got.fx, S=S, mode="local"), 5)
+    wk, ms, wp, plain_ms, stats = timed_walk(device_walk, got.words, got.fy, got.fx, S, dev)
     check(all(torch.equal(a, b) for a, b in zip(wk, wp)),
           "device_walk != plain at the survivor shape")
     rows.append(dict(name="device_walk (PWM survivors)", route="cuda",
-                     source="aligner_tpu_torch/csrc/device_walk.cu",
+                     source="aligner_tpu_torch/csrc/walk_core.cuh",
                      replaces=REPLACES["device_walk"], path="pwm", counter="walk",
                      max_abs_err=max(max_abs_err(a, b) for a, b in zip(wk, wp)),
                      ms=ms, plain_ms=plain_ms, shape=f"{N_SURVIVORS}x{S} steps",
+                     plan=walk_plan_line(device_walk, dev, got.words, wk, ms, stats),
                      **walk_bound(got.fy, got.fx, wk)))
     print_rows(rows)
     for line in lines:
@@ -1341,12 +1443,8 @@ def phase_wavefront_timing(dev, at, wf):
                  f"{launched(before) / 5:g} kernel launches a call; "
                  f"{strip_line(wf, dev, False, TB, C_pad, True, ms_blk)}")
 
-    def walk_last(fn):
-        st = wf.new_walk(R, C, td.numel() + C_pad + 1, dev)
-        fn(blk[1], *st, row_base=j_last * TB)
-        return st
-
-    ms_walk = gpu_ms(lambda: walk_last(wf.replay_walk), 5)
+    got, ms_walk, walk_stats = timed_replay(
+        wf, blk[1], wf.new_walk(R, C, td.numel() + C_pad + 1, dev), row_base=j_last * TB)
     state_p, steps_p = wf.new_walk(R, C, td.numel() + C_pad + 1, dev)
     for j in range(j_last, -1, -1):
         args = (qd, td[j * TB:(j + 1) * TB], m, 11, 2, fwd_p[2][j - 1] if j else None,
@@ -1361,7 +1459,6 @@ def phase_wavefront_timing(dev, at, wf):
         if j == j_last:
             check(same_scan(blk, blk_p, C, R - j * TB),
                   "row_scan != plain (directions, the pair's last block)")
-            got = walk_last(wf.replay_walk)
             check(same_walk(got, (state_p, steps_p)),
                   "replay_walk != plain on the pair's last block")
             n_steps = int(got[0][2])
@@ -1375,11 +1472,12 @@ def phase_wavefront_timing(dev, at, wf):
                         nbytes(qd, td[:TB], m, fwd[2][0], blk[0], blk[1]))))
             rows.append(dict(
                 name="wavefront_replay_walk (one replay block)", route="cuda",
-                source="aligner_tpu_torch/csrc/wavefront.cu",
+                source="aligner_tpu_torch/csrc/walk_core.cuh",
                 replaces=REPLACES["replay_walk"], path="huge", counter="replay_walk",
                 max_abs_err=max(max_abs_err(a, b) for a, b in
                                 zip(got, (state_p, steps_p))),
                 ms=ms_walk, plain_ms=(t2 - t1) * 1e3, shape=f"{n_steps} steps",
+                plan=replay_plan_line(wf, ms_walk, n_steps, walk_stats),
                 # a word read and 2 bits written per step, the cursor both ways
                 **bound(OPS_WALK_STEP * n_steps, 4 * n_steps + n_steps // 4 + 24)))
     print_rows(rows)
@@ -1551,24 +1649,22 @@ def phase_block_timing(dev, at, wf, sp):
     # the walk over that tile, from the pair's end cell
     size = pp["R_pad"] + pp["C_pad"] + 1
 
-    def walk_tile(fn):
-        st = wf.new_walk(BLOCKED_LEN, BLOCKED_LEN, size, dev)
-        fn(words, *st, row_base=tile[6], col_base=tile[5])
-        return st
-
-    ms_walk = gpu_ms(lambda: walk_tile(wf.replay_walk), 3)
-    got = walk_tile(wf.replay_walk)
+    start = wf.new_walk(BLOCKED_LEN, BLOCKED_LEN, size, dev)
+    got, ms_walk, walk_stats = timed_replay(wf, words, start, row_base=tile[6],
+                                            col_base=tile[5])
+    want = start[0].clone(), start[1].clone()
     t0 = time.perf_counter()
-    want = walk_tile(wf.replay_walk_plain)
+    wf.replay_walk_plain(words, *want, row_base=tile[6], col_base=tile[5])
     plain_walk_ms = (time.perf_counter() - t0) * 1e3
     check(same_walk(got, want), "replay_walk != plain on the column-blocked path's tile")
     n_steps = int(got[0][2])
     rows.append(dict(
         name=f"wavefront_replay_walk (one replay tile, column base {tile[5]})",
-        route="cuda", source="aligner_tpu_torch/csrc/wavefront.cu",
+        route="cuda", source="aligner_tpu_torch/csrc/walk_core.cuh",
         replaces=REPLACES["replay_walk"], path="column_blocked", counter="replay_walk",
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)), ms=ms_walk,
         plain_ms=plain_walk_ms, shape=f"{n_steps} steps",
+        plan=replay_plan_line(wf, ms_walk, n_steps, walk_stats),
         **bound(OPS_WALK_STEP * n_steps, 4 * n_steps + n_steps // 4 + 24)))
     del words, got, want, tile, lb_hist, ckpts, pp
 
@@ -2078,6 +2174,7 @@ def main() -> int:
         n += wavefront_vs_plain(dev, at, wf)
         n += band_vs_plain(dev, at, host, wf)
         n += block_cs_vs_plain(dev, at, wf, sp)
+        n += walks_that_refill(dev, wf, device_walk)
         print(f"  {n} variants bit-identical", flush=True)
 
     here = os.path.dirname(os.path.abspath(__file__))

@@ -20,6 +20,7 @@ import torch
 from aligner_tpu_torch.matrices import blosum62
 from aligner_tpu_torch.ops import device_walk, dp_fill, wavefront
 from aligner_tpu_torch.ops.scan_engine import fill_batch, fill_pwm_batch
+from test_torch_walk_host import pack
 
 torch.set_num_threads(1)
 
@@ -773,3 +774,135 @@ def test_column_blocked_pair_on_the_card(dev):
     pp1 = wavefront._prep(q, t, m, 11, 2, dev)
     _, _, ck1 = wavefront._scan(pp1, pp["t_dev"], None, 0, with_dirs=False, ckpt_every=1024)
     assert torch.equal(ckpts[:, :n], ck1[:, :n])
+
+
+# the walker core of both walks (csrc/walk_core.cuh) on raw codes: the cases
+# of tests/test_torch_walk_host.py on the card, the paths' sizes, and walks
+# forced through many refills
+
+
+def _diagonal(rng, shape, p_diag=0.8):
+    return rng.choice([2, 0, 1], size=shape, p=[p_diag, (1 - p_diag) / 2, (1 - p_diag) / 2])
+
+
+def _replay_both(dev, words, state, steps, row_base, col_base=0, span=None,
+                 monkeypatch=None):
+    """The kernel on the card (a ring of rows of `span` columns when given)
+    and the plain version on the host, from copies of one cursor and stream;
+    returns the kernel's state and stats."""
+    if span is not None:
+        monkeypatch.setattr(wavefront, "REPLAY_SPAN", span)
+    got = state.to(dev), steps.to(dev)
+    want = state.clone(), steps.clone()
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    wavefront.replay_walk(words.to(dev), *got, row_base=row_base, col_base=col_base,
+                          stats=stats)
+    torch.cuda.synchronize()
+    wavefront.replay_walk_plain(words, *want, row_base=row_base, col_base=col_base)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    return got[0].cpu().tolist(), stats.cpu().tolist()
+
+
+def _codes_case(name, rng):
+    """(codes, cy, cx, n0, stream words, span) of a named W case."""
+    if name == "diagonal":
+        return _diagonal(rng, (320, 400)), 320, 400, 0, 46, 512
+    if name == "top-run":
+        c = np.full((128, 64), 2)
+        c[40:110, 50] = 0
+        return c, 110, 51, 0, 13, 32
+    if name == "left-run":
+        c = np.full((64, 512), 2)
+        c[37, 100:400] = 1
+        return c, 38, 400, 0, 37, 32
+    if name == "budget":
+        return _diagonal(rng, (160, 160)), 160, 160, 5, 3, 64
+    if name == "beginning":
+        c = np.full((48, 64), 2)
+        c[30, 40] = 3
+        return c, 40, 50, 0, 7, 32
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["diagonal", "top-run", "left-run", "budget", "beginning"])
+def test_replay_walk_kernel_on_raw_codes(dev, monkeypatch, name):
+    rng = np.random.default_rng(len(name))
+    codes, cy, cx, n0, n_words, span = _codes_case(name, rng)
+    state = torch.tensor([cy, cx, n0], dtype=torch.int32)
+    # a stream from new_walk, its first word holding codes of an earlier block
+    steps = torch.full((n_words,), -1, dtype=torch.int32)
+    steps[0] = int(rng.integers(-2**31, 2**31))
+    st, stats = _replay_both(dev, pack(codes, 16), state, steps, 0, span=span,
+                             monkeypatch=monkeypatch)
+    if name == "left-run":
+        assert stats[1] >= 9 and st[:2] == [0, 62]
+
+
+@pytest.mark.parametrize("span", [32, 64, 512, 4096])
+def test_replay_walk_kernel_at_a_paths_width(dev, monkeypatch, span):
+    """4,096 rows by 8,192 columns at a column base, a near-diagonal path:
+    spans that refill and that do not, and a ring that needs the opt-in
+    shared memory (rows of 4,096 columns, 64 KiB)."""
+    rng = np.random.default_rng(span)
+    R, C, col_base = 4096, 8192, 393_216
+    words = pack(_diagonal(rng, (R, C), 0.75), 16)
+    state = torch.tensor([R, col_base + C - 100, 0], dtype=torch.int32)
+    steps = torch.full((-(-(R + C + 1) // 16),), -1, dtype=torch.int32)
+    st, stats = _replay_both(dev, words, state, steps, 0, col_base, span=span,
+                             monkeypatch=monkeypatch)
+    assert st[0] == 0 or st[1] == col_base
+    assert stats[0] >= (R - st[0]) // 16
+
+
+def test_replay_walk_kernel_through_many_refills(dev, monkeypatch):
+    """LEFT runs of 200 columns every 16 rows under a 32-column span."""
+    rng = np.random.default_rng(31)
+    R, C = 512, 8192
+    codes = _diagonal(rng, (R, C), 0.9)
+    for y in range(5, R, 16):
+        codes[y, :] = np.where(np.arange(C) % 300 < 200, 1, codes[y, :])
+    state = torch.tensor([R, C, 0], dtype=torch.int32)
+    steps = torch.full((-(-(R + C + 1) // 16),), -1, dtype=torch.int32)
+    st, stats = _replay_both(dev, pack(codes, 16), state, steps, 0, span=32,
+                             monkeypatch=monkeypatch)
+    assert stats[1] >= 20
+
+
+def _walk_both(dev, words, sy, sx, S, mode, monkeypatch, span):
+    monkeypatch.setattr(device_walk, "WALK_SPAN", span)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    got = device_walk.walk(words.to(dev), sy.to(dev), sx.to(dev), S=S, mode=mode,
+                           stats=stats)
+    torch.cuda.synchronize()
+    want = device_walk.walk_plain(words, sy, sx, S=S, mode=mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    return stats.cpu().tolist()
+
+
+@pytest.mark.parametrize("span", [16, 128])
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("B,R8,C", [(53, 48, 70), (1024, 48, 400), (7, 16, 3000)],
+                         ids=["odd-starts", "many", "refills"])
+def test_walk_kernel_on_raw_codes(dev, monkeypatch, mode, B, R8, C, span):
+    """Any codes (Beginning too, rarely), starts on the borders, inside and
+    off the plane (the index clip), B not a multiple of the warps, S not a
+    multiple of 16; a thousand problems; planes wider than the span with
+    long LEFT runs (refills); rows of 16 columns, which refill on every
+    plane, and of 128 (C = 70 copies 4 bytes at a time, the others 16).
+    The paths' own shapes are chip_smoke.py's."""
+    rng = np.random.default_rng(B + C)
+    codes = rng.choice([0, 1, 2, 3], size=(B, R8, C), p=[0.1, 0.1, 0.799, 0.001])
+    if C > 1000:
+        codes[:, :, 50:] = 1
+    words = pack(codes, 8)
+    sy = rng.integers(1, R8 + 1, B).astype(np.int32)
+    sx = rng.integers(1, C + 1, B).astype(np.int32)
+    if B > 10:
+        sy[:9] = [0, 0, 0, 30, R8 + 3, R8 + 9, 20, R8 + 1, -1]
+        sx[:9] = [0, 25, 1, 0, 30, C + 5, C + 17, C + 1, 5]
+    S = R8 + C + 1 + (3 if C < 100 else 0)
+    stats = _walk_both(dev, words, torch.from_numpy(sy), torch.from_numpy(sx), S, mode,
+                       monkeypatch, span)
+    if C > 1000:
+        assert stats[1] >= B * 10

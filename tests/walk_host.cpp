@@ -1,0 +1,46 @@
+// A host build of the two traceback walks (aligner_tpu_torch/csrc/walk_core.cuh:
+// the replay walk W and the batched walk K4) for the CPU tests, on the warp
+// emulation of tests/warp_host.h: every lane a std::thread, the warp
+// intrinsics emulated, a lane's cp.async copies landing only at its wait.
+// So the kernels' own bodies (the ring of staged word rows, the refills,
+// the register window, the runs of TOP codes and the packed stream) run as
+// written, and their results are held against the plain PyTorch versions.
+//
+//     g++ -std=c++20 -O1 -pthread -shared -fPIC -I aligner_tpu_torch/csrc \
+//         -o walk_host.so tests/walk_host.cpp
+#include "warp_host.h"
+
+#include "walk_core.cuh"
+
+#include <cstdint>
+
+// The arguments of wavefront_replay_walk_launch, without the stream.
+extern "C" int replay_walk_host(const int* words, long long C_pad, int row_base,
+                                int col_base, int rows, int* state, int* steps, int budget,
+                                int span, int* stats) {
+    if (span < 4) return -1;
+    const bool vec = C_pad % 4 == 0 && span % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    auto kernel = vec ? replay_walk_kernel<4> : replay_walk_kernel<1>;
+    run_grid(1, 1, size_t(walk::ring_ints(walk::REPLAY_DEPTH, span)), [&] {
+        kernel(words, C_pad, row_base, col_base, rows, state, steps, budget, span, stats);
+    });
+    return 0;
+}
+
+// The arguments of device_walk_launch, without the stream; the blocks run
+// two at a time.
+extern "C" int device_walk_host(const int* words, int word_rows, int C, const int* sy,
+                                const int* sx, int B, int S, int is_global, int* steps,
+                                int* n, int* ey, int* ex, int warps, int blocks, int span,
+                                int* stats) {
+    if (warps < 1 || warps > 8 || span < 4 || (long long)blocks * warps < B) return -1;
+    const bool vec = C % 4 == 0 && span % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    auto kernel = is_global ? (vec ? device_walk_kernel<true, 4> : device_walk_kernel<true, 1>)
+                            : (vec ? device_walk_kernel<false, 4> : device_walk_kernel<false, 1>);
+    run_grid(warps, blocks, size_t(warps) * walk::ring_ints(walk::WALK_DEPTH, span), [&] {
+        kernel(words, word_rows, C, sy, sx, B, S, span, steps, n, ey, ex, stats);
+    }, 2);
+    return 0;
+}

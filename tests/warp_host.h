@@ -1,23 +1,29 @@
-// The warp emulation shared by the host builds of the fills' bodies
-// (tests/strip_walk_host.cpp, tests/band_walk_host.cpp): every lane is a
+// The warp emulation shared by the host builds of the kernels' bodies
+// (tests/strip_walk_host.cpp, tests/band_walk_host.cpp,
+// tests/walk_host.cpp): every lane is a
 // std::thread, each warp's shuffles, votes and __syncwarp are exchanges
 // through a std::barrier of its 32 lanes, the block's shared memory is a
 // vector and its __syncthreads a barrier of its threads, the ticket and the
 // tagged words of a row handed down are std::atomic_ref accesses with the
-// kernels' memory orders, and a wait's clock ticks every 16 ns.
+// kernels' memory orders, a wait's clock ticks every 16 ns, and a lane's
+// cp.async copies land only when its cp.async.wait_group lets their group
+// complete (so a read of a slot before its wait sees the old words).
 // Include it before the kernel's source; run_grid starts a grid's threads.
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <chrono>
+#include <cstdint>
 #include <cstdlib>
+#include <deque>
 #include <memory>
 #include <thread>
 #include <vector>
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(n)
 
@@ -61,6 +67,15 @@ inline int __all_sync(unsigned, int pred) {
     __syncwarp();
     return all;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+    warp_ctx->slot[lane_id()] = pred != 0;
+    __syncwarp();
+    unsigned bits = 0;
+    for (int l = 0; l < 32; ++l) bits |= unsigned(warp_ctx->slot[l]) << l;
+    __syncwarp();
+    return bits;
+}
+inline int __ffs(int v) { return __builtin_ffs(v); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline unsigned long long load_relaxed(const unsigned long long* p) {
     return std::atomic_ref<unsigned long long>(*const_cast<unsigned long long*>(p))
@@ -81,16 +96,53 @@ inline long long clock64() {
 }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 [[noreturn]] inline void __trap() { std::abort(); }
+inline int __clz(int v) { return v ? __builtin_clz(unsigned(v)) : 32; }
+// the low word of (hi:lo) >> (n & 31), and of (hi:lo) >> min(n, 32)
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned n) {
+    return unsigned((((unsigned long long)hi << 32) | lo) >> (n & 31));
+}
+inline unsigned __funnelshift_rc(unsigned lo, unsigned hi, unsigned n) {
+    return unsigned((((unsigned long long)hi << 32) | lo) >> (n < 32 ? n : 32));
+}
 using std::max;
+using std::min;
 
-// Run body() as every lane of `blocks` blocks of `warps` warps, each block
-// with `smem_ints` ints of shared memory, and wait for all of them.
+// cp.async: a lane's copies wait in its groups, committed in order, and
+// land when cp_async_wait<N> leaves at most N groups pending.
+struct CopyGroups {
+    std::vector<std::pair<int*, const int*>> open;
+    std::deque<std::vector<std::pair<int*, const int*>>> pending;
+};
+thread_local CopyGroups copy_groups;
+inline void cp_async4(int* dst, const int* src) { copy_groups.open.emplace_back(dst, src); }
+inline void cp_async16(int* dst, const int* src) {
+    for (int i = 0; i < 4; ++i) cp_async4(dst + i, src + i);
+}
+inline void cp_async_commit() {
+    copy_groups.pending.push_back(std::move(copy_groups.open));
+    copy_groups.open.clear();
+}
+// shared-memory addresses are plain addresses here
+using saddr_t = uintptr_t;
+inline saddr_t smem_addr(const int* p) { return reinterpret_cast<saddr_t>(p); }
+inline int lds(saddr_t a) { return *reinterpret_cast<const int*>(a); }
+inline void sts(saddr_t a, int v) { *reinterpret_cast<int*>(a) = v; }
+template <int N>
+inline void cp_async_wait() {
+    while (copy_groups.pending.size() > size_t(N)) {
+        for (auto [dst, src] : copy_groups.pending.front()) *dst = *src;
+        copy_groups.pending.pop_front();
+    }
+}
+
+// Run body() as every lane of blocks first .. first + count - 1 of a grid
+// of `grid` blocks of `warps` warps, and wait for all of them.
 template <typename Body>
-void run_grid(int warps, int blocks, size_t smem_ints, Body body) {
+void run_blocks(int warps, int first, int count, int grid, size_t smem_ints, Body body) {
     std::vector<std::unique_ptr<BlockCtx>> bl;
     std::vector<std::unique_ptr<WarpCtx>> wp;
     std::vector<std::thread> th;
-    for (int b = 0; b < blocks; ++b) {
+    for (int b = first; b < first + count; ++b) {
         bl.push_back(std::make_unique<BlockCtx>(32 * warps, smem_ints));
         for (int w = 0; w < warps; ++w) {
             wp.push_back(std::make_unique<WarpCtx>());
@@ -101,7 +153,7 @@ void run_grid(int warps, int blocks, size_t smem_ints, Body body) {
                     threadIdx.x = unsigned(32 * w + l);
                     blockIdx.x = unsigned(b);
                     blockDim.x = unsigned(32 * warps);
-                    gridDim.x = unsigned(blocks);
+                    gridDim.x = unsigned(grid);
                     warp_ctx = wc;
                     block_ctx = bc;
                     body();
@@ -109,4 +161,17 @@ void run_grid(int warps, int blocks, size_t smem_ints, Body body) {
         }
     }
     for (auto& t : th) t.join();
+}
+
+// Run body() as every lane of `blocks` blocks of `warps` warps, each block
+// with `smem_ints` ints of shared memory, and wait for all of them; `wave`
+// blocks at a time when given (blocks that never wait on one another).
+template <typename Body>
+void run_grid(int warps, int blocks, size_t smem_ints, Body body, int wave = 0) {
+    if (wave > 0 && wave < blocks) {
+        for (int b0 = 0; b0 < blocks; b0 += wave)
+            run_blocks(warps, b0, min(wave, blocks - b0), blocks, smem_ints, body);
+    } else {
+        run_blocks(warps, 0, blocks, blocks, smem_ints, body);
+    }
 }
