@@ -11,7 +11,9 @@ single pairs (:func:`align_global`, :func:`align_local`), a huge global
 pair on the row-scan fill with checkpoint-and-replay traceback; and the
 scores of one pair without a traceback (:func:`global_end_score` on the
 band fill, :func:`local_max_score`); and a global pair wider than one plane
-on the column-blocked pipeline (:mod:`.parallel`, the column-block fill).
+on the column-blocked pipeline (:mod:`.parallel`, the column-block fill);
+and the heuristic aligners, pairwise (:func:`heuristic_align`) and a whole
+population of starting matrices on the card (:func:`heuristic_align_population`).
 
 ``device=None`` means the CUDA card everywhere and raises
 :class:`DeviceUnavailable` without one; ``device="cpu"`` asks for the
@@ -49,7 +51,15 @@ from .align import (
     global_end_score,
     local_max_score,
 )
-from .heuristic import HeuristicPWMAligner, Heuristics, heuristic_align_pwm
+from .heuristic import (
+    HeuristicAligner,
+    HeuristicPWMAligner,
+    Heuristics,
+    heuristic_align,
+    heuristic_align_population,
+    heuristic_align_pwm,
+    warmup_population,
+)
 from . import parallel, repeat  # noqa: E402
 from .parallel import sharded_global_align, sharded_global_end_score
 from .search import SearchHit, search_database
@@ -81,6 +91,10 @@ __all__ = [
     "batch_align_pwm",
     "PWMAligner",
     "Heuristics",
+    "HeuristicAligner",
+    "heuristic_align",
+    "heuristic_align_population",
+    "warmup_population",
     "heuristic_align_pwm",
     "HeuristicPWMAligner",
     "SearchHit",

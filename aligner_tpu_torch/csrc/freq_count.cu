@@ -1,0 +1,126 @@
+// The heuristic population's frequency count: (target char, query char)
+// pairs of M alignments from their packed step streams.
+//
+// Replaces: the step unpack and frequency scatter-add of
+// aligner_tpu/heuristic.py:207-242 (jnp inside the JAX package's fused
+// population loop, next to the walk _walk_device; not Pallas).  Its plain
+// version is ops/freq_count.py:count_pairs_plain.
+//
+// What it computes: member m's walk (ops/device_walk.py) left a stream of
+// n[m] two-bit codes, 16 a word, word w at steps[w * M + m] (step-major),
+// taken from the start cell (sy[m], sx[m]): TOP moves the cursor up, LEFT
+// left, DIAG both.  On each DIAG step the pair at the cursor before the
+// step, t[y - 1] and q[x - 1] (clipped to the codes), adds one to
+// counts[m][t][q]; the seeded argmax pair t[sy - 1], q[sx - 1] adds one
+// where the member is alive and sy > 0 and sx > 0.
+//
+// What bounds it on the H100: nothing of the card's rates.  The bytes are
+// a few kilobytes a member (its words, the codes it visits, V * V counts
+// out) and the work a few operations a step; a population of 64 members of
+// 689 steps is microseconds of either, so the launch's own latency is its
+// time.  The design keeps it one launch and short:
+//   * one warp a member, its (V, V) counts in shared memory (2.3 KB at
+//     V = 24), blocks of 4 warps; nothing is shared across warps;
+//   * a round reads 32 consecutive words of the member, one a lane; each
+//     lane unpacks its 16 codes and counts its moves up and left; a warp
+//     scan by __shfl_up_sync gives each lane its cursor at its first code
+//     (the round's start minus the moves of the lanes before it); each lane
+//     then replays its codes and adds its DIAG pairs with shared-memory
+//     atomics; the round's totals carry to the next round, and the rounds
+//     stop at n;
+//   * lane 0 adds the seed pair, and the warp writes its counts out.
+//
+// The CUDA-only parts (the launch) sit under __CUDACC__; a host build of
+// the kernel's body (tests/freq_count_host.cpp) supplies the warp
+// intrinsics.
+#include "handoff.cuh"
+
+namespace {
+
+namespace fc {
+constexpr int TOP = 0, LEFT = 1, DIAG = 2;
+constexpr int WARPS = 4;  // warps a block: 4 * 24 * 24 * 4 B = 9.2 KB of counts at most
+}
+
+__device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
+
+// M members in blocks of fc::WARPS warps, one warp a member; dynamic shared
+// memory: V * V ints a warp.
+__global__ void __launch_bounds__(32 * fc::WARPS)
+freq_count_kernel(const int* __restrict__ steps, int words, const int* __restrict__ n,
+                  const int* __restrict__ sy, const int* __restrict__ sx,
+                  const int* __restrict__ q, int C, const int* __restrict__ t, int R,
+                  const unsigned char* __restrict__ alive, int M, int V,
+                  int* __restrict__ out) {
+    const int warp = int(threadIdx.x >> 5);
+    const long long m = (long long)blockIdx.x * fc::WARPS + warp;
+    if (m >= M) return;
+    const int lane = int(threadIdx.x & 31);
+    const int VV = V * V;
+    int* counts = dynamic_smem() + warp * VV;
+    for (int i = lane; i < VV; i += 32) counts[i] = 0;
+    __syncwarp();
+    const int* qm = q + m * C;
+    const int* tm = t + m * R;
+    const int nm = n[m];
+    int y = sy[m], x = sx[m];
+    for (int w0 = 0; w0 < words && 16 * w0 < nm; w0 += 32) {
+        const int w = w0 + lane;
+        const int k_end = w < words ? min(16, max(0, nm - 16 * w)) : 0;
+        const unsigned word = k_end > 0 ? unsigned(steps[(long long)w * M + m]) : 0u;
+        int up = 0, lf = 0;
+        for (int k = 0; k < k_end; ++k) {
+            const int d = int(word >> (2 * k)) & 3;
+            up += d == fc::TOP || d == fc::DIAG;
+            lf += d == fc::LEFT || d == fc::DIAG;
+        }
+        int su = up, sl = lf;  // inclusive sums over the lanes
+        for (int s = 1; s < 32; s <<= 1) {
+            const int a = __shfl_up_sync(FULL, su, s);
+            const int b = __shfl_up_sync(FULL, sl, s);
+            if (lane >= s) {
+                su += a;
+                sl += b;
+            }
+        }
+        int cy = y - (su - up), cx = x - (sl - lf);
+        for (int k = 0; k < k_end; ++k) {
+            const int d = int(word >> (2 * k)) & 3;
+            if (d == fc::DIAG)
+                atomicAdd(&counts[tm[clip(cy - 1, R - 1)] * V + qm[clip(cx - 1, C - 1)]], 1);
+            cy -= d == fc::TOP || d == fc::DIAG;
+            cx -= d == fc::LEFT || d == fc::DIAG;
+        }
+        y -= __shfl_sync(FULL, su, 31);
+        x -= __shfl_sync(FULL, sl, 31);
+    }
+    __syncwarp();
+    const int fy = sy[m], fx = sx[m];
+    if (lane == 0 && alive[m] && fy > 0 && fx > 0)
+        atomicAdd(&counts[tm[clip(fy - 1, R - 1)] * V + qm[clip(fx - 1, C - 1)]], 1);
+    __syncwarp();
+    for (int i = lane; i < VV; i += 32) out[m * VV + i] = counts[i];
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
+// M members' counts in blocks of fc::WARPS warps.  Returns the CUDA error of
+// the launch (0 on success) or -1 for an unsupported plan (counts that do
+// not fit in a block's 48 KB of shared memory).
+extern "C" int freq_count_launch(const void* steps, int words, const void* n,
+                                 const void* sy, const void* sx, const void* q, int C,
+                                 const void* t, int R, const void* alive, int M, int V,
+                                 void* out, void* stream) {
+    cudaGetLastError();  // clear a stale error so the check below is ours
+    const size_t smem = sizeof(int) * size_t(fc::WARPS) * size_t(V) * size_t(V);
+    if (V < 1 || C < 1 || R < 1 || smem > 48 * 1024) return -1;
+    const int blocks = (M + fc::WARPS - 1) / fc::WARPS;
+    freq_count_kernel<<<blocks, 32 * fc::WARPS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(steps), words, static_cast<const int*>(n),
+        static_cast<const int*>(sy), static_cast<const int*>(sx), static_cast<const int*>(q),
+        C, static_cast<const int*>(t), R, static_cast<const unsigned char*>(alive), M, V,
+        static_cast<int*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -13,7 +13,9 @@
 * ``transform_matrix()`` is the heuristic's core projection
   (aligner-helpers/src/matrices/mod.rs:19-68): rescale+shift a matrix onto
   the constraint surface ``sum(p ∘ M') = k_d`` and ``‖M'‖² = r²`` where
-  ``p = freqs ⊗ uniform``.
+  ``p = freqs ⊗ uniform``.  ``transform_matrix_torch()`` is the same
+  projection batched over a population's members on their device, in
+  float64, bit for bit with it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 from .errors import WrongMatrixSpecified
 
@@ -173,3 +176,147 @@ def transform_matrix(
     d1 = float(np.linalg.norm(matrix - m1))
     return m0 if d0 < d1 else m1
 
+
+def _leaf_sums(x, length: int):
+    """numpy's sum of each block of ``length`` entries on the last axis of
+    ``x`` (..., k, length), rounded as numpy rounds it, by elementwise adds."""
+    if length < 8:
+        s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for i in range(length):
+            s = s + x[..., i]
+        return s
+    r = x[..., :8]
+    i = 8
+    while i < length - length % 8:
+        r = r + x[..., i:i + 8]
+        i += 8
+    s = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + (
+        (r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+    for j in range(i, length):
+        s = s + x[..., j]
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _pairwise_gathers(n: int, device: torch.device):
+    """numpy's pairwise summation of ``n`` entries (``pairwise_sum_DOUBLE``:
+    sequential below 8 entries, 8 accumulators up to 128, halving above
+    with the split rounded down to a multiple of 8) as a tree, a leaf
+    ``(start, length)`` and a node a pair of subtrees; and for each leaf
+    length the leaves' starts and their (k, length) gather index on
+    ``device`` (made once, so a sum on the card copies nothing from the
+    host)."""
+
+    def split(start, length):
+        if length <= 128:
+            return (start, length)
+        half = length // 2
+        half -= half % 8
+        return (split(start, half), split(start + half, length - half))
+
+    tree = split(0, n)
+    leaves = []
+
+    def collect(node):
+        if isinstance(node[0], tuple):
+            collect(node[0])
+            collect(node[1])
+        else:
+            leaves.append(node)
+
+    collect(tree)
+    gathers = []
+    for length in sorted({m for _, m in leaves}):
+        starts = [s for s, m in leaves if m == length]
+        idx = torch.tensor(starts)[:, None] + torch.arange(length)[None, :]
+        gathers.append((length, starts, idx.to(device)))
+    return tree, gathers
+
+
+def pairwise_sum(x):
+    """The sum over the last axis of ``x`` in numpy's pairwise order, so
+    that it equals ``np.sum`` of the same entries bit for bit (elementwise
+    adds round alike in numpy and in torch, on the CPU and on the card).
+    The leaves of one length are summed together, then the tree's nodes."""
+    tree, gathers = _pairwise_gathers(x.shape[-1], x.device)
+    sums = {}
+    for length, starts, idx in gathers:
+        for s, v in zip(starts, _leaf_sums(x[..., idx], length).unbind(-1)):
+            sums[s] = v
+
+    def total(node):
+        if isinstance(node[0], tuple):
+            return total(node[0]) + total(node[1])
+        return sums[node[0]]
+
+    return total(tree)
+
+
+def _sqrt(x):
+    """Correctly rounded square root, as numpy's and the card's: PyTorch's
+    CPU ``sqrt`` for float64 is off by an ULP on some inputs, so on the CPU
+    numpy takes it (NaN below zero, without a warning)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def transform_matrix_torch(matrices, k_d: float, r_squared: float, frequencies):
+    """:func:`transform_matrix` of each member of ``matrices``, (M, V, V)
+    float64, on the tensor's device: (M, V, V) float64 out.
+
+    The counterpart of ``aligner_tpu.matrices.transform_matrix_jax`` (vmapped
+    over a population), held bit for bit to the host reference
+    :func:`transform_matrix` rather than to the float32 TPU version: every
+    sum follows numpy's pairwise order over the flattened V·V entries
+    (:func:`pairwise_sum`), the elementwise ``+ − × ÷`` round alike in
+    numpy and in torch, on the CPU and on the card, and so does ``sqrt``
+    on the card (on the CPU :func:`_sqrt` takes numpy's).  A
+    negative discriminant gives NaN for that member instead of raising
+    :class:`WrongMatrixSpecified`; the caller surfaces it.  So does a
+    matrix whose shifted ``base`` is all zero, where numpy's divides a
+    Python float by zero and raises ``ZeroDivisionError``; the frequency
+    count of a live member, which holds its seed pair, is never one.
+
+    Its one gap: the choice between two roots of one sign takes the
+    candidate nearer to the matrix by ``sqrt`` of a pairwise sum of
+    squares, where ``np.linalg.norm`` sums by BLAS ``ddot`` in an order
+    that cannot be reproduced.  So the two can pick differently only where
+    both candidates lie within a few ULPs of one distance.
+    """
+    m = matrices
+    if m.dim() != 3 or m.dtype != torch.float64:
+        raise ValueError(f"matrices must be (M, V, V) float64, got {tuple(m.shape)} "
+                         f"{m.dtype}")
+    M, rows, cols = m.shape
+    freqs = torch.as_tensor(frequencies, dtype=torch.float64, device=m.device)
+    if tuple(freqs.shape) != (rows,):
+        raise WrongMatrixSpecified(f"frequencies shape {tuple(freqs.shape)} != ({rows},)")
+    f = torch.full((cols,), 1.0 / cols, dtype=torch.float64, device=m.device)
+    p = (freqs[:, None] * f[None, :]).reshape(1, -1)
+    mf = m.reshape(M, -1)
+
+    p_squared = pairwise_sum(p * p)
+    k_0 = pairwise_sum(p * mf)
+    a = (k_d - k_0) / p_squared
+    b = k_d / p_squared
+    base = mf + p * (a - b)[:, None]
+
+    denominator = pairwise_sum(base * base)
+    a_coeff = 2.0 * b * pairwise_sum(p * base) / denominator
+    b_coeff = (b * b * p_squared - r_squared) / denominator
+
+    disc = a_coeff * a_coeff - 4.0 * b_coeff
+    sq = _sqrt(disc)  # NaN where disc < 0
+    r0 = (-a_coeff - sq) / 2.0
+    r1 = (-a_coeff + sq) / 2.0
+    pb = p * b[:, None]
+    m0 = pb + r0[:, None] * base
+    m1 = pb + r1[:, None] * base
+    d0 = _sqrt(pairwise_sum((mf - m0) * (mf - m0)))
+    d1 = _sqrt(pairwise_sum((mf - m1) * (mf - m1)))
+    straddle = (r0 < 0.0) & (0.0 < r1)
+    out = torch.where((straddle | ~(d0 < d1))[:, None], m1, m0)
+    out = torch.where((disc == 0.0)[:, None], pb + (-a_coeff / 2.0)[:, None] * base, out)
+    return out.reshape(M, rows, cols)

@@ -2,7 +2,11 @@
 
 The shared library is built lazily with ``g++ -O3`` on first use from
 the repository's ``native/aligner_native.cpp`` (the same source the JAX
-package loads) and cached next to this package.  Every entry point has a pure-Python
+package loads) and cached next to this package or, where that directory
+cannot be written (an installed package, a container image), in
+``~/.cache/aligner-tpu-torch/``: a directory of the port's own, so that
+the two packages, whose fallback is ``~/.cache/aligner-tpu/`` in the JAX
+package, never build into one file.  Every entry point has a pure-Python
 fallback (the oracle), so ``available()`` returning False only costs
 speed, never correctness.
 
@@ -67,9 +71,12 @@ def _build(so_path: str) -> bool:
             pass
 
 
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
 def _candidates():
-    pkg_dir = os.path.dirname(os.path.abspath(__file__))
-    yield os.path.join(pkg_dir, "_aligner_native.so")
+    yield os.path.join(_PKG_DIR, "_aligner_native.so")
+    yield os.path.join(os.path.expanduser("~/.cache/aligner-tpu-torch"), "_aligner_native.so")
 
 
 def _load() -> ctypes.CDLL | None:

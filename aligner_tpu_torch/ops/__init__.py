@@ -7,7 +7,9 @@ version beside it; ``wavefront`` (CUDA, ``csrc/wavefront.cu``,
 ``csrc/wavefront_band.cu``, ``csrc/wavefront_block.cu``) is one huge global
 pair: the row-scan fill and the walk over its replayed blocks, the band
 fill of its end score, and the column-block fill of the column-blocked
-pipeline, each with its plain version.  Kernels are built with ``nvcc`` at
+pipeline, each with its plain version; ``freq_count`` (CUDA,
+``csrc/freq_count.cu``) is the heuristic population's count of aligned
+pairs along the walks' step streams, with its plain version.  Kernels are built with ``nvcc`` at
 first use (``_build``), never at import.
 """
 

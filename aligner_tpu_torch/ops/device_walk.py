@@ -195,6 +195,17 @@ def walk_plain(words, sy, sx, *, S: int, mode: str):
     return packed, n.to(i32), y.to(i32), x.to(i32)
 
 
+def pack_codes(codes: np.ndarray, rows_per_word: int) -> torch.Tensor:
+    """(..., R, C) 2-bit codes -> (..., R/rows_per_word, C) int32 words on
+    the CPU, row r at bit 2 * (r % rows_per_word); R a multiple of
+    ``rows_per_word``.  The layout of the fill's direction words (8 rows a
+    word) and of the walk's step streams (16 steps a word)."""
+    *lead, R, C = codes.shape
+    c = codes.astype(np.int64).reshape(*lead, R // rows_per_word, rows_per_word, C)
+    w = (c << (2 * np.arange(rows_per_word))[:, None]).sum(-2) & 0xFFFFFFFF
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
 def _unpack_steps(packed: np.ndarray, S: int) -> np.ndarray:
     """(ceil(S/16), B) int32 → (S, B) uint8 step codes."""
     k = np.arange(16, dtype=np.int32) * 2

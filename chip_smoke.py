@@ -18,7 +18,9 @@ against the native C++ host engine or the frozen golden fixtures:
    with a streamed left boundary and at full width, the column-block fill
    on every block of ragged grids and the replay walk with a column base
    on every tile a walk crosses, real cells only, both walks on words whose
-   paths run past the staged span and refill), and
+   paths run past the staged span and refill, the heuristic population's
+   frequency count on its first iteration and on ragged step streams, and
+   the batched float64 transform on the card against numpy's), and
    each kernel's time beside its plain version's and its bound at the
    shapes the main path gives it, the batched fill's launch plan beside
    each of its rows (threads a block, rows of the column on chip, shared
@@ -34,7 +36,9 @@ against the native C++ host engine or the frozen golden fixtures:
    the column-block fill held and timed on the last forward block and the
    last replay tile of the 524,288 x 524,288 pair, and the column block's
    width and the forward block's rows swept at 262,144 x 262,144 and
-   524,288 x 524,288;
+   524,288 x 524,288, and the frequency count at the population's shape
+   (queued, as the walks are) with one population iteration split by CUDA
+   events;
 3. golden fixtures: ``batch_align`` on the three example FASTAs;
 4. ``calculate_p_value`` with 5,000 sequences on ``examples/protein.fasta``;
 5. ``aligner-search`` on a seeded 100,000-sequence protein database (local)
@@ -42,26 +46,32 @@ against the native C++ host engine or the frozen golden fixtures:
    columns spill off chip held against native C++; then the local search once more
    under ``torch.profiler`` for the device's busy time and idle share;
 6. a full-mode batch of 4,096 pairs of 400 residues, local and global;
-7. ``aligner-repeat-search`` in exploring mode with a checkpoint on a
+7. the heuristic population a service worker runs for one request
+   (``warmup_population``, then ``heuristic_align_population`` of 64 seeded
+   {-1, 0, 1} starting matrices on the ``examples/protein.fasta`` pair,
+   kd 0, r² 1e5, del = ext = 11), every member held bit for bit against
+   ``heuristic_align``'s loop on the host engine with numpy's transforms,
+   and one ``heuristic_align`` from BLOSUM62 held the same way;
+8. ``aligner-repeat-search`` in exploring mode with a checkpoint on a
    seeded 10 Mb chromosome with 40 planted copies of one 330-base query,
    at the reference defaults (W = 300, window 330, offset 30, 10 cycles);
    then one more cycle from the completed checkpoint's state, held
    against native C++ (scores, z, sampled windows) and the host engine
    (survivor alignments);
-8. one huge global pair: ``align_global`` on a seeded homologous protein
+9. one huge global pair: ``align_global`` on a seeded homologous protein
    pair of 65,536 x 65,536 (checkpoints and step stream held against the
    plain versions'), at 8,000 x 9,000 (checkpoint-and-replay) and
    3,000 x 4,000 (one direction plane) against the host engine, the
    ``aligner-align -g`` CLI on two 3,000-residue records, and one
    ``align_global`` at the width cap, 262,144 x 262,144, timed, its path
    rescored under the fill's rules and held against ``global_end_score``;
-9. the end score of one huge global pair: ``global_end_score`` at
+10. the end score of one huge global pair: ``global_end_score`` at
    65,536 x 65,536 against the row-scan fill's end cell and the plain band
    engine, at 8,000 x 9,000 and 3,000 x 4,000 against the host engine, its
    ``diag``, ``host`` and batched-fill routes on a small pair, one call at
    262,144 x 262,144 against the row-scan fill's end cell, timed, and
    ``local_max_score`` against native C++;
-10. a global pair wider than one plane, on the column-blocked pipeline:
+11. a global pair wider than one plane, on the column-blocked pipeline:
    the 65,536 x 65,536 pair as 4 column blocks (strings, end score and
    checkpoint rows against the single-plane routes and the plain
    versions), the 262,144 x 262,144 pair as 2 (strings and end score
@@ -72,11 +82,11 @@ against the native C++ host engine or the frozen golden fixtures:
    ``backend="wavefront_sp"`` on a small pair against the host engine; the
    path is driven first, alone, and held against the other routes after
    its launch counts are read;
-11. the kernels' launch counts of each path: the pair path (phases 3-6),
-   the PWM path (phase 7), the huge-pair path (phase 8), the end-score
-   path (phase 9) and the column-blocked path (phase 10), each counted
-   from zero; the row-scan, column-block and band fills make one launch a
-   call.
+12. the kernels' launch counts of each path: the pair path (phases 3-6),
+   the population path (phase 7: the count once an iteration), the PWM path
+   (phase 8), the huge-pair path (phase 9), the end-score path (phase 10)
+   and the column-blocked path (phase 11), each counted from zero; the
+   row-scan, column-block and band fills make one launch a call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -149,6 +159,14 @@ SMALL_PAIR = (300, 400)  # the routes of global_end_score
 CHUNKED_PAIR = (8_000, 9_000)  # (query, target): past the direct-plane budget
 DIRECT_PAIR = (3_000, 4_000)
 CLI_PAIR_LEN = 3_000
+# the heuristic population a service worker runs for one request of
+# bench_service.py (kdValue 0, rSquaredValue 1e5, delValue 11, dimValue 24,
+# matricesVolumeValue 64) on the examples/protein.fasta pair; the worker
+# passes del for both gap penalties (aligner_tpu/service/worker.py)
+POP_M, POP_DIM = 64, 24
+POP_KD, POP_R2, POP_DEL = 0.0, 1e5, 11.0
+POP_SEED = SEED + 21
+POP_MAX_ITERS = 1000  # heuristic_align_population's default
 REPLACES = {
     "dp_fill": "aligner_tpu/ops/pallas_dp.py:88",
     "device_walk": "aligner_tpu/ops/device_walk.py:34",
@@ -156,6 +174,7 @@ REPLACES = {
     "replay_walk": "aligner_tpu/ops/wavefront.py:1202",
     "band": "aligner_tpu/ops/wavefront.py:973",
     "block_cs": "aligner_tpu/ops/wavefront.py:754",
+    "freq_count": "aligner_tpu/heuristic.py:207",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, the float32 rate outside the tensor cores (128 lanes an SM, an FMA
@@ -179,6 +198,9 @@ OPS_FILL, OPS_FILL_DIRS = 6, 10
 OPS_SCAN, OPS_SCAN_DIRS = 3, 8
 OPS_BAND = 2  # hat coordinates carry the penalty: max(diag + s, up), then left
 OPS_WALK_STEP = 10
+# a step of the frequency count: the code's shift and mask, its two moves
+# counted, then replayed: a compare and the cursor's two decrements
+OPS_COUNT_STEP = 8
 
 
 def bound(ops: float, nbytes: float, rate: float = PEAK_I32_S) -> dict:
@@ -577,15 +599,6 @@ def phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine):
     return n
 
 
-def pack_codes(codes, rows_per_word):
-    """(..., R, C) 2-bit codes -> (..., R/rows_per_word, C) int32 words, row r
-    at bit 2 * (r % rows_per_word)."""
-    *lead, R, C = codes.shape
-    c = codes.astype(np.int64).reshape(*lead, R // rows_per_word, rows_per_word, C)
-    w = (c << (2 * np.arange(rows_per_word))[:, None]).sum(-2) & 0xFFFFFFFF
-    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
-
-
 def walks_that_refill(dev, wf, device_walk) -> int:
     """Both walks on words whose paths run left past the staged span again
     and again (a near-diagonal path with LEFT runs of 600 columns every 16
@@ -596,7 +609,7 @@ def walks_that_refill(dev, wf, device_walk) -> int:
     codes = rng.choice([2, 0, 1], size=(R, C), p=[0.9, 0.05, 0.05])
     for y in range(5, R, 16):
         codes[y, np.arange(C) % 1000 < 600] = 1
-    words = pack_codes(codes, 16).to(dev)
+    words = device_walk.pack_codes(codes, 16).to(dev)
     start = wf.new_walk(R, C, R + C + 1, dev)
     got = start[0].clone(), start[1].clone()
     stats = torch.zeros(3, dtype=torch.int32, device=dev)
@@ -607,7 +620,7 @@ def walks_that_refill(dev, wf, device_walk) -> int:
     B = 64
     codes = rng.choice([2, 0, 1], size=(B, 16, 3000), p=[0.8, 0.1, 0.1])
     codes[:, :, 50:] = 1
-    words = pack_codes(codes, 8).to(dev)
+    words = device_walk.pack_codes(codes, 8).to(dev)
     sy = torch.as_tensor(rng.integers(1, 17, B), dtype=torch.int32, device=dev)
     sx = torch.full((B,), 3000, dtype=torch.int32, device=dev)
     stats.zero_()
@@ -1199,6 +1212,254 @@ def phase_full_batch(at, native, host):
                   f"full batch {mode}: alignment {i} != host")
         print(f"  {mode}: {N_FULL} pairs of {FULL_LEN}, batch_align with alignments "
               f"{wall:.3f} s", flush=True)
+
+
+def symbol_frequencies(at, seq1: str, seq2: str, dim: int) -> np.ndarray:
+    """Per-code symbol frequencies over both sequences, as the service's
+    dispatcher computes them (aligner_tpu/service/dispatcher.py
+    symbol_frequencies): codes >= dim and skipped characters dilute them."""
+    enc = at.Protein.encode(seq1 + seq2, strict=False)
+    kept = enc[enc < dim].astype(np.int64)
+    counts = np.bincount(kept, minlength=dim).astype(np.float64)[:dim]
+    return counts / max(len(seq1) + len(seq2), 1)
+
+
+def population_matrices(at, rng, limit: int, dim: int) -> np.ndarray:
+    """``limit`` random {-1, 0, 1} matrices, each at L2 distance at least
+    get_threshold(dim) from the others, as the service's store makes them
+    (aligner_tpu/service/store.py get_population)."""
+    threshold = at.get_threshold(dim)
+    mats: list[np.ndarray] = []
+    while len(mats) < limit:
+        m = rng.integers(-1, 2, size=(dim, dim)).astype(np.float64)
+        if all(np.linalg.norm(m - other) >= threshold for other in mats):
+            mats.append(m)
+    return np.stack(mats)
+
+
+def population_inputs(at, read_fasta_file):
+    """One service request's population: the examples/protein.fasta pair,
+    POP_M starting matrices, the pair's symbol frequencies."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    recs = read_fasta_file(os.path.join(here, "examples", "protein.fasta"))
+    s1, s2 = recs[0].seq, recs[1].seq
+    q = at.Protein.encode(s1, strict=False)
+    t = at.Protein.encode(s2, strict=False)
+    mats = population_matrices(at, np.random.default_rng(POP_SEED), POP_M, POP_DIM)
+    h = at.Heuristics(kd=POP_KD, r_squared=POP_R2,
+                      frequencies=symbol_frequencies(at, s1, s2, POP_DIM))
+    return q, t, mats, h
+
+
+def first_iteration(dev, at, dp_fill, device_walk, pop):
+    """The population's first iteration up to its walk, as
+    heuristic_align_population runs it: the numpy-transformed starting
+    matrices, one batched fill with directions, one batched walk."""
+    from aligner_tpu_torch.align import pad_batch
+
+    q, t, mats, h = pop
+    M = len(mats)
+    trans = np.stack([at.transform_matrix(m, h.kd, h.r_squared, h.frequencies)
+                      for m in mats])
+    q2, ql = pad_batch([q] * M)
+    t2, tl = pad_batch([t] * M)
+    q2, ql, t2, tl = tensors(dev, q2, ql, t2, tl)
+    trans = torch.as_tensor(trans, device=dev)
+    r = dp_fill.fill(q2, ql, t2, tl, trans, POP_DEL, POP_DEL, mode="local", with_dirs=True)
+    S = q2.shape[1] + t2.shape[1] + 1
+    steps, n, _, _ = device_walk.walk(r.words, r.fy, r.fx, S=S, mode="local")
+    return dict(q2=q2, ql=ql, t2=t2, tl=tl, trans=trans, r=r, steps=steps, n=n,
+                alive=torch.ones(M, dtype=torch.bool, device=dev))
+
+
+def counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop) -> int:
+    """The frequency count against its plain version, torch.equal, on the
+    population's first iteration and on ragged cases (done members, walks
+    of the full S, walks on the plane into a second round, M not a multiple
+    of a block's warps, V = 4, a thousand members); then the
+    batched transform on the card against numpy's on the population's
+    first-iteration counts, bit for bit."""
+    from aligner_tpu_torch.matrices import transform_matrix_torch
+
+    it = first_iteration(dev, at, dp_fill, device_walk, pop)
+    args = (it["steps"], it["n"], it["r"].fy, it["r"].fx, it["q2"], it["t2"], it["alive"])
+    counts = freq_count.count_pairs(*args, POP_DIM)
+    check(torch.equal(counts, freq_count.count_pairs_plain(*args, POP_DIM)),
+          "freq_count != plain at the population's shape")
+    rng = np.random.default_rng(SEED + 22)
+    cases = [(POP_M, 344, 344, 24, "random", 0.4), (POP_M, 344, 344, 24, "full", 0.0),
+             (POP_M, 344, 344, 24, "in-plane", 0.2), (7, 40, 56, 24, "full", 0.3),
+             (33, 120, 100, 4, "random", 0.2), (1_000, 344, 344, 24, "random", 0.1)]
+    for M, R, C, V, kind, done in cases:
+        args = [a.to(dev) for a in freq_count.ragged_streams(rng, M, R, C, V, kind=kind,
+                                                            done_frac=done)]
+        check(torch.equal(freq_count.count_pairs(*args, V),
+                          freq_count.count_pairs_plain(*args, V)),
+              f"freq_count != plain (M={M}, {R}x{C}, V={V}, {kind}, done={done})")
+    h = pop[3]
+    got = transform_matrix_torch(counts.double(), h.kd, h.r_squared,
+                                 h.frequencies).cpu().numpy()
+    c = counts.cpu().numpy().astype(np.float64)
+    for m in range(len(c)):
+        try:
+            want = at.transform_matrix(c[m], h.kd, h.r_squared, h.frequencies)
+        except at.WrongMatrixSpecified:
+            check(np.isnan(got[m]).all(), f"transform of member {m}: numpy raised, not NaN")
+            continue
+        check(np.array_equal(got[m], want),
+              f"transform_matrix_torch != numpy on member {m}'s first counts")
+    return 2 + len(cases)
+
+
+def population_count_row(dev, at, dp_fill, device_walk, freq_count, pop):
+    """The count kernel's time at the population's shape (queued behind a
+    busy kernel: a call is as short as its launch), its plain version's,
+    its bound from this run's walks; and one population iteration split by
+    CUDA events: fill, walk, count, transform with the state update, and
+    the host's read of ``done``."""
+    from aligner_tpu_torch.matrices import transform_matrix_torch
+    from aligner_tpu_torch.ops.walk_probe import queued_ms
+
+    it = first_iteration(dev, at, dp_fill, device_walk, pop)
+    r = it["r"]
+    args = (it["steps"], it["n"], r.fy, r.fx, it["q2"], it["t2"], it["alive"])
+    ms = queued_ms(lambda: freq_count.count_pairs(*args, POP_DIM), 20)
+    got = freq_count.count_pairs(*args, POP_DIM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = freq_count.count_pairs_plain(*args, POP_DIM)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want), "freq_count != plain in the timing phase")
+    n_steps = int(it["n"].sum())
+    pairs = int(got.sum())
+    words = int(((it["n"] + 15) // 16).sum())
+    nbytes_read = 4 * words + 8 * pairs + nbytes(it["n"], r.fy, r.fx, it["alive"])
+    row = dict(name="freq_count (heuristic population)", route="cuda",
+               source="aligner_tpu_torch/csrc/freq_count.cu",
+               replaces=REPLACES["freq_count"], path="population", counter="freq_count",
+               max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
+               shape=f"{POP_M}x{it['steps'].shape[0] * 16} steps, V={POP_DIM}",
+               plan=(f"one warp a member, blocks of 4 warps, {POP_DIM * POP_DIM * 4} B of "
+                     f"counts a warp; {n_steps} steps, {pairs} pairs counted"),
+               **bound(OPS_COUNT_STEP * n_steps, nbytes_read + nbytes(got)))
+    # one iteration, split
+    h = pop[3]
+    M = len(pop[2])
+    max_f = torch.zeros(M, dtype=torch.float64, device=dev)
+    done = torch.zeros(M, dtype=torch.bool, device=dev)
+    S = it["q2"].shape[1] + it["t2"].shape[1] + 1
+    freqs = torch.as_tensor(h.frequencies, device=dev)
+    split = np.zeros(5)
+    reps = 5
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        ql = torch.where(done, 0, it["ql"])
+        tl = torch.where(done, 0, it["tl"])
+        rr = dp_fill.fill(it["q2"], ql, it["t2"], tl, it["trans"], POP_DEL, POP_DEL,
+                          mode="local", with_dirs=True)
+        ev[1].record()
+        steps, n, _, _ = device_walk.walk(rr.words, rr.fy, rr.fx, S=S, mode="local")
+        ev[2].record()
+        alive = ~done
+        counts = freq_count.count_pairs(steps, n, rr.fy, rr.fx, it["q2"], it["t2"], alive,
+                                        POP_DIM)
+        ev[3].record()
+        newt = transform_matrix_torch(counts.double(), h.kd, h.r_squared, freqs)
+        newly_dead = alive & ((rr.fy == 0) | (rr.fx == 0))
+        improved = alive & ~newly_dead & (rr.fmax > max_f)
+        trans = torch.where(improved[:, None, None], newt, it["trans"])
+        after = done | (alive & ~improved)
+        ev[4].record()
+        bool(after.all())
+        ev[5].record()
+        torch.cuda.synchronize()
+        if rep:
+            split += [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+    del trans
+    split /= reps
+    plan = dp_fill.launch_plan(M, it["t2"].shape[1], it["trans"])
+    sms = dp_fill.card_limits(dev).sms
+    print(f"  one population iteration ({M} members, {it['t2'].shape[1]}x"
+          f"{it['q2'].shape[1]} padded, f64), CUDA events, mean of {reps}: fill "
+          f"{split[0]:.3f} ms, walk {split[1]:.3f} ms, count {split[2]:.3f} ms, transform "
+          f"and state {split[3]:.3f} ms, read of done {split[4]:.3f} ms; the fill "
+          f"occupies {M} threads ({plan.threads} a block, {-(-M // plan.threads)} "
+          f"block(s)) of a card of {sms} SMs", flush=True)
+    return row
+
+
+def host_heuristic(at, host, q, t, matrix, h):
+    """heuristic_align's loop on the host engine (native C++ fill, Python
+    walk) with numpy's transforms: ((alignment, matrix) or None for a
+    member with no positive-scoring cell, the alignments it ran)."""
+    r2 = h.r_squared if abs(h.r_squared) >= np.finfo(np.float64).eps \
+        else float(matrix.shape[0] * matrix.shape[1])
+    trans = at.transform_matrix(matrix, h.kd, r2, h.frequencies)
+    max_f = 0.0
+    for it in range(1, POP_MAX_ITERS + 1):
+        cur = trans
+        try:
+            r = host.align_local(q, t, cur, POP_DEL, POP_DEL)
+        except at.ResultIsEmpty:
+            return None, it
+        aln = at.Alignment(r.query_aligned, r.target_aligned, r.coords, r.f, at.Protein)
+        if r.f > max_f:
+            max_f = r.f
+            trans = at.transform_matrix(aln.frequency_matrix(), h.kd, r2, h.frequencies)
+        else:
+            return (aln, cur), it
+    return (aln, cur), POP_MAX_ITERS
+
+
+def same_heuristic(got, want) -> bool:
+    if want is None or got is None:
+        return want is None and got is None
+    aln, matrix = want
+    a = got.alignment
+    return (a.f == aln.f and np.array_equal(a.query, aln.query)
+            and np.array_equal(a.target, aln.target)
+            and tuple(map(tuple, a.coords)) == tuple(map(tuple, aln.coords))
+            and np.array_equal(got.matrix, matrix))
+
+
+def phase_population(at, host, pop) -> int:
+    """The service worker's job: warmup_population, then
+    heuristic_align_population of POP_M starting matrices on the card, every
+    member held bit for bit against heuristic_align's loop on the host
+    engine; then one heuristic_align of the pair from BLOSUM62 on the card,
+    held the same way.  Returns the population's iterations (the longest
+    member's loop on the host)."""
+    q, t, mats, h = pop
+    at.warmup_population(q, t, len(mats), POP_DEL, POP_DEL, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = at.heuristic_align_population(q, t, mats, POP_DEL, POP_DEL, h, device=DEVICE)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [host_heuristic(at, host, q, t, m, h) for m in mats]
+    host_wall = time.perf_counter() - t0
+    iters = max(k for _, k in want)
+    for m, (res, (w, _)) in enumerate(zip(got, want)):
+        check(same_heuristic(res, w), f"population member {m} != heuristic_align's loop on "
+                                      f"the host")
+    dead = sum(r is None for r in got)
+    fs = [r.alignment.f for r in got if r is not None]
+    print(f"  heuristic_align_population: {len(mats)} members of {len(t)}x{len(q)}, "
+          f"V={mats.shape[-1]}, kd {h.kd}, r2 {h.r_squared:g}, del = ext = {POP_DEL}: "
+          f"{wall:.3f} s, {iters} iterations; {dead} dead, f {min(fs, default=0):.4f}.."
+          f"{max(fs, default=0):.4f}; the host loop {host_wall:.3f} s, every member "
+          f"equal", flush=True)
+    b62 = np.array(at.blosum62())
+    t0 = time.perf_counter()
+    one = at.heuristic_align(q, t, b62, POP_DEL, POP_DEL, h, device=DEVICE)
+    wall = time.perf_counter() - t0
+    w, k = host_heuristic(at, host, q, t, b62, h)
+    check(same_heuristic(one, w), "heuristic_align from BLOSUM62 != its loop on the host")
+    print(f"  heuristic_align from BLOSUM62: {wall:.3f} s, {k} iterations, f "
+          f"{one.alignment.f:.4f}, equal to the host loop", flush=True)
+    return iters
 
 
 def make_chromosome(bp: int, seed: int, n_planted: int):
@@ -2155,7 +2416,7 @@ def main() -> int:
     from aligner_tpu_torch.cli import repeat_search as cli_repeat
     from aligner_tpu_torch.cli import search as cli_search
     from aligner_tpu_torch.io import read_fasta_file
-    from aligner_tpu_torch.ops import _build, device_walk, dp_fill, scan_engine
+    from aligner_tpu_torch.ops import _build, device_walk, dp_fill, freq_count, scan_engine
     from aligner_tpu_torch.ops import wavefront as wf
     from aligner_tpu_torch.parallel import wavefront_sp as sp
 
@@ -2169,8 +2430,10 @@ def main() -> int:
         _build.load()
         print(f"  nvcc build of csrc/*.cu: {_build.build_seconds:.3f} s", flush=True)
 
+    pop = population_inputs(at, read_fasta_file)
     with phase("kernel vs plain"):
         n = phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine)
+        n += counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop)
         n += wavefront_vs_plain(dev, at, wf)
         n += band_vs_plain(dev, at, host, wf)
         n += block_cs_vs_plain(dev, at, wf, sp)
@@ -2192,12 +2455,15 @@ def main() -> int:
         band_rows, plain_end = phase_band_timing(dev, at, wf, plain["q"], plain["t"])
         rows += band_rows
         rows += phase_block_timing(dev, at, wf, sp)
+        rows.append(population_count_row(dev, at, dp_fill, device_walk, freq_count, pop))
+        print_rows(rows[-1:])
 
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
                     pwm_scores=dp_fill.launches.pwm_scores,
                     pwm_dirs=dp_fill.launches.pwm_dirs, spilled=dp_fill.launches.spilled,
                     walk=device_walk.launches.walk,
+                    freq_count=freq_count.launches.freq_count,
                     row_scan=wf.launches.row_scan,
                     row_scan_dirs=wf.launches.row_scan_dirs,
                     replay_walk=wf.launches.replay_walk,
@@ -2210,6 +2476,7 @@ def main() -> int:
     def reset_counts():
         dp_fill.launches.reset()
         device_walk.launches.reset()
+        freq_count.launches.reset()
         wf.launches.reset()
 
     # each path's own run: its counts start at zero just before it and are
@@ -2228,6 +2495,10 @@ def main() -> int:
     with phase("full-mode batch"):
         phase_full_batch(at, native, host)
     counts["pair"] = launch_counts()
+    reset_counts()
+    with phase("heuristic population"):
+        pop_iters = phase_population(at, host, pop)
+    counts["population"] = launch_counts()
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         with phase("repeat search"):
@@ -2252,10 +2523,11 @@ def main() -> int:
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
-                ("pwm", "phase 7", ("pwm_scores", "pwm_dirs", "walk")),
-                ("huge", "phase 8", ("row_scan", "row_scan_dirs", "replay_walk")),
-                ("end_score", "phase 9", ("band",)),
-                ("column_blocked", "phase 10",
+                ("population", "phase 7", ("dirs", "walk", "freq_count")),
+                ("pwm", "phase 8", ("pwm_scores", "pwm_dirs", "walk")),
+                ("huge", "phase 9", ("row_scan", "row_scan_dirs", "replay_walk")),
+                ("end_score", "phase 10", ("band",)),
+                ("column_blocked", "phase 11",
                  ("block_cs", "block_cs_dirs", "replay_walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
@@ -2268,6 +2540,9 @@ def main() -> int:
                   and c["band_tile_launches"] == c["band"],
                   f"the {path} path's row-scan, column-block or band calls made other "
                   f"than one launch each")
+        check(counts["population"]["freq_count"] == pop_iters,
+              f"the population ran {pop_iters} iterations but launched the count "
+              f"{counts['population']['freq_count']} times")
 
     kernels = []
     for r in rows:
@@ -2277,7 +2552,8 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            # no single PyTorch call computes these recurrences
+                            # no single PyTorch call computes these recurrences,
+                            # nor the count of pairs along step streams
                             library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ mode (K1/K2) and in PWM mode (K3), also around the rows of a column it
 keeps on chip, the walk (K4), the row-scan fill of one global pair (K5),
 the replay walk (also with a column base), the band fill (K6) with the
 end score built on it, and the column-block fill (K7) with the
-column-blocked pipeline built on it.
+column-blocked pipeline built on it, and the heuristic population's
+frequency count with the float64 transform and the population built on
+them.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -17,10 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from aligner_tpu_torch.matrices import blosum62
-from aligner_tpu_torch.ops import device_walk, dp_fill, wavefront
+import aligner_tpu_torch as port
+from aligner_tpu_torch.matrices import blosum62, transform_matrix, transform_matrix_torch
+from aligner_tpu_torch.ops import device_walk, dp_fill, freq_count, wavefront
 from aligner_tpu_torch.ops.scan_engine import fill_batch, fill_pwm_batch
-from test_torch_walk_host import pack
+from test_torch_freq_count_host import CASES as COUNT_CASES
 
 torch.set_num_threads(1)
 
@@ -832,8 +835,8 @@ def test_replay_walk_kernel_on_raw_codes(dev, monkeypatch, name):
     # a stream from new_walk, its first word holding codes of an earlier block
     steps = torch.full((n_words,), -1, dtype=torch.int32)
     steps[0] = int(rng.integers(-2**31, 2**31))
-    st, stats = _replay_both(dev, pack(codes, 16), state, steps, 0, span=span,
-                             monkeypatch=monkeypatch)
+    words = device_walk.pack_codes(codes, 16)
+    st, stats = _replay_both(dev, words, state, steps, 0, span=span, monkeypatch=monkeypatch)
     if name == "left-run":
         assert stats[1] >= 9 and st[:2] == [0, 62]
 
@@ -845,7 +848,7 @@ def test_replay_walk_kernel_at_a_paths_width(dev, monkeypatch, span):
     shared memory (rows of 4,096 columns, 64 KiB)."""
     rng = np.random.default_rng(span)
     R, C, col_base = 4096, 8192, 393_216
-    words = pack(_diagonal(rng, (R, C), 0.75), 16)
+    words = device_walk.pack_codes(_diagonal(rng, (R, C), 0.75), 16)
     state = torch.tensor([R, col_base + C - 100, 0], dtype=torch.int32)
     steps = torch.full((-(-(R + C + 1) // 16),), -1, dtype=torch.int32)
     st, stats = _replay_both(dev, words, state, steps, 0, col_base, span=span,
@@ -863,8 +866,8 @@ def test_replay_walk_kernel_through_many_refills(dev, monkeypatch):
         codes[y, :] = np.where(np.arange(C) % 300 < 200, 1, codes[y, :])
     state = torch.tensor([R, C, 0], dtype=torch.int32)
     steps = torch.full((-(-(R + C + 1) // 16),), -1, dtype=torch.int32)
-    st, stats = _replay_both(dev, pack(codes, 16), state, steps, 0, span=32,
-                             monkeypatch=monkeypatch)
+    words = device_walk.pack_codes(codes, 16)
+    st, stats = _replay_both(dev, words, state, steps, 0, span=32, monkeypatch=monkeypatch)
     assert stats[1] >= 20
 
 
@@ -895,7 +898,7 @@ def test_walk_kernel_on_raw_codes(dev, monkeypatch, mode, B, R8, C, span):
     codes = rng.choice([0, 1, 2, 3], size=(B, R8, C), p=[0.1, 0.1, 0.799, 0.001])
     if C > 1000:
         codes[:, :, 50:] = 1
-    words = pack(codes, 8)
+    words = device_walk.pack_codes(codes, 8)
     sy = rng.integers(1, R8 + 1, B).astype(np.int32)
     sx = rng.integers(1, C + 1, B).astype(np.int32)
     if B > 10:
@@ -906,3 +909,89 @@ def test_walk_kernel_on_raw_codes(dev, monkeypatch, mode, B, R8, C, span):
                        monkeypatch, span)
     if C > 1000:
         assert stats[1] >= B * 10
+
+
+# --- the heuristic population ---------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(COUNT_CASES))
+def test_count_kernel_matches_plain(dev, case):
+    """The frequency count on the host test's cases (the population's
+    shape, done members, walks of the full S, walks that stay on the plane
+    into a second round, members not alive, M not a multiple of a block's
+    warps, V = 4), exactly, and one launch a call."""
+    M, R, C, V, kind, done, stale = COUNT_CASES[case]
+    rng = np.random.default_rng(sorted(COUNT_CASES).index(case))
+    args = freq_count.ragged_streams(rng, M, R, C, V, kind=kind, done_frac=done,
+                                     stale_frac=stale)
+    before = freq_count.launches.freq_count
+    got = freq_count.count_pairs(*[a.to(dev) for a in args], V)
+    torch.cuda.synchronize()
+    assert freq_count.launches.freq_count == before + 1
+    assert torch.equal(got.cpu(), freq_count.count_pairs_plain(*args, V))
+
+
+@pytest.mark.parametrize("V", [24, 4])
+def test_transform_on_the_card_is_numpys(dev, V):
+    """The batched float64 transform on the card equals numpy's member by
+    member (NaN where numpy raises), on {-1, 0, 1} matrices and counts."""
+    rng = np.random.default_rng(V)
+    freqs = rng.random(V)
+    freqs /= freqs.sum()
+    mats = rng.integers(-1, 2, (200, V, V)).astype(np.float64) * rng.random((200, 1, 1))
+    mats[100:] = rng.poisson(1.0, (100, V, V)) + np.eye(V)
+    for kd, r2 in ((0.0, 1e5), (2.0, 1e2), (2.0, 1e4)):
+        got = transform_matrix_torch(torch.as_tensor(mats, device=dev), kd, r2,
+                                     freqs).cpu().numpy()
+        for m in range(len(mats)):
+            try:
+                want = transform_matrix(mats[m], kd, r2, freqs)
+            except port.WrongMatrixSpecified:
+                assert np.isnan(got[m]).all()
+                continue
+            assert np.array_equal(got[m], want), (kd, r2, m)
+
+
+def test_population_on_the_card_is_the_cpus(dev):
+    """The population's loop on the kernels equals the loop on their plain
+    versions, member by member, and launches the fill, the walk and the
+    count once an iteration."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 24, 90).astype(np.int8)
+    t = q.copy()
+    t[rng.integers(1, 90, 20)] = rng.integers(0, 24, 20)
+    mats = rng.integers(-1, 2, (16, 24, 24)).astype(np.float64)
+    freqs = rng.random(24)
+    freqs /= freqs.sum()
+    h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
+    port.warmup_population(q, t, 16, 11.0, 11.0)
+    before = freq_count.launches.freq_count
+    got = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h)
+    assert freq_count.launches.freq_count > before
+    want = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h, device="cpu")
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.alignment.f == b.alignment.f
+            assert np.array_equal(a.alignment.query, b.alignment.query)
+            assert np.array_equal(a.alignment.target, b.alignment.target)
+            assert a.alignment.coords == b.alignment.coords
+            assert np.array_equal(a.matrix, b.matrix)
+
+
+def test_population_refuses_codes_outside_the_matrices_before_a_launch(dev):
+    """An X (code 23) in the target against (M, 20, 20) matrices raises
+    ValidationError with no fill, walk or count launched."""
+    rng = np.random.default_rng(20)
+    q = rng.integers(0, 20, 40).astype(np.int8)
+    t = q.copy()
+    t[17] = port.Protein.encode("X")[0]
+    mats = rng.integers(-1, 2, (4, 20, 20)).astype(np.float64)
+    freqs = np.full(20, 0.05)
+    h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
+    before = (dp_fill.launches.dirs, device_walk.launches.walk, freq_count.launches.freq_count)
+    with pytest.raises(port.ValidationError):
+        port.heuristic_align_population(q, t, mats, 11.0, 11.0, h)
+    torch.cuda.synchronize()
+    assert (dp_fill.launches.dirs, device_walk.launches.walk,
+            freq_count.launches.freq_count) == before

@@ -31,6 +31,7 @@ def test_imports_with_jax_blocked():
         "import aligner_tpu_torch, aligner_tpu_torch.cli.search\n"
         "import aligner_tpu_torch.ops.dp_fill, aligner_tpu_torch.ops.device_walk\n"
         "import aligner_tpu_torch.ops.wavefront, aligner_tpu_torch.parallel.wavefront_sp\n"
+        "import aligner_tpu_torch.heuristic, aligner_tpu_torch.ops.freq_count\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "print('ok')\n"
     )
@@ -97,3 +98,42 @@ def test_configure_logging_keeps_to_the_package_logger(monkeypatch):
     monkeypatch.delenv("ALIGNER_LOG")
     configure_logging()
     assert log.level == logging.WARNING
+
+
+def test_native_runtime_falls_back_to_the_cache(monkeypatch, tmp_path):
+    """Where the package directory cannot take the native library (an
+    installed package, a container image), the port builds it into
+    ``~/.cache/aligner-tpu-torch/`` as the JAX package does into its own
+    cache; then a local pair above the direct-plane budget runs on the
+    native streaming engine and equals the oracle."""
+    from aligner_tpu.align import align_local as ref_align_local
+    from aligner_tpu_torch import native
+    from aligner_tpu_torch.ops import wavefront as wf
+
+    home = tmp_path / "home"
+    home.mkdir()
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.delenv("ALIGNER_NO_NATIVE", raising=False)
+    pkg = tmp_path / "pkg"  # no prebuilt library, and no build succeeds there
+    pkg.mkdir()
+    monkeypatch.setattr(native, "_PKG_DIR", str(pkg))
+    real_build = native._build
+    monkeypatch.setattr(native, "_build",
+                        lambda so: not so.startswith(str(pkg)) and real_build(so))
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.available()
+    assert (home / ".cache" / "aligner-tpu-torch" / "_aligner_native.so").exists()
+    assert not (pkg / "_aligner_native.so").exists()
+
+    monkeypatch.setattr(wf, "DIRECT_PLANE_CELLS", 100)
+    rng = np.random.default_rng(4)
+    q = rng.integers(0, 24, 40).astype(np.int8)
+    t = q.copy()
+    t[rng.integers(0, 40, 8)] = rng.integers(0, 24, 8)
+    b62 = np.asarray(ref.blosum62())
+    got = port.align_local(q, t, b62, 11.0, 2.0, device="cpu").alignment
+    want = ref_align_local(q, t, b62, 11.0, 2.0, backend="oracle").alignment
+    assert got.f == want.f
+    assert np.array_equal(got.query, want.query) and np.array_equal(got.target, want.target)
+    assert tuple(map(tuple, got.coords)) == tuple(map(tuple, want.coords))

@@ -57,15 +57,6 @@ def host(tmp_path_factory):
     return lib
 
 
-def pack(codes: np.ndarray, rpw: int) -> torch.Tensor:
-    """(..., R, C) codes -> (..., R/rpw, C) int32 words, row r at bit
-    2 * (r % rpw); R a multiple of rpw.  The card tests pack with it too."""
-    *lead, R, C = codes.shape
-    c = codes.astype(np.int64).reshape(*lead, R // rpw, rpw, C)
-    w = (c << (2 * np.arange(rpw))[:, None]).sum(-2) & 0xFFFFFFFF
-    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
-
-
 # --------------------------------------------------------------------------
 # W, the replay walk
 # --------------------------------------------------------------------------
@@ -100,7 +91,7 @@ def diagonal_codes(rng, R, C, p_diag=0.8):
 
 
 def replay_case(codes, cy, cx, n_steps, *, n=0):
-    words = pack(codes, 16)
+    words = dw.pack_codes(codes, 16)
     state, steps = wf.new_walk(cy, cx, n_steps, "cpu")
     state[2] = n
     return words, state, steps
@@ -144,7 +135,7 @@ def test_replay_walk_refills_a_left_run_longer_than_the_span(host):
 def test_replay_walk_with_a_column_base_and_a_foreign_block(host):
     rng = np.random.default_rng(5)
     R, C, col_base, row_base = 96, 256, 1000, 64
-    words = pack(diagonal_codes(rng, R, C), 16)
+    words = dw.pack_codes(diagonal_codes(rng, R, C), 16)
     state, steps = wf.new_walk(row_base + 90, col_base + 200, 2000, "cpu")
     st, _, _ = same_replay(host, words, state, steps, row_base=row_base, col_base=col_base,
                            span=64)
@@ -176,7 +167,7 @@ def test_replay_walk_budget_cut(host, n0, words_out):
 
 def test_replay_walk_leaves_a_cursor_on_an_edge(host):
     rng = np.random.default_rng(9)
-    words = pack(diagonal_codes(rng, 32, 64), 16)
+    words = dw.pack_codes(diagonal_codes(rng, 32, 64), 16)
     for cy, cx in ((0, 40), (20, 0), (0, 0)):
         state = torch.tensor([cy, cx, 3], dtype=torch.int32)
         steps = torch.full((8,), -1, dtype=torch.int32)
@@ -203,7 +194,7 @@ def test_replay_walk_over_blocks_one_after_another(host):
     got = wf.new_walk(R, C, R_pad + C + 1, "cpu")
     want = wf.new_walk(R, C, R_pad + C + 1, "cpu")
     for j in range(R_pad // TB - 1, -1, -1):
-        words = pack(codes[j * TB:(j + 1) * TB], 16)
+        words = dw.pack_codes(codes[j * TB:(j + 1) * TB], 16)
         host_replay(host, words, *got, row_base=j * TB, span=64)
         wf.replay_walk_plain(words, *want, row_base=j * TB)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -289,7 +280,7 @@ def test_batched_walk_on_raw_words_and_odd_starts(host, mode, span, warps):
     rng = np.random.default_rng(span + warps)
     B, R8, C = 53, 48, 72
     codes = rng.choice([TOP, LEFT, DIAG, BEG], size=(B, R8, C), p=[0.3, 0.3, 0.38, 0.02])
-    words = pack(codes, 8)
+    words = dw.pack_codes(codes, 8)
     sy = rng.integers(1, R8 + 1, B)
     sx = rng.integers(1, C + 1, B)
     sy[:4], sx[:4] = [0, 0, 0, 30], [0, 25, 1, 0]
@@ -312,7 +303,7 @@ def test_batched_walk_refills_long_left_runs(host, mode, span):
     codes = np.full((B, R8, C), LEFT)
     codes[:, :, :10] = DIAG
     codes[:, 5, 150] = TOP
-    words = pack(codes, 8)
+    words = dw.pack_codes(codes, 8)
     sy, sx = _i32(rng.integers(8, R8 + 1, B), np.full(B, C))
     plan = dw.plan_walk(B, C, sms=1, warps=2, span=span)
     (_, n, _, _), stats = same_walk(host, words, sy, sx, R8 + C + 1, mode, plan=plan)
@@ -325,7 +316,7 @@ def test_batched_walk_stops_at_the_step_count(host, span):
     """S shorter than the walks: the stream ends at S codes, Beginning after."""
     rng = np.random.default_rng(3)
     B, R8, C = 6, 64, 64
-    words = pack(np.full((B, R8, C), DIAG), 8)
+    words = dw.pack_codes(np.full((B, R8, C), DIAG), 8)
     sy, sx = _i32(rng.integers(40, 65, B), rng.integers(40, 65, B))
     for S in (1, 15, 16, 17, 33):
         (_, n, _, _), _ = same_walk(host, words, sy, sx, S, "global",

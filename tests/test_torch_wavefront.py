@@ -367,6 +367,14 @@ NO_CARD = {
     "sharded_global_align": lambda: port.sharded_global_align(2, _Q, _Q, B62, 11.0, 2.0),
     "sharded_global_end_score": lambda: port.sharded_global_end_score(
         2, _Q, _Q, B62, 11.0, 2.0),
+    "heuristic_align": lambda: port.heuristic_align(
+        _Q, _Q, B62, 11.0, 2.0, port.Heuristics(0.0, 0.0, np.full(24, 1 / 24))),
+    "HeuristicAligner": lambda: port.HeuristicAligner.from_seqs(_Q, _Q).perform_alignment(
+        11.0, 2.0, B62, port.Heuristics(0.0, 0.0, np.full(24, 1 / 24))),
+    "heuristic_align_population": lambda: port.heuristic_align_population(
+        _Q, _Q, np.stack([B62, B62]), 11.0, 11.0,
+        port.Heuristics(0.0, 1e5, np.full(24, 1 / 24))),
+    "warmup_population": lambda: port.warmup_population(_Q, _Q, 4, 11.0, 11.0),
 }
 
 
