@@ -43,3 +43,14 @@ class WrongMatrixSpecified(AlignerError):
 
 class DeviceUnavailable(AlignerError):
     """The requested device (the CUDA card, by default) is not present."""
+
+
+def is_data_error(exc: BaseException) -> bool:
+    """True for an error that a job's own inputs raise, so that running it
+    again raises it again: an :class:`AlignerError` other than
+    :class:`DeviceUnavailable`, a ``ValueError`` or a ``TypeError``.  The
+    service drops such a job or row; anything else (no card, a failed
+    kernel build, a CUDA error) is the machine's, and is never taken for
+    the job's."""
+    return (isinstance(exc, (AlignerError, ValueError, TypeError))
+            and not isinstance(exc, DeviceUnavailable))

@@ -52,26 +52,38 @@ against the native C++ host engine or the frozen golden fixtures:
    kd 0, r² 1e5, del = ext = 11), every member held bit for bit against
    ``heuristic_align``'s loop on the host engine with numpy's transforms,
    and one ``heuristic_align`` from BLOSUM62 held the same way;
-8. ``aligner-repeat-search`` in exploring mode with a checkpoint on a
+8. the service, end to end: the port's dispatcher served over HTTP on a
+   temporary sqlite file, ``POST /validate`` of one request (kd 0, r² 1e5,
+   del 11, ``dimValue`` 24, ``matricesVolumeValue`` 64) on a FASTA of the
+   two ``examples/protein.fasta`` records and a seeded homolog of each
+   (6 tasks, 384 jobs), one worker process
+   (``aligner_tpu_torch.service.worker --device cuda --warmup --batch 64``)
+   that drains the queue, every stored subtask held bit for bit against
+   ``heuristic_align``'s loop on the host engine for its pair and starting
+   matrix, promotion through ``GET /progress`` (the updater then promotes
+   nothing, each result is its task's best subtask), and
+   ``aligner-torch-calc --seed 0`` on the card, each stored p-value held bit
+   for bit against the fit on native C++ scores of the same shuffles;
+9. ``aligner-repeat-search`` in exploring mode with a checkpoint on a
    seeded 10 Mb chromosome with 40 planted copies of one 330-base query,
    at the reference defaults (W = 300, window 330, offset 30, 10 cycles);
    then one more cycle from the completed checkpoint's state, held
    against native C++ (scores, z, sampled windows) and the host engine
    (survivor alignments);
-9. one huge global pair: ``align_global`` on a seeded homologous protein
+10. one huge global pair: ``align_global`` on a seeded homologous protein
    pair of 65,536 x 65,536 (checkpoints and step stream held against the
    plain versions'), at 8,000 x 9,000 (checkpoint-and-replay) and
    3,000 x 4,000 (one direction plane) against the host engine, the
    ``aligner-align -g`` CLI on two 3,000-residue records, and one
    ``align_global`` at the width cap, 262,144 x 262,144, timed, its path
    rescored under the fill's rules and held against ``global_end_score``;
-10. the end score of one huge global pair: ``global_end_score`` at
+11. the end score of one huge global pair: ``global_end_score`` at
    65,536 x 65,536 against the row-scan fill's end cell and the plain band
    engine, at 8,000 x 9,000 and 3,000 x 4,000 against the host engine, its
    ``diag``, ``host`` and batched-fill routes on a small pair, one call at
    262,144 x 262,144 against the row-scan fill's end cell, timed, and
    ``local_max_score`` against native C++;
-11. a global pair wider than one plane, on the column-blocked pipeline:
+12. a global pair wider than one plane, on the column-blocked pipeline:
    the 65,536 x 65,536 pair as 4 column blocks (strings, end score and
    checkpoint rows against the single-plane routes and the plain
    versions), the 262,144 x 262,144 pair as 2 (strings and end score
@@ -82,15 +94,18 @@ against the native C++ host engine or the frozen golden fixtures:
    ``backend="wavefront_sp"`` on a small pair against the host engine; the
    path is driven first, alone, and held against the other routes after
    its launch counts are read;
-12. the kernels' launch counts of each path: the pair path (phases 3-6),
-   the population path (phase 7: the count once an iteration), the PWM path
-   (phase 8), the huge-pair path (phase 9), the end-score path (phase 10)
-   and the column-blocked path (phase 11), each counted from zero; the
-   row-scan, column-block and band fills make one launch a call.
+13. the kernels' launch counts of each path: the pair path (phases 3-6),
+   the population path (phase 7: the count once an iteration), the service
+   path (phase 8: the worker process's K2, K4 and count launches, which it
+   prints at exit, and calc's K1 launches; the count once an iteration of
+   each task), the PWM path (phase 9), the huge-pair path (phase 10), the
+   end-score path (phase 11) and the column-blocked path (phase 12), each
+   counted from zero; the row-scan, column-block and band fills make one
+   launch a call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
-a JSON object with one entry per kernel (its launches on its path, its
+a JSON object with one entry per kernel (its launches on its paths, its
 time, its plain version's time and its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the card's rate for
 their type: 67 T/s in float32 and 34 T/s in float64 outside the tensor
@@ -110,7 +125,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -167,6 +184,27 @@ POP_M, POP_DIM = 64, 24
 POP_KD, POP_R2, POP_DEL = 0.0, 1e5, 11.0
 POP_SEED = SEED + 21
 POP_MAX_ITERS = 1000  # heuristic_align_population's default
+# the service phase: that request posted to the port's dispatcher on a FASTA
+# of the two examples/protein.fasta records and a seeded homolog of each
+# (6 tasks of POP_M jobs), one worker process claiming a task a batch
+SERVICE_SEED = SEED + 23
+SERVICE_BATCH = 64
+SERVICE_POLL_S = 0.2
+SERVICE_IDLE_POLLS = 25  # the worker's poll cycles after the queue drains
+SERVICE_DEADLINE_S = 600
+# runs the worker module as __main__ (what ``python -m`` does) and prints the
+# process's kernel launch counts when it exits: its launches are counted in
+# its own process
+WORKER_RUNNER = """
+import atexit, json, runpy, sys
+from aligner_tpu_torch.ops import device_walk, dp_fill, freq_count
+atexit.register(lambda: print("launches " + json.dumps(dict(
+    scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
+    walk=device_walk.launches.walk, freq_count=freq_count.launches.freq_count)),
+    flush=True))
+sys.argv[0] = "aligner_tpu_torch.service.worker"
+runpy.run_module("aligner_tpu_torch.service.worker", run_name="__main__", alter_sys=True)
+"""
 REPLACES = {
     "dp_fill": "aligner_tpu/ops/pallas_dp.py:88",
     "device_walk": "aligner_tpu/ops/device_walk.py:34",
@@ -781,7 +819,8 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
     check(same_fill(got, want), "dp_fill != plain at the p-value shape")
     rows.append(dict(name="dp_fill (scores only, p-value launch)", route="cuda",
                      source="aligner_tpu_torch/csrc/dp_fill.cu",
-                     replaces=REPLACES["dp_fill"], path="pair", counter="scores",
+                     replaces=REPLACES["dp_fill"], path=("pair", "service"),
+                     counter="scores",
                      max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms,
                      plain_ms=plain_ms,
                      shape=f"{len(sh)}x{tt.shape[1]}x{qq.shape[1]}",
@@ -800,7 +839,8 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
     check(same_fill(got, want), "dp_fill != plain at the full-mode shape")
     rows.append(dict(name="dp_fill (directions, full-mode batch)", route="cuda",
                      source="aligner_tpu_torch/csrc/dp_fill.cu",
-                     replaces=REPLACES["dp_fill"], path="pair", counter="dirs",
+                     replaces=REPLACES["dp_fill"], path=("pair", "service"),
+                     counter="dirs",
                      max_abs_err=max(max_abs_err(got.fmax, want.fmax),
                                      max_abs_err(got.words, want.words)),
                      ms=ms, plain_ms=plain_ms,
@@ -815,7 +855,8 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
           "device_walk != plain at the full-mode shape")
     rows.append(dict(name="device_walk (full-mode batch)", route="cuda",
                      source="aligner_tpu_torch/csrc/walk_core.cuh",
-                     replaces=REPLACES["device_walk"], path="pair", counter="walk",
+                     replaces=REPLACES["device_walk"], path=("pair", "service"),
+                     counter="walk",
                      max_abs_err=max(max_abs_err(a, b) for a, b in zip(wk, wp)),
                      ms=ms, plain_ms=plain_ms, shape=f"{N_FULL}x{S} steps",
                      plan=walk_plan_line(device_walk, dev, got.words, wk, ms, stats),
@@ -1001,6 +1042,22 @@ def phase_golden(at, read_fasta_file):
     return n
 
 
+def held_p_value(at, native, q, t, f, del_, ext, m, shuffles, what):
+    """K1's scores of the shuffles (``batch_align`` scores only, as
+    ``calculate_p_value`` runs them) held against native C++ scores, bit
+    for bit; returns the p-value of the fit on the native scores, with
+    ``f`` the initial score."""
+    got = at.batch_align([q] * len(shuffles), shuffles, m, del_, ext, track_argmax=False,
+                         device=DEVICE).fmax.astype(np.float64)
+    want = np.array([native.local_max_score_stream(q, s, m, del_, ext)[0]
+                     for s in shuffles])
+    check(np.array_equal(got, want), f"{what}: p-value shuffle scores != native C++")
+    scores = np.concatenate([[f], want])
+    lengths = np.concatenate([[len(t)], [len(s) for s in shuffles]])
+    return at.statistics.calculate_distribution_params(
+        len(q), lengths, scores).get_p_value(len(q), len(t), f)
+
+
 def phase_p_value(at, native, q, t):
     m = at.blosum62()
     initial, _, _ = native.local_max_score_stream(q, t, m, DEL, EXT)
@@ -1009,14 +1066,7 @@ def phase_p_value(at, native, q, t):
                              rng=np.random.default_rng(SEED), device=DEVICE)
     wall = time.perf_counter() - t0
     sh = shuffles_for_p_value(at, q, t, N_PVALUE)
-    got = at.batch_align([q] * len(sh), sh, m, DEL, EXT, track_argmax=False,
-                         device=DEVICE).fmax.astype(np.float64)
-    want = np.array([native.local_max_score_stream(q, s, m, DEL, EXT)[0] for s in sh])
-    check(np.array_equal(got, want), "p-value shuffle scores != native C++")
-    scores = np.concatenate([[initial], want])
-    lengths = np.concatenate([[len(t)], [len(s) for s in sh]])
-    p_native = at.statistics.calculate_distribution_params(
-        len(q), lengths, scores).get_p_value(len(q), len(t), initial)
+    p_native = held_p_value(at, native, q, t, initial, DEL, EXT, m, sh, "the pair")
     # bit-equal, NaN included: with h -> NaN the reference's fit returns NaN
     check(np.float64(p).tobytes() == np.float64(p_native).tobytes(),
           f"p-value {p!r} != native-score p-value {p_native!r}")
@@ -1214,40 +1264,24 @@ def phase_full_batch(at, native, host):
               f"{wall:.3f} s", flush=True)
 
 
-def symbol_frequencies(at, seq1: str, seq2: str, dim: int) -> np.ndarray:
-    """Per-code symbol frequencies over both sequences, as the service's
-    dispatcher computes them (aligner_tpu/service/dispatcher.py
-    symbol_frequencies): codes >= dim and skipped characters dilute them."""
-    enc = at.Protein.encode(seq1 + seq2, strict=False)
-    kept = enc[enc < dim].astype(np.int64)
-    counts = np.bincount(kept, minlength=dim).astype(np.float64)[:dim]
-    return counts / max(len(seq1) + len(seq2), 1)
-
-
-def population_matrices(at, rng, limit: int, dim: int) -> np.ndarray:
-    """``limit`` random {-1, 0, 1} matrices, each at L2 distance at least
-    get_threshold(dim) from the others, as the service's store makes them
-    (aligner_tpu/service/store.py get_population)."""
-    threshold = at.get_threshold(dim)
-    mats: list[np.ndarray] = []
-    while len(mats) < limit:
-        m = rng.integers(-1, 2, size=(dim, dim)).astype(np.float64)
-        if all(np.linalg.norm(m - other) >= threshold for other in mats):
-            mats.append(m)
-    return np.stack(mats)
-
-
 def population_inputs(at, read_fasta_file):
     """One service request's population: the examples/protein.fasta pair,
-    POP_M starting matrices, the pair's symbol frequencies."""
+    POP_M starting matrices and the pair's symbol frequencies, made by the
+    service's own ``get_population`` and ``symbol_frequencies`` (the
+    dispatcher's seed POP_SEED, an empty store)."""
+    from aligner_tpu_torch.service.dispatcher import symbol_frequencies
+    from aligner_tpu_torch.service.store import Store, get_population
+
     here = os.path.dirname(os.path.abspath(__file__))
     recs = read_fasta_file(os.path.join(here, "examples", "protein.fasta"))
-    s1, s2 = recs[0].seq, recs[1].seq
+    s1, s2 = recs[0].seq.decode(), recs[1].seq.decode()
     q = at.Protein.encode(s1, strict=False)
     t = at.Protein.encode(s2, strict=False)
-    mats = population_matrices(at, np.random.default_rng(POP_SEED), POP_M, POP_DIM)
+    with tempfile.TemporaryDirectory() as tmp:
+        mats = np.stack(get_population(Store(os.path.join(tmp, "population.db")), POP_DIM,
+                                       POP_M, np.random.default_rng(POP_SEED)))
     h = at.Heuristics(kd=POP_KD, r_squared=POP_R2,
-                      frequencies=symbol_frequencies(at, s1, s2, POP_DIM))
+                      frequencies=symbol_frequencies(s1, s2, POP_DIM))
     return q, t, mats, h
 
 
@@ -1337,7 +1371,8 @@ def population_count_row(dev, at, dp_fill, device_walk, freq_count, pop):
     nbytes_read = 4 * words + 8 * pairs + nbytes(it["n"], r.fy, r.fx, it["alive"])
     row = dict(name="freq_count (heuristic population)", route="cuda",
                source="aligner_tpu_torch/csrc/freq_count.cu",
-               replaces=REPLACES["freq_count"], path="population", counter="freq_count",
+               replaces=REPLACES["freq_count"], path=("population", "service"),
+               counter="freq_count",
                max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
                shape=f"{POP_M}x{it['steps'].shape[0] * 16} steps, V={POP_DIM}",
                plan=(f"one warp a member, blocks of 4 warps, {POP_DIM * POP_DIM * 4} B of "
@@ -1460,6 +1495,221 @@ def phase_population(at, host, pop) -> int:
     print(f"  heuristic_align from BLOSUM62: {wall:.3f} s, {k} iterations, f "
           f"{one.alignment.f:.4f}, equal to the host loop", flush=True)
     return iters
+
+
+def service_fasta(at, read_fasta_file) -> str:
+    """The service request's FASTA: the two records of examples/protein.fasta
+    and a homolog of each, a quarter of its positions substituted (as
+    full_batch_pairs makes its pairs), from SERVICE_SEED."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    recs = read_fasta_file(os.path.join(here, "examples", "protein.fasta"))
+    rng = np.random.default_rng(SERVICE_SEED)
+    out = [(r.id, r.seq.decode()) for r in recs]
+    for r in recs:
+        t = at.Protein.encode(r.seq, strict=True)
+        mask = rng.random(len(t)) < 0.25
+        t[mask] = rng.integers(0, 20, int(mask.sum()))
+        out.append((f"{r.id}_homolog", at.Protein.decode(t)))
+    return "".join(f">{name}\n{seq}\n" for name, seq in out)
+
+
+def sql_rows(db, sql, args=()):
+    import sqlite3
+
+    with contextlib.closing(sqlite3.connect(db, timeout=30.0)) as c:
+        return c.execute(sql, args).fetchall()
+
+
+def run_service_worker(db, n_batches, out_path):
+    """Start one worker process on ``db``; its stdout and log go to
+    ``out_path``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ALIGNER_DB=db, ALIGNER_LOG="info",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("ALIGNER_QUEUE", None)
+    with open(out_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-c", WORKER_RUNNER, "--device", DEVICE, "--warmup",
+             "--batch", str(SERVICE_BATCH), "--poll-interval", str(SERVICE_POLL_S),
+             "--max-batches", str(n_batches + SERVICE_IDLE_POLLS)],
+            cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+
+
+def hold_subtasks(at, host, db, models):
+    """Every stored subtask against heuristic_align's loop on the host
+    engine for its job's pair and starting matrix: f as float64 bytes, the
+    final matrix's JSON text, the result strings; a job whose member has no
+    alignment stores no row.  Returns the subtask rows by task hash and the
+    iterations of each task's population (its longest member's loop)."""
+    jobs = {int(i): models.AlignJob.from_json(p)
+            for i, p in sql_rows(db, "select id, payload from jobs")}
+    got = {}
+    by_task = {}
+    for h, key, f, mj, rq, rt in sql_rows(db, """
+            select t.hash, s.source_key, s.f_value, s.matrix_json,
+                   s.result_query_sequence, s.result_target_sequence
+            from align_subtasks s join align_tasks t on t.id = s.task_id"""):
+        check(jobs[int(key)].hash == h, f"subtask of job {key} stored under task {h}")
+        got[int(key)] = (np.float64(f).tobytes(), mj, rq, rt)
+        by_task.setdefault(h, []).append((f, mj, rq, rt))
+    iters = {}
+    for job_id, job in sorted(jobs.items()):
+        check(job.del_value == POP_DEL, f"job {job_id}: del {job.del_value}")
+        h = at.Heuristics(kd=job.kd_value, r_squared=job.r_squared_value,
+                          frequencies=job.frequences)
+        res, k = host_heuristic(at, host, at.Protein.encode(job.sequence_1, strict=False),
+                                at.Protein.encode(job.sequence_2, strict=False),
+                                job.matrix, h)
+        iters[job.hash] = max(iters.get(job.hash, 0), k)
+        if res is None:
+            check(job_id not in got, f"job {job_id}: a subtask for a member with no "
+                                     f"alignment")
+            continue
+        aln, matrix = res
+        want = (np.float64(aln.f).tobytes(), models.matrix_to_json(matrix), *aln.render())
+        check(got.get(job_id) == want, f"job {job_id}: the stored subtask != "
+                                       f"heuristic_align's loop on the host")
+    return by_task, iters
+
+
+def hold_p_values(at, native, store, ids, seed):
+    """Each task's K1 scores of its shuffles against native C++ scores,
+    and each stored p-value against the fit on those native scores, bit
+    for bit, NaN stored as NULL: calc's one generator replayed over the
+    tasks in the order calc took them."""
+    rng = np.random.default_rng(seed)
+    for task_id in ids:
+        query, target, f, del_, matrix = store.get_result_matrix_by_task_id(task_id)
+        q = at.Protein.encode(query, strict=False)
+        t = at.Protein.encode(target, strict=False)
+        sh = [at.statistics.shuffle_and_randomize_sequence(t, rng)
+              for _ in range(N_PVALUE - 1)]
+        want = held_p_value(at, native, q, t, f, del_, del_, matrix, sh, f"task {task_id}")
+        (got,), = sql_rows(store.path, "select p_value from align_tasks where id = ?",
+                           (task_id,))
+        check((got is None and np.isnan(want))
+              or (got is not None and np.float64(got).tobytes() == np.float64(want).tobytes()),
+              f"task {task_id}: stored p-value {got!r} != native-score fit {want!r}")
+
+
+def phase_service(at, native, host, read_fasta_file, tmp, launch_counts):
+    """The service end to end (phase 8): returns the worker process's
+    launch counts, this process's (``launch_counts()`` read just after
+    calc, before the holds launch K1 again) and the iterations the
+    worker's populations ran."""
+    import re
+
+    from aligner_tpu_torch.cli import calc
+    from aligner_tpu_torch.service import models, updater
+    from aligner_tpu_torch.service.dispatcher import TOPIC_JOBS, Dispatcher, serve
+    from aligner_tpu_torch.service.queue import JobQueue
+    from aligner_tpu_torch.service.store import Store
+
+    db = os.path.join(tmp, "service.db")
+    store, queue = Store(db), JobQueue(db)
+    server = serve("127.0.0.1", 0, Dispatcher(store, queue,
+                                             rng=np.random.default_rng(POP_SEED)),
+                   sse_ticks=1)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    worker = None
+    try:
+        body = json.dumps({"sequences": service_fasta(at, read_fasta_file),
+                           "kdValue": POP_KD, "rSquaredValue": POP_R2, "delValue": POP_DEL,
+                           "dimValue": POP_DIM, "matricesVolumeValue": POP_M}).encode()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{base}/validate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            hashes = json.loads(r.read())["hashes"]
+        submit = time.perf_counter() - t0
+        n_jobs = queue.pending(TOPIC_JOBS)
+        check(len(hashes) == 6 and n_jobs == 6 * POP_M,
+              f"the request made {len(hashes)} tasks and {n_jobs} jobs, not 6 and "
+              f"{6 * POP_M}")
+        log_path = os.path.join(tmp, "worker.log")
+        t1 = time.perf_counter()
+        worker = run_service_worker(db, n_jobs // SERVICE_BATCH, log_path)
+        first_claim = None
+        while queue.pending(TOPIC_JOBS) > 0:
+            if first_claim is None and sql_rows(
+                    db, "select count(1) from jobs where status != 'ready'")[0][0]:
+                first_claim = time.perf_counter() - t1
+            check(worker.poll() is None, f"the worker exited ({worker.returncode}) with "
+                  f"jobs pending:\n{open(log_path).read()[-4000:]}")
+            check(time.perf_counter() - t1 < SERVICE_DEADLINE_S,
+                  "the queue did not drain in time")
+            time.sleep(0.05)
+        drained = time.perf_counter() - t0
+        rc = worker.wait(timeout=SERVICE_IDLE_POLLS * SERVICE_POLL_S + 120)
+        log_text = open(log_path).read()
+        check(rc == 0, f"the worker exited {rc}:\n{log_text[-4000:]}")
+        launches = re.findall(r"^launches (\{.*\})$", log_text, re.M)
+        check(len(launches) == 1, "the worker printed no launch counts")
+        pops = [float(x) for x in re.findall(r"population of \d+ job\(s\) in ([0-9.]+) s",
+                                             log_text)]
+        batches = [(int(n), float(x)) for n, x in re.findall(
+            r"batch of (\d+) job\(s\): claim to commit ([0-9.]+) s", log_text)]
+        check(len(pops) == len(hashes) and sum(n for n, _ in batches) == n_jobs,
+              f"the worker logged {len(pops)} populations and {len(batches)} batches")
+        t_hold = time.perf_counter()
+        by_task, iters = hold_subtasks(at, host, db, models)
+        hold_s = time.perf_counter() - t_hold
+        for h in hashes:
+            check(len(by_task.get(h, [])) == POP_M,
+                  f"task {h}: {len(by_task.get(h, []))} subtasks, not {POP_M}")
+        t2 = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/progress?hashes={','.join(hashes)}",
+                                    timeout=120) as r:
+            line = r.readline().decode()
+        promote = time.perf_counter() - t2
+        check(line.startswith("data: ") and set(json.loads(line[6:])["progress"].values())
+              == {100.0}, f"/progress did not report every task done: {line!r}")
+        check(updater.run_once(store) == 0, "the updater promoted a task /progress had not")
+        results = sql_rows(db, """select t.hash, r.f_value, r.matrix_json,
+                                         r.result_query_sequence, r.result_target_sequence
+                                  from result_matrices r
+                                  join align_tasks t on t.id = r.task_id""")
+        check(sorted(h for h, *_ in results) == sorted(hashes), "not one result a task")
+        for h, *best in results:
+            top = max(f for f, *_ in by_task[h])
+            check(best[0] == top and tuple(best) in set(by_task[h]),
+                  f"task {h}: the promoted result is not its best subtask")
+        ids = store.get_ids_with_null_p_value()
+        check(len(ids) == len(hashes), f"{len(ids)} tasks wait for a p-value")
+        t3 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(calc.main(["--db", db, "--seed", "0", "--device", DEVICE,
+                             "--sequences", str(N_PVALUE)]) == 0,
+                  "aligner-torch-calc failed")
+        calc_wall = time.perf_counter() - t3
+        calc_counts = launch_counts()
+        check(out.getvalue().strip() == f"backfilled {len(ids)} p-value(s)",
+              f"aligner-torch-calc: {out.getvalue()!r}")
+        t4 = time.perf_counter()
+        hold_p_values(at, native, store, ids, 0)
+        p_hold_s = time.perf_counter() - t4
+        nan = sql_rows(db, "select count(1) from align_tasks where p_value is null")[0][0]
+    finally:
+        server.shutdown()
+        if worker is not None and worker.poll() is None:
+            worker.kill()
+            worker.wait(timeout=60)
+    claim_s = sum(x for _, x in batches)
+    print(f"  {n_jobs} jobs, {len(hashes)} tasks of {POP_M}: submit {submit:.3f} s; the "
+          f"worker's first claim {first_claim:.3f} s after its start (process, library "
+          f"load, warmup); queue drained {drained:.3f} s after the POST; /progress promoted "
+          f"every task in {promote:.3f} s: time to promotion {drained + promote:.3f} s (the "
+          f"host hold between them, {hold_s:.3f} s, not counted); claim to commit "
+          f"{claim_s:.3f} s in {len(batches)} batches, {n_jobs / claim_s:.1f} jobs/s; "
+          f"population a task {min(pops):.3f}..{max(pops):.3f} s (mean "
+          f"{np.mean(pops):.3f}), {sum(iters.values())} iterations in all; every subtask "
+          f"equal to the host loop, every task promoted its best; aligner-torch-calc "
+          f"{calc_wall:.3f} s, {calc_wall / len(ids):.3f} s a p-value ({nan} NaN, stored as "
+          f"NULL), every task's K1 scores equal to native C++ and every p-value equal to "
+          f"the native-score fit (held in {p_hold_s:.3f} s)",
+          flush=True)
+    return json.loads(launches[0]), calc_counts, sum(iters.values())
 
 
 def make_chromosome(bp: int, seed: int, n_planted: int):
@@ -2501,6 +2751,13 @@ def main() -> int:
     counts["population"] = launch_counts()
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
+        with phase("service"):
+            worker_counts, calc_counts, service_iters = phase_service(
+                at, native, host, read_fasta_file, tmp, launch_counts)
+    # the worker's launches happen in its own process, calc's in this one
+    counts["service"] = {k: v + worker_counts.get(k, 0) for k, v in calc_counts.items()}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
         with phase("repeat search"):
             phase_repeat_search(at, native, host, cli_repeat, repeat, raw, planted, tmp)
     counts["pwm"] = launch_counts()
@@ -2524,10 +2781,11 @@ def main() -> int:
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
                 ("population", "phase 7", ("dirs", "walk", "freq_count")),
-                ("pwm", "phase 8", ("pwm_scores", "pwm_dirs", "walk")),
-                ("huge", "phase 9", ("row_scan", "row_scan_dirs", "replay_walk")),
-                ("end_score", "phase 10", ("band",)),
-                ("column_blocked", "phase 11",
+                ("service", "phase 8", ("scores", "dirs", "walk", "freq_count")),
+                ("pwm", "phase 9", ("pwm_scores", "pwm_dirs", "walk")),
+                ("huge", "phase 10", ("row_scan", "row_scan_dirs", "replay_walk")),
+                ("end_score", "phase 11", ("band",)),
+                ("column_blocked", "phase 12",
                  ("block_cs", "block_cs_dirs", "replay_walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
@@ -2543,12 +2801,16 @@ def main() -> int:
         check(counts["population"]["freq_count"] == pop_iters,
               f"the population ran {pop_iters} iterations but launched the count "
               f"{counts['population']['freq_count']} times")
+        check(counts["service"]["freq_count"] == service_iters,
+              f"the service's populations ran {service_iters} iterations but launched "
+              f"the count {counts['service']['freq_count']} times")
 
     kernels = []
     for r in rows:
+        paths = r["path"] if isinstance(r["path"], tuple) else (r["path"],)
         kernels.append(dict(name=r["name"], route=r["route"], source=r["source"],
                             replaces=r["replaces"],
-                            launches=counts[r["path"]][r["counter"]],
+                            launches=sum(counts[p][r["counter"]] for p in paths),
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
