@@ -7,7 +7,9 @@ main path, batched exact DP (:func:`batch_align`) with on-device
 traceback, one-vs-many search and p-values; and the PWM path,
 query-vs-PWM alignment (:func:`align_pwm`, :func:`batch_align_pwm`), the
 heuristic PWM aligner and the latent-repeat search (:mod:`.repeat`); and
-single pairs (:func:`align_global`, :func:`align_local`), a huge global
+single pairs (:func:`align_global`, :func:`align_local`, with their
+planes under ``keep_planes``, and the simple aligners
+:class:`SimpleGlobalAligner`, :class:`SimpleLocalAligner`), a huge global
 pair on the row-scan fill with checkpoint-and-replay traceback; and the
 scores of one pair without a traceback (:func:`global_end_score` on the
 band fill, :func:`local_max_score`); and a global pair wider than one plane
@@ -43,6 +45,8 @@ from . import align, native, observability, search, statistics  # noqa: E402
 from .align import (
     BatchScores,
     PWMAligner,
+    SimpleGlobalAligner,
+    SimpleLocalAligner,
     align_global,
     align_local,
     align_pwm,
@@ -90,6 +94,8 @@ __all__ = [
     "align_pwm",
     "batch_align_pwm",
     "PWMAligner",
+    "SimpleGlobalAligner",
+    "SimpleLocalAligner",
     "Heuristics",
     "HeuristicAligner",
     "heuristic_align",

@@ -22,10 +22,20 @@ the data (:func:`aligner_tpu_torch.backend.dtype_for`): float32 on CUDA
 only for integer-valued scoring, float64 otherwise and on the CPU.
 
 The port does not read ``ALIGNER_DEVICE_WALK``.  The JAX package reads it
-to send a traceback to a per-cell walk on the host; here every walk runs on
-the device where the directions lie, and setting the variable changes
-nothing.  The host walk will come under a named argument, together with
-``keep_planes``, not under an environment variable.
+to send a traceback to a per-cell walk on the host; here that walk is asked
+for by name, ``walk="host"`` (on :func:`batch_align`, :func:`batch_align_pwm`,
+:func:`align_global`, :func:`align_local`, :func:`align_pwm`, and on the
+huge-pair and column-blocked pipelines), and setting the variable changes
+nothing.  By default (``walk="device"``) every walk runs on the device where
+the directions lie; under ``walk="host"`` the direction words come to the
+host and no walk kernel is launched.
+
+``keep_planes`` on :func:`align_global` and :func:`align_local` returns the
+pair's dense score and direction planes (``AlignmentResult.score``,
+``.directions``), as the reference's simple aligners do
+(:class:`SimpleGlobalAligner`, :class:`SimpleLocalAligner`, which default
+it to true): the pair is filled as a batch of one with the score plane, and
+walked on the host over the returned directions.
 """
 
 from __future__ import annotations
@@ -40,6 +50,16 @@ from .alphabet import DNA, Alphabet, Protein
 from .backend import dtype_for, integral_params, resolve_device
 from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
 from .result import Alignment, AlignmentResult, PWMAlignment
+from .traceback import traceback_global, traceback_local, traceback_pwm
+
+def _check_walk(walk) -> None:
+    if walk not in ("device", "host"):
+        raise ValidationError(f"walk must be device or host, got {walk!r}")
+
+
+def _on_host(device) -> bool:
+    """``device="host"``: the host engine (native C++), not a torch device."""
+    return isinstance(device, str) and device == "host"
 
 
 def _encode(seq, alphabet: type[Alphabet]) -> np.ndarray:
@@ -79,9 +99,10 @@ class BatchScores:
 
 
 def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
-          track_argmax=True):
+          track_argmax=True, with_plane=False):
     """One batched fill on ``device``; returns the FillResult with its
-    tensors (and packed words when ``with_dirs``) left on the device."""
+    tensors (and packed words when ``with_dirs``, the score plane's interior
+    with ``with_plane``) left on the device."""
     from .observability import measure
     from .ops.dp_fill import DPFill
 
@@ -99,8 +120,62 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
 
     with measure(f"{device.type}/{mode}", cells, len(ql), device=device):
         res = dp(dev_i32(q), dev_i32(ql), dev_i32(t), dev_i32(tl), mode=mode,
-                 track_argmax=track_argmax, with_dirs=with_dirs)
+                 track_argmax=track_argmax, with_dirs=with_dirs,
+                 with_scores_plane=with_plane)
     return res
+
+
+def _pair_result(mode, walk_q, walk_t, q_b, t_b, ql_b, tl_b,
+                 sy_b, sx_b, end_y_b, end_x_b, fmax_b, alphabet):
+    # the seeded character pair lands *after* the reversed walk
+    # (simple/mod.rs:99-106/213-218)
+    if mode == "global":
+        qa = np.append(walk_q, np.int16(q_b[-1]))
+        ta = np.append(walk_t, np.int16(t_b[-1]))
+        coords = ((1, ql_b), (1, tl_b))
+        f = 0.0
+    else:
+        qa = np.append(walk_q, np.int16(q_b[sx_b - 1]))
+        ta = np.append(walk_t, np.int16(t_b[sy_b - 1]))
+        coords = ((end_x_b + 1, sx_b + 1), (end_y_b + 1, sy_b + 1))
+        f = fmax_b
+    return AlignmentResult(Alignment(qa, ta, coords, f, alphabet))
+
+
+def _walk_pairs_on_host(words, mode, qs, ts, q, t, ql, tl, sy, sx, fmax, skip_mask,
+                        alphabet):
+    """The host walks of :func:`batch_align` (``walk="host"``;
+    ``aligner_tpu.align.batch_align``'s ``ALIGNER_DEVICE_WALK=0`` branch):
+    the dense direction planes of the real problems on the host, then one
+    native call for the whole batch when the native runtime is there and no
+    problem is skipped, else the Python walkers problem by problem."""
+    from . import native
+    from .ops.dp_fill import dirs_from_packed
+
+    n = len(qs)
+    dirs = dirs_from_packed(words, ql[:n], tl[:n], mode)
+    if native.available() and not skip_mask.any():
+        walks_q, walks_t, end_y, end_x = native.traceback_batch(
+            dirs, sy[:n].astype(np.int64), sx[:n].astype(np.int64),
+            q[:n].astype(np.int8), t[:n].astype(np.int8), pwm_mode=False)
+        return [_pair_result(mode, walks_q[b], walks_t[b], qs[b], ts[b], int(ql[b]),
+                             int(tl[b]), int(sy[b]), int(sx[b]), int(end_y[b]),
+                             int(end_x[b]), float(fmax[b]), alphabet)
+                for b in range(n)]
+    out = []
+    for b in range(n):
+        if skip_mask[b]:
+            out.append(None)
+            continue
+        d = dirs[b, : tl[b] + 1, : ql[b] + 1]
+        if mode == "global":
+            qa, ta, coords = traceback_global(d, qs[b], ts[b])
+            f = 0.0
+        else:
+            qa, ta, coords = traceback_local(d, int(sy[b]), int(sx[b]), qs[b], ts[b])
+            f = float(fmax[b])
+        out.append(AlignmentResult(Alignment(qa, ta, coords, f, alphabet)))
+    return out
 
 
 def batch_align(
@@ -118,6 +193,7 @@ def batch_align(
     track_argmax: bool = True,
     pad_to: int | None = None,
     skip: np.ndarray | None = None,
+    walk: str = "device",
 ):
     """Batched alignment of N independent (query, target) pairs.
 
@@ -131,25 +207,15 @@ def batch_align(
     can retire problems without changing the shape.  Skipped / padded
     entries return score 0 and (with alignments) ``None``, as does a local
     problem with no positive-scoring cell.
-    """
-    def _pair_result(mode, walk_q, walk_t, q_b, t_b, ql_b, tl_b,
-                     sy_b, sx_b, end_y_b, end_x_b, fmax_b, alphabet):
-        # the seeded character pair lands *after* the reversed walk
-        # (simple/mod.rs:99-106/213-218)
-        if mode == "global":
-            qa = np.append(walk_q, np.int16(q_b[-1]))
-            ta = np.append(walk_t, np.int16(t_b[-1]))
-            coords = ((1, ql_b), (1, tl_b))
-            f = 0.0
-        else:
-            qa = np.append(walk_q, np.int16(q_b[sx_b - 1]))
-            ta = np.append(walk_t, np.int16(t_b[sy_b - 1]))
-            coords = ((end_x_b + 1, sx_b + 1), (end_y_b + 1, sy_b + 1))
-            f = fmax_b
-        return AlignmentResult(Alignment(qa, ta, coords, f, alphabet))
 
+    ``walk``: ``"device"`` walks the packed words where they lie (the walk
+    kernel on the card); ``"host"`` brings the direction planes to the host
+    and walks them there (:func:`_walk_pairs_on_host`), with the same
+    results.
+    """
     if mode not in ("local", "global"):
         raise ValidationError(f"mode must be local|global, got {mode!r}")
+    _check_walk(walk)
     qs = [_encode(s, alphabet) for s in queries]
     ts = [_encode(s, alphabet) for s in targets]
     if len(qs) != len(ts):
@@ -207,6 +273,9 @@ def batch_align(
         # reference would panic on its 0-index seed, simple/mod.rs:213-218):
         # None for just that problem instead of failing the whole batch
         skip_mask = skip_mask | (sy_full[:n_real] == 0) | (sx_full[:n_real] == 0)
+    if walk == "host":
+        return _walk_pairs_on_host(res.words[:n_real].cpu().numpy(), mode, qs, ts, q, t,
+                                   ql, tl, sy_full, sx_full, fmax_np, skip_mask, alphabet)
     from .ops.device_walk import decode_pair_batch, walk_batch
 
     steps, lens, ey, ex = walk_batch(
@@ -260,6 +329,7 @@ def batch_align_pwm(
     track_argmax: bool = True,
     pad_to: int | None = None,
     skip: np.ndarray | None = None,
+    walk: str = "device",
 ):
     """Batched query-vs-PWM alignment (one PWM shared or (B, 4, W) batched).
 
@@ -270,11 +340,13 @@ def batch_align_pwm(
 
     ``pad_to``/``skip`` as in :func:`batch_align`: padding problems are
     zero-length and not returned; skipped real problems return ``None``
-    (score 0 in scores-only mode).
+    (score 0 in scores-only mode).  ``walk`` as in :func:`batch_align`: under
+    ``"host"`` each problem's direction plane is walked by ``traceback_pwm``.
     """
     pwm = np.asarray(pwm)
     if pwm.ndim not in (2, 3) or pwm.shape[-2] != 4:
         raise MatrixShapeError(f"PWM must have 4 rows, got shape {pwm.shape}")
+    _check_walk(walk)
     qs = [_encode(s, alphabet) for s in queries]
     n_real = len(qs)
     q, ql = pad_batch(qs)
@@ -309,6 +381,22 @@ def batch_align_pwm(
     sy = res.fy.cpu().numpy()
     sx = res.fx.cpu().numpy()
     fmax_np = res.fmax.cpu().numpy()  # one transfer, not B scalars
+    if walk == "host":
+        from .ops.dp_fill import dirs_from_packed
+
+        # the real problems' planes only: pad_to padding never transfers
+        dirs = dirs_from_packed(res.words[:n_real].cpu().numpy(),
+                                np.full(n_real, width), ql[:n_real], "local")
+        out = []
+        for b in range(n_real):
+            if skip_mask[b]:
+                out.append(None)
+                continue
+            d = dirs[b, : ql[b] + 1, : width + 1]
+            qa, numbered, coords = traceback_pwm(d, int(sy[b]), int(sx[b]), qs[b])
+            out.append(AlignmentResult(
+                PWMAlignment(numbered, qa, width, coords, float(fmax_np[b]), alphabet)))
+        return out
     # PWM planes are (qlen+1, W+1): rows = query positions
     steps, lens, ey, ex = walk_batch(res.words, "local", sy, sx, q.shape[1], width)
     qa_ws, num_ws = decode_pwm_batch(steps, lens, sy, sx, q)
@@ -347,6 +435,51 @@ def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto) -> b
     return auto and ok and qlen > wf.MAX_WIDTH
 
 
+def _huge_global_refusal(qlen: int, tlen: int) -> ValidationError:
+    return ValidationError(
+        f"global pair of {tlen}x{qlen} = {qlen * tlen} cells needs a "
+        "materialized plane under the requested options; huge pairs "
+        "require an integral matrix/penalties in int32 range (the "
+        "wavefront engines) and keep_planes=False"
+    )
+
+
+def _pair_with_planes(q, t, matrix, del_, ext, mode, alphabet, device):
+    """One pair with its planes (``keep_planes``): a batch of one on the
+    batched fill with the score plane, then the host walk over the returned
+    directions, as the reference's ``_fill(..., scores_plane=keep_planes)``
+    and ``traceback_global``/``traceback_local`` do.  The planes are
+    (tlen+1, qlen+1) with the reference's borders, the score plane in the
+    fill's dtype."""
+    from .ops.dp_fill import dirs_from_packed, planes_from_interior
+
+    qp, ql = pad_batch([q])
+    tp, tl = pad_batch([t])
+    dtype = dtype_for(device, matrix, del_, ext, lengths=(tp.shape[1], qp.shape[1]))
+    res = _fill(qp, ql, tp, tl, matrix, del_, ext, mode, True, device, dtype,
+                with_plane=True)
+    rows, cols = len(t) + 1, len(q) + 1
+    dirs = dirs_from_packed(res.words.cpu().numpy(), ql, tl, mode)[0, :rows, :cols]
+    score = planes_from_interior(res.plane.cpu().numpy(), ql, tl, mode, del_,
+                                 rows=len(t))[0, :, :cols]
+    if mode == "global":
+        qa, ta, coords = traceback_global(dirs, q, t)
+        f = 0.0
+    else:
+        qa, ta, coords = traceback_local(dirs, int(res.fy[0]), int(res.fx[0]), q, t)
+        f = float(res.fmax[0])
+    return AlignmentResult(Alignment(qa, ta, coords, f, alphabet), score=score,
+                           directions=dirs)
+
+
+def _host_result(r, keep_planes: bool, alphabet) -> AlignmentResult:
+    return AlignmentResult(
+        Alignment(r.query_aligned, r.target_aligned, r.coords, r.f, alphabet),
+        score=r.score if keep_planes else None,
+        directions=r.directions if keep_planes else None,
+    )
+
+
 def align_global(
     query,
     target,
@@ -357,6 +490,8 @@ def align_global(
     alphabet: type[Alphabet] = Protein,
     backend: str | None = None,
     device=None,
+    keep_planes: bool = False,
+    walk: str = "device",
 ) -> AlignmentResult:
     """Global (NW-style) alignment of one pair (simple/mod.rs:42-144).
 
@@ -373,44 +508,83 @@ def align_global(
     (a transformed, non-integral matrix) runs as a batch of one on the
     batched fill up to the direct-plane budget and is refused above it: no
     route materialises an O(R·C) plane at that scale.  ``backend`` keeps
-    the JAX package's names: ``None``/``"auto"`` or ``"wavefront_sp"``.
+    the JAX package's names: ``None``/``"auto"``, ``"wavefront"`` (the row
+    scan forced on; raises where the pair is not supported) or
+    ``"wavefront_sp"``.
+
+    ``keep_planes`` returns the (tlen+1, qlen+1) ``score`` and
+    ``directions`` planes: the pair skips the row scan and runs as a batch
+    of one on the batched fill with the score plane (up to the direct-plane
+    budget; refused above it and with ``"wavefront_sp"``), except under
+    ``backend="wavefront"``, which returns the row scan's directions and no
+    score plane, as the reference does.  ``device="host"`` is the host
+    engine (native C++, the reference's ``backend="oracle"``), its planes
+    float64.  ``walk`` (``"device"`` or ``"host"``) picks where the
+    traceback walks; a pair with planes is always walked on the host.
     """
+    from . import host
     from .ops import wavefront as wf
 
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
-    if backend not in (None, "auto", "wavefront_sp"):
+    if backend not in (None, "auto", "wavefront", "wavefront_sp"):
         raise ValidationError(
-            f"unknown backend {backend!r} for align_global (choose auto or wavefront_sp)"
+            f"unknown backend {backend!r} for align_global "
+            "(choose auto, wavefront or wavefront_sp)"
         )
-    device = resolve_device(device)
+    _check_walk(walk)
     matrix_np = np.asarray(matrix)
     cells = len(q) * len(t)
     huge = cells > wf.DIRECT_PLANE_CELLS
+    auto = backend in (None, "auto")
+    if keep_planes and backend == "wavefront_sp":
+        raise ValidationError("wavefront_sp cannot materialize planes (keep_planes)")
+    if keep_planes and huge:
+        raise _huge_global_refusal(len(q), len(t))
+    if _on_host(device):
+        if not auto:
+            raise ValidationError(f"device=\"host\" is the host engine; it takes no "
+                                  f"backend, got {backend!r}")
+        return _host_result(host.align_global(q, t, matrix_np, del_, ext), keep_planes,
+                            alphabet)
+    device = resolve_device(device)
     if _route_sharded_pair(len(q), len(t), matrix_np, del_, ext, backend=backend,
-                           auto=backend in (None, "auto")):
+                           auto=auto and not keep_planes):
         from .parallel.wavefront_sp import sharded_global_align
 
         _, qa, ta, coords = sharded_global_align(None, q, t, matrix_np, del_, ext,
-                                                 device=device)
+                                                 device=device, walk=walk)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
-    if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
-        fn = wf.align_single_global_chunked if huge else wf.align_single_global_direct
-        _, qa, ta, coords = fn(q, t, matrix_np, del_, ext, device=device)
+    if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)) and (
+            backend == "wavefront" or not keep_planes):
+        if huge:
+            _, qa, ta, coords = wf.align_single_global_chunked(
+                q, t, matrix_np, del_, ext, device=device, walk=walk)
+        elif keep_planes or walk == "host":
+            _, dirs = wf.fill_single_global(q, t, matrix_np, del_, ext, device=device)
+            qa, ta, coords = traceback_global(dirs, q, t)
+            return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet),
+                                   directions=dirs if keep_planes else None)
+        else:
+            _, qa, ta, coords = wf.align_single_global_direct(q, t, matrix_np, del_, ext,
+                                                              device=device)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
+    if backend == "wavefront":
+        raise ValidationError(
+            "wavefront backend requires an integral matrix/penalties, "
+            "qlen within its width cap, and int32-range scores"
+        )
     if huge:
         # the batched engine materializes O(R*C) planes: at this scale a
         # silent fallthrough is an OOM, not an alignment
-        raise ValidationError(
-            f"global pair of {len(t)}x{len(q)} = {cells} cells needs a "
-            "materialized plane under the requested options; huge pairs "
-            "require an integral matrix/penalties in int32 range (the "
-            "wavefront engines) and keep_planes=False"
-        )
+        raise _huge_global_refusal(len(q), len(t))
+    if keep_planes:
+        return _pair_with_planes(q, t, matrix_np, del_, ext, "global", alphabet, device)
     (res,) = batch_align([q], [t], matrix_np, del_, ext, mode="global",
-                         alphabet=alphabet, device=device, with_alignments=True)
+                         alphabet=alphabet, device=device, with_alignments=True,
+                         walk=walk)
     return res
 
 
@@ -519,7 +693,7 @@ def local_max_score(
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
-    on_host = isinstance(device, str) and device == "host"  # no torch.device
+    on_host = _on_host(device)
     if on_host and not native.available():
         raise ValidationError("device=\"host\" needs the native runtime, which did "
                               "not build")
@@ -541,7 +715,10 @@ def align_local(
     ext: float,
     *,
     alphabet: type[Alphabet] = Protein,
+    backend: str | None = None,
     device=None,
+    keep_planes: bool = False,
+    walk: str = "device",
 ) -> AlignmentResult:
     """Local (SW-style) alignment of one pair (simple/mod.rs:147-264).
 
@@ -553,28 +730,56 @@ def align_local(
     SURVEY §2.3.3), so unlike global mode a single local pair has no
     device path.  That is the reference's design for a huge local pair
     (``aligner_tpu.align.align_local``), not a way round a missing card.
+    ``backend="stream"`` forces the streaming engine at any size.
+
+    ``keep_planes`` returns the (tlen+1, qlen+1) ``score`` and
+    ``directions`` planes, from a batch of one on the batched fill with the
+    score plane (refused above the direct-plane budget and with
+    ``"stream"``).  ``device="host"`` is the host engine (native C++, the
+    reference's ``backend="oracle"``), its planes float64.  ``walk`` as in
+    :func:`align_global`.
     """
-    from . import native
+    from . import host, native
     from .ops import wavefront as wf
 
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
-    device = resolve_device(device)
+    if backend not in (None, "auto", "stream"):
+        raise ValidationError(
+            f"unknown backend {backend!r} for align_local (choose auto or stream)")
+    _check_walk(walk)
     cells = len(q) * len(t)
-    if cells > wf.DIRECT_PLANE_CELLS:
+    huge = cells > wf.DIRECT_PLANE_CELLS
+    if backend == "stream" and keep_planes:
+        raise ValidationError("stream cannot materialize planes (keep_planes)")
+    if huge and (keep_planes or not native.available()):
+        raise ValidationError(
+            f"local pair of {cells} cells needs a materialized "
+            "O(R*C) plane under the requested options; huge pairs "
+            "require the native streaming engine (default route) "
+            "without keep_planes"
+        )
+    on_host = _on_host(device)
+    if not on_host:
+        device = resolve_device(device)
+    if backend == "stream" or huge:
         if not native.available():
             raise ValidationError(
-                f"local pair of {cells} cells needs a materialized "
-                "O(R*C) plane under the requested options; huge pairs "
-                "require the native streaming engine (default route) "
-                "without keep_planes"
+                "backend='stream' requires the native runtime "
+                "(ALIGNER_NO_NATIVE unset and a working g++)"
             )
         f, qa, ta, coords = native.align_local_stream(q, t, np.asarray(matrix), del_, ext)
         return AlignmentResult(Alignment(qa, ta, coords, f, alphabet))
+    if on_host:
+        return _host_result(host.align_local(q, t, np.asarray(matrix), del_, ext),
+                            keep_planes, alphabet)
+    if keep_planes:
+        return _pair_with_planes(q, t, np.asarray(matrix), del_, ext, "local", alphabet,
+                                 device)
     (res,) = batch_align([q], [t], matrix, del_, ext, mode="local", alphabet=alphabet,
-                         device=device, with_alignments=True)
+                         device=device, with_alignments=True, walk=walk)
     if res is None:
         # the reference panics on index underflow here (simple/mod.rs:213-215)
         raise ResultIsEmpty("local alignment has no positive-scoring cell")
@@ -590,6 +795,7 @@ def align_pwm(
     alphabet: type[Alphabet] = DNA,
     device=None,
     dtype: torch.dtype | None = None,
+    walk: str = "device",
 ) -> AlignmentResult:
     """Query-vs-PWM local alignment (pwm/mod.rs:29-126).
 
@@ -599,13 +805,15 @@ def align_pwm(
     route silently.  An empty query is not an error:
     the reference's PWM traceback walks from the all-zero plane's (0, 0)
     argmax and returns an empty ``PWMAlignment`` with coords
-    ((1, 1), (1, 1)) and f = 0, on every route.
+    ((1, 1), (1, 1)) and f = 0, on every route.  ``walk`` as in
+    :func:`batch_align_pwm`.
     """
     pwm = np.asarray(pwm)
     if pwm.ndim != 2 or pwm.shape[0] != 4:
         raise MatrixShapeError(f"PWM must have 4 rows, got shape {pwm.shape}")
     q = _encode(query, alphabet)
-    if isinstance(device, str) and device == "host":  # no torch.device
+    _check_walk(walk)
+    if _on_host(device):
         from . import host
 
         r = host.align_pwm(q, pwm, del_, ext)
@@ -614,8 +822,58 @@ def align_pwm(
             r.coords, r.f, alphabet,
         ))
     (res,) = batch_align_pwm([q], pwm, del_, ext, alphabet=alphabet, device=device,
-                             dtype=dtype, with_alignments=True)
+                             dtype=dtype, with_alignments=True, walk=walk)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Class wrappers mirroring the reference's AlignerTrait (lib.rs:27-40).
+# ---------------------------------------------------------------------------
+
+
+class _SimpleAligner:
+    _mode: str
+
+    def __init__(self, query: np.ndarray, target: np.ndarray, alphabet):
+        self.query = query
+        self.target = target
+        self.alphabet = alphabet
+
+    @classmethod
+    def from_str_seqs(cls, query: str, target: str, alphabet=Protein):
+        return cls(alphabet.encode(query, strict=True), alphabet.encode(target, strict=True),
+                   alphabet)
+
+    @classmethod
+    def from_seqs(cls, query, target, alphabet=Protein):
+        return cls(_encode(query, alphabet), _encode(target, alphabet), alphabet)
+
+    def perform_alignment(
+        self, del_: float, ext: float, matrix, heuristics=None, **kw
+    ) -> AlignmentResult:
+        """The pair's alignment with its planes (``keep_planes`` defaults to
+        true, as the reference's simple aligners keep theirs); ``kw`` goes to
+        :func:`align_global` or :func:`align_local` (``device``, ``walk``,
+        ``backend``, ...)."""
+        if heuristics is not None:
+            raise UnnecessaryArgument(
+                "simple aligners take no heuristics (lib.rs Error::UnnecessaryArgument)"
+            )
+        fn = align_global if self._mode == "global" else align_local
+        kw.setdefault("keep_planes", True)
+        return fn(self.query, self.target, matrix, del_, ext, alphabet=self.alphabet, **kw)
+
+
+class SimpleGlobalAligner(_SimpleAligner):
+    """Equivalent of aligner-core SimpleGlobalAligner (simple/mod.rs:9-145)."""
+
+    _mode = "global"
+
+
+class SimpleLocalAligner(_SimpleAligner):
+    """Equivalent of aligner-core SimpleLocalAligner (simple/mod.rs:147-265)."""
+
+    _mode = "local"
 
 
 class PWMAligner:

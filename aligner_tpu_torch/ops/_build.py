@@ -136,7 +136,7 @@ def bind_fill(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32,  # V, B, C, R8
         f64, f64,  # del, ext
         i32, i32, i32, i32, i32,  # is_f64, is_pwm, is_global, track_argmax, with_dirs
-        p, p, p, p, p, p,  # spilled rows, fmax, fy, fx, end, words
+        p, p, p, p, p, p, p,  # spilled rows, fmax, fy, fx, end, words, score plane
         i32, i32,  # threads a block, rows on chip
         i32, i32, p,  # matrix in smem, smem, stream
     ]

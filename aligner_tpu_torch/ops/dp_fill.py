@@ -5,7 +5,10 @@ Counterpart of ``aligner_tpu/ops/pallas_dp.py``: one kernel covers the
 scores-only specialisations (``fill_scores_traced``,
 ``fill_pwm_scores_traced``) and the direction-word ones
 (``fill_full_traced``, ``fill_pwm_full_traced``), pair mode local and
-global and PWM mode, argmax tracking on and off, float32 and float64.
+global and PWM mode, argmax tracking on and off, float32 and float64, and
+with directions the score plane (``with_scores_plane``: the interior
+values, which :func:`planes_from_interior` gives borders, as
+``pallas_dp._assemble`` does).
 :func:`fill` (pair) and :func:`fill_pwm` (PWM) launch the kernel for CUDA
 tensors and take the plain versions
 (:func:`aligner_tpu_torch.ops.scan_engine.fill_batch`,
@@ -44,6 +47,7 @@ class _Launches:
         self.scores = self.dirs = 0
         self.pwm_scores = self.pwm_dirs = 0
         self.spilled = 0  # of all the above: launches with rows off chip
+        self.planes = 0  # of all the above: launches that wrote the score plane
 
 
 launches = _Launches()
@@ -209,28 +213,31 @@ def _check_pwm(q, qlen, pwm) -> None:
 
 def fill(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
          mode: str = "local", track_argmax: bool = True,
-         with_dirs: bool = False) -> FillResult:
+         with_dirs: bool = False, with_scores_plane: bool = False) -> FillResult:
     """Batched exact fill of B (query, target) problems.
 
     ``q`` (B, C) and ``t`` (B, R) int32 codes, ``qlen``/``tlen`` (B,)
     int32, ``matrix`` (V, V) or (B, V, V) float32/float64, all contiguous
     on one device.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version.  Global mode always tracks the argmax.
+    plain version.  Global mode always tracks the argmax.  With
+    ``with_dirs``, ``with_scores_plane`` also returns the score plane's
+    interior (``FillResult.plane``, (B, C, R8)) and tracks the argmax.
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
     _check(q, qlen, t, tlen, matrix)
     if q.device.type == "cpu":
         return fill_batch(q, qlen, t, tlen, matrix, del_, ext, mode=mode,
-                          track_argmax=track_argmax, with_dirs=with_dirs)
+                          track_argmax=track_argmax, with_dirs=with_dirs,
+                          with_scores_plane=with_scores_plane)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax,
-                   with_dirs)
+                   with_dirs, with_scores_plane)
 
 
 def fill_pwm(q, qlen, pwm, del_: float, ext: float, *, track_argmax: bool = True,
-             with_dirs: bool = False) -> FillResult:
+             with_dirs: bool = False, with_scores_plane: bool = False) -> FillResult:
     """Batched exact local fill of B queries against a position-weight
     matrix: the plane is (qlen+1, W+1), rows are query positions and
     every PWM column is active.
@@ -240,24 +247,27 @@ def fill_pwm(q, qlen, pwm, del_: float, ext: float, *, track_argmax: bool = True
     when R is a multiple of 8) —, ``qlen`` (B,) int32, ``pwm`` (4, W) or
     (B, 4, W) float32/float64, all on one device.  CUDA tensors launch the
     kernel; CPU tensors take the plain version.  The direction words are
-    (B, R8/8, W) int32, problem-major.
+    (B, R8/8, W) int32, problem-major; ``with_scores_plane`` as in
+    :func:`fill`, the plane (B, W, R8).
     """
     _check_pwm(q, qlen, pwm)
     if q.device.type == "cpu":
         return fill_pwm_batch(q, qlen, pwm, del_, ext, track_argmax=track_argmax,
-                              with_dirs=with_dirs)
+                              with_dirs=with_dirs, with_scores_plane=with_scores_plane)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(None, None, q, qlen, pwm, del_, ext, "pwm", track_argmax,
-                   with_dirs)
+                   with_dirs, with_scores_plane)
 
 
-def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
+def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs,
+            with_scores_plane):
     """One kernel launch.  PWM mode: ``q``/``qlen`` are None, ``t`` holds
     the query codes (the rows) and ``tlen`` their lengths."""
     is_pwm = mode == "pwm"
     is_global = mode == "global"
-    track = track_argmax or is_global
+    with_plane = with_dirs and with_scores_plane
+    track = track_argmax or is_global or with_plane
     dev = t.device
     B, R = t.shape
     C = matrix.shape[-1] if is_pwm else q.shape[1]
@@ -286,8 +296,10 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
         end = torch.empty(B, dtype=dtype, device=dev)
         words = (torch.empty((B, R8 // 8, C), dtype=torch.int32, device=dev)
                  if with_dirs else None)
+        plane = (torch.empty((B, C, R8), dtype=dtype, device=dev) if with_plane
+                 else None)
         if B == 0:
-            return FillResult(fmax, fy, fx, end, words)
+            return FillResult(fmax, fy, fx, end, words, plane)
         err = lib.dp_fill_launch(
             None if is_pwm else qT.data_ptr(), tT.data_ptr(),
             None if is_pwm else qlen.data_ptr(), tlen.data_ptr(),
@@ -297,12 +309,15 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
             int(with_dirs), None if spill is None else spill.data_ptr(),
             fmax.data_ptr(), fy.data_ptr(), fx.data_ptr(), end.data_ptr(),
             words.data_ptr() if with_dirs else None,
+            plane.data_ptr() if with_plane else None,
             plan.threads, S, int(plan.mat_bytes > 0), plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "dp_fill")
         if spill is not None:
             launches.spilled += 1
+        if with_plane:
+            launches.planes += 1
         if is_pwm:
             if with_dirs:
                 launches.pwm_dirs += 1
@@ -312,7 +327,7 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs):
             launches.dirs += 1
         else:
             launches.scores += 1
-    return FillResult(fmax, fy, fx, end, words)
+    return FillResult(fmax, fy, fx, end, words, plane)
 
 
 class DPFill(nn.Module):
@@ -336,9 +351,11 @@ class DPFill(nn.Module):
         return cls(torch.as_tensor(np.array(m), dtype=dtype, device=device), del_, ext)
 
     def forward(self, q, qlen, t, tlen, *, mode: str = "local",
-                track_argmax: bool = True, with_dirs: bool = False) -> FillResult:
+                track_argmax: bool = True, with_dirs: bool = False,
+                with_scores_plane: bool = False) -> FillResult:
         return fill(q, qlen, t, tlen, self.matrix, self.del_, self.ext,
-                    mode=mode, track_argmax=track_argmax, with_dirs=with_dirs)
+                    mode=mode, track_argmax=track_argmax, with_dirs=with_dirs,
+                    with_scores_plane=with_scores_plane)
 
 
 class PWMFill(nn.Module):
@@ -363,9 +380,10 @@ class PWMFill(nn.Module):
         return cls(torch.as_tensor(np.array(m), dtype=dtype, device=device), del_, ext)
 
     def forward(self, q, qlen, *, track_argmax: bool = True,
-                with_dirs: bool = False) -> FillResult:
+                with_dirs: bool = False, with_scores_plane: bool = False) -> FillResult:
         return fill_pwm(q, qlen, self.pwm, self.del_, self.ext,
-                        track_argmax=track_argmax, with_dirs=with_dirs)
+                        track_argmax=track_argmax, with_dirs=with_dirs,
+                        with_scores_plane=with_scores_plane)
 
 
 # byte → its four 2-bit direction codes (for host-side plane unpacking)
@@ -403,3 +421,28 @@ def dirs_from_packed(w: np.ndarray, qlen, tlen, mode: str) -> np.ndarray:
         )
     dirs[:, 1:, 1:] = d
     return dirs
+
+
+def planes_from_interior(v: np.ndarray, qlen, tlen, mode: str, del_: float,
+                         rows: int) -> np.ndarray:
+    """The score plane's interior (B, C, R8), as a fill returns it
+    (``FillResult.plane`` on the host) → (B, rows+1, C+1) planes in its dtype
+    with the reference's borders (``pallas_dp._assemble``): global rows and
+    columns ``-i·del`` with the far corners ``-(len+1)·del``, local borders
+    0.  Rows past ``rows``, the 8-row padding, are dropped."""
+    B, C, R8 = v.shape
+    plane = np.zeros((B, R8 + 1, C + 1), v.dtype)
+    if mode == "global":
+        qlen = np.asarray(qlen)
+        tlen = np.asarray(tlen)
+        fdt = plane.dtype
+        xs = np.arange(1, C + 1, dtype=np.int32)
+        ys = np.arange(1, R8 + 1, dtype=np.int32)
+        qlf = qlen.astype(fdt)[:, None]
+        tlf = tlen.astype(fdt)[:, None]
+        plane[:, 0, 1:] = np.where(xs[None, :] == qlen[:, None],
+                                   -(qlf + 1) * del_, -xs[None, :].astype(fdt) * del_)
+        plane[:, 1:, 0] = np.where(ys[None, :] == tlen[:, None],
+                                   -(tlf + 1) * del_, -ys[None, :].astype(fdt) * del_)
+    plane[:, 1:, 1:] = np.transpose(v, (0, 2, 1))
+    return plane[:, : rows + 1]

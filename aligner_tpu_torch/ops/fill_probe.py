@@ -1,11 +1,13 @@
-"""Variants of the batched fill kernel (``csrc/dp_fill.cu``) timed side by
-side on one card, each held equal to the shipped kernel.
+"""Variants of the batched fill kernel (``csrc/dp_fill.cu``, its body
+``csrc/dp_fill_core.cuh``) timed side by side on one card, each held equal
+to the shipped kernel.
 
     python -m aligner_tpu_torch.ops.fill_probe [--out DIR] [--sass]
         [--variants NAME,...] [--shapes WORD,...] [--reps N]
 
-A variant is the shipped source with some text replaced (``VARIANTS``);
-each compiles in its own ``nvcc`` (all at once) into ``build/variants/``
+A variant is the shipped kernel body with some text replaced (``VARIANTS``);
+each compiles beside ``dp_fill.cu`` in its own ``nvcc`` (all at once) into
+``build/variants/``
 and is loaded in turn in place of the built library, so the wrapper, the
 launch plan and the inputs are the shipped ones.  Every variant runs at
 the main path's shapes of the fill (the p-value launch, the full-mode
@@ -34,7 +36,8 @@ import torch
 from ..matrices import blosum62
 from . import _build, dp_fill
 
-_SRC = os.path.join(_build._CSRC, "dp_fill.cu")
+_SRC = os.path.join(_build._CSRC, "dp_fill_core.cuh")
+_LAUNCHER = os.path.join(_build._CSRC, "dp_fill.cu")
 _OUT = os.path.join(os.path.dirname(_build._OUT_DIR), "variants")
 
 # A block of 8 cells that are all active (most blocks): no select on
@@ -82,7 +85,7 @@ SCAN_WARPS = (1, 2, 3)  # warps a block forced at the repeat scan's shape
 # the instances whose SASS --sass keeps: f32 pair local scores only
 # without argmax (the p-value), f32 pair local with argmax and directions
 # (the full batch), f64 PWM scores only (the repeat scan)
-SASS_OF = ("IfLb0ELb0ELb0ELb0E", "IfLb0ELb1ELb1ELb0E", "IdLb0ELb0ELb0ELb1E")
+SASS_OF = ("IfLb0ELb0ELb0ELb0ELb0E", "IfLb0ELb1ELb1ELb0ELb0E", "IdLb0ELb0ELb0ELb1ELb0E")
 
 # The scores through one pointer that may be shared or device memory: the
 # compiler then makes generic 64-bit loads and their address arithmetic.
@@ -116,7 +119,8 @@ __device__ __forceinline__ bool is_zero(double v) {
 _SUB_RN = """__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 """
-_KERNEL_HEAD = "template <typename T, bool GLOBAL, bool TRACK, bool DIRS, bool PWM>\n__global__"
+_KERNEL_HEAD = ("template <typename T, bool GLOBAL, bool TRACK, bool DIRS, bool PWM, bool PLANE>\n"
+                "__global__")
 
 # name -> [(text in the shipped source, its replacement), ...]
 VARIANTS: dict[str, list[tuple[str, str]]] = {
@@ -149,7 +153,7 @@ VARIANTS: dict[str, list[tuple[str, str]]] = {
 
 
 def variant_sources(names, base: str | None = None) -> dict[str, str]:
-    """The shipped source (``base``, by default ``csrc/dp_fill.cu``) and
+    """The shipped kernel body (``base``, by default ``csrc/dp_fill_core.cuh``) and
     each named variant of it; raises ``ValueError`` where a variant's
     anchor text is not in the source exactly once."""
     if base is None:
@@ -169,12 +173,17 @@ def variant_sources(names, base: str | None = None) -> dict[str, str]:
 
 def _build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
     nvcc = _build._nvcc()
+    with open(_LAUNCHER) as fh:
+        launcher = fh.read()
     procs = []
     for name, src in sources.items():
         d = os.path.join(_OUT, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "dp_fill.cu"), "w") as fh:
+        # the launcher includes the body beside it: this variant's
+        with open(os.path.join(d, "dp_fill_core.cuh"), "w") as fh:
             fh.write(src)
+        with open(os.path.join(d, "dp_fill.cu"), "w") as fh:
+            fh.write(launcher)
         cmd = [nvcc, *_build.FLAGS, "-Xptxas", "-v", "-shared", "-o",
                os.path.join(d, "dp_fill.so"), os.path.join(d, "dp_fill.cu")]
         procs.append((name, cmd, subprocess.Popen(

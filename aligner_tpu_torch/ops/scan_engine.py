@@ -46,7 +46,12 @@ class FillResult:
     cell (zeros for ``fy``/``fx``/``end`` when argmax tracking is off);
     ``end``: ``a[tlen, qlen]`` (the global end score).  ``words``: packed
     directions (B, R8/8, C) int32 — 8 two-bit codes per word, row
-    ``r`` at bit ``2·(r % 8)`` — or None in scores-only mode.
+    ``r`` at bit ``2·(r % 8)`` — or None in scores-only mode.  ``plane``:
+    the interior of the score plane, (B, C, R8) in the fill's dtype with
+    ``plane[b, x - 1, y - 1] = a[y, x]`` (each column's rows contiguous; 0
+    at inactive cells), or None; it comes only with ``words``
+    (:func:`aligner_tpu_torch.ops.dp_fill.planes_from_interior` adds the
+    borders).
     """
 
     fmax: torch.Tensor
@@ -54,6 +59,7 @@ class FillResult:
     fx: torch.Tensor
     end: torch.Tensor
     words: torch.Tensor | None = None
+    plane: torch.Tensor | None = None
 
 
 def round8(n: int) -> int:
@@ -62,13 +68,15 @@ def round8(n: int) -> int:
 
 def fill_batch(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
                mode: str = "local", track_argmax: bool = True,
-               with_dirs: bool = False) -> FillResult:
+               with_dirs: bool = False, with_scores_plane: bool = False) -> FillResult:
     """Plain batched fill.
 
     ``q``: (B, C) int32 query codes (columns); ``t``: (B, R) int32 target
     codes (rows); ``qlen``/``tlen``: (B,) int32; ``matrix``: (V, V) shared
     or (B, V, V) per-problem, in the working float dtype.  Global mode
-    always tracks the argmax (the end cell is captured there).
+    always tracks the argmax (the end cell is captured there), and so does
+    a fill with the score plane, which comes only with the directions
+    (``pallas_dp.fill_batch_pallas``'s ``scores_plane and with_planes``).
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
@@ -87,19 +95,19 @@ def fill_batch(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
 
     return _fill_core(qlen, t, tlen, q.shape[1], score, matrix.dtype, del_, ext,
                       is_global=mode == "global", track_argmax=track_argmax,
-                      with_dirs=with_dirs)
+                      with_dirs=with_dirs, with_plane=with_dirs and with_scores_plane)
 
 
 def fill_pwm_batch(q, qlen, pwm, del_: float, ext: float, *,
-                   track_argmax: bool = True,
-                   with_dirs: bool = False) -> FillResult:
+                   track_argmax: bool = True, with_dirs: bool = False,
+                   with_scores_plane: bool = False) -> FillResult:
     """Plain batched query-vs-PWM fill (local).
 
     The plane is (qlen+1, W+1): rows are query positions, columns PWM
     positions, and every column is active.  ``q``: (B, R) int32 codes in
     [0, 4); ``qlen``: (B,) int32; ``pwm``: (4, W) shared or (B, 4, W)
     per-problem, in the working float dtype.  The score of cell (y, x) is
-    ``pwm[q[y-1], x-1]``.
+    ``pwm[q[y-1], x-1]``.  ``with_scores_plane`` as in :func:`fill_batch`.
     """
     W = pwm.shape[-1]
     if pwm.dim() == 3:
@@ -116,15 +124,16 @@ def fill_pwm_batch(q, qlen, pwm, del_: float, ext: float, *,
     full = torch.full((B,), W, dtype=torch.int64, device=q.device)
     return _fill_core(full, q, qlen, W, score, pwm.dtype, del_, ext,
                       is_global=False, track_argmax=track_argmax,
-                      with_dirs=with_dirs)
+                      with_dirs=with_dirs, with_plane=with_dirs and with_scores_plane)
 
 
 def _fill_core(qlen, t, tlen, C: int, score, dtype, del_: float, ext: float, *,
-               is_global: bool, track_argmax: bool, with_dirs: bool) -> FillResult:
+               is_global: bool, track_argmax: bool, with_dirs: bool,
+               with_plane: bool = False) -> FillResult:
     """The penalty chain of both modes.  ``t`` (B, R) holds the row codes
     and ``qlen`` the active columns; ``score(x1, tT)`` gives column
     ``x1``'s (R8, B) scores from the row codes ``tT`` (R8, B) int64."""
-    track_argmax = track_argmax or is_global
+    track_argmax = track_argmax or is_global or with_plane
     dev = t.device
     B, R = t.shape
     R8 = round8(R)
@@ -155,6 +164,7 @@ def _fill_core(qlen, t, tlen, C: int, score, dtype, del_: float, ext: float, *,
     ev = torch.zeros(B, dtype=dtype, device=dev)
     words = (torch.zeros((B, R8 // 8, C), dtype=torch.int32, device=dev)
              if with_dirs else None)
+    plane = torch.zeros((B, C, R8), dtype=dtype, device=dev) if with_plane else None
     shifts = (2 * torch.arange(8, device=dev, dtype=torch.int64))[None, :, None]
     row_active = ys <= tlen[None, :]  # (R8, B)
 
@@ -192,6 +202,8 @@ def _fill_core(qlen, t, tlen, C: int, score, dtype, del_: float, ext: float, *,
             d = torch.where(active, d, BEG).to(torch.int64)
             packed = (d.reshape(R8 // 8, 8, B) << shifts).sum(1)  # (R8/8, B)
             words[:, :, x1 - 1] = _wrap_i32(packed).T
+        if with_plane:
+            plane[:, x1 - 1] = vals.T
 
         if track_argmax:
             masked = torch.where(active, ms, neg_inf)
@@ -211,7 +223,8 @@ def _fill_core(qlen, t, tlen, C: int, score, dtype, del_: float, ext: float, *,
     i32 = torch.int32
     if not track_argmax:
         by, bx, ev = torch.zeros_like(by), torch.zeros_like(bx), torch.zeros_like(ev)
-    return FillResult(fmax=bv, fy=by.to(i32), fx=bx.to(i32), end=ev, words=words)
+    return FillResult(fmax=bv, fy=by.to(i32), fx=bx.to(i32), end=ev, words=words,
+                      plane=plane)
 
 
 def _wrap_i32(v: torch.Tensor) -> torch.Tensor:

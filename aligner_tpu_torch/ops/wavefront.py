@@ -642,18 +642,30 @@ def replay_walk_plain(words, state, steps, *, row_base: int, col_base: int = 0) 
     if y < 1 or y > rows or x < 1 or x > w.shape[1]:
         return
     budget = steps.numel() * 16
-    codes = []
-    while y > 0 and x > 0 and n + len(codes) < budget:
-        r = y - 1
-        d = (int(w[r >> 4, x - 1]) >> ((r & 15) * 2)) & 3
-        codes.append(d)
-        y -= d in (TOP, DIAG)
-        x -= d in (LEFT, DIAG)
+    codes, y, x = walk_block_host(w, y, x, budget - n)
     out = _unpack_step_words(steps.cpu().numpy(), budget)
     out[n : n + len(codes)] = codes
     steps.copy_(torch.from_numpy(_pack_step_codes(out)))
     state.copy_(torch.tensor([row_base + y, col_base + x, n + len(codes)],
                              dtype=torch.int32))
+
+
+def walk_block_host(w: np.ndarray, y: int, x: int, budget: int | None = None):
+    """One cursor through a block's packed words on the host: ``w``
+    (rows/16, cols) int32 as the fills write them, the cursor at the
+    block's cell (``y``, ``x``), 1-based.  Each step reads its code straight
+    from its word and moves; the walk stops on the block's top or left edge
+    (``y`` or ``x`` 0) or after ``budget`` steps.  Returns the codes taken and
+    where the cursor stopped.  The walk of :func:`replay_walk_plain` and of
+    the host walks (``walk="host"``)."""
+    codes: list[int] = []
+    while y > 0 and x > 0 and (budget is None or len(codes) < budget):
+        r = y - 1
+        d = (int(w[r >> 4, x - 1]) >> ((r & 15) * 2)) & 3
+        codes.append(d)
+        y -= d in (TOP, DIAG)
+        x -= d in (LEFT, DIAG)
+    return codes, y, x
 
 
 def _unpack_step_words(packed: np.ndarray, n: int) -> np.ndarray:
@@ -692,10 +704,21 @@ def _assemble(pp, state, steps):
     """Download the finished walk and build the aligned pair with the
     reference's traceback semantics (seeded last characters, border runs;
     simple/mod.rs:99-127)."""
+    cy, cx, n = (int(v) for v in state.cpu())
+    return _assemble_steps(pp, cy, cx, n, steps[: _cdiv(n, 16)].cpu().numpy())
+
+
+def _assemble_codes(pp, cy: int, cx: int, codes: list[int]):
+    """:func:`_assemble` of a walk taken on the host: its codes in order and
+    the cell where it stopped."""
+    out = np.full(_cdiv(len(codes), 16) * 16, BEG, np.uint8)
+    out[: len(codes)] = codes
+    return _assemble_steps(pp, cy, cx, len(codes), _pack_step_codes(out))
+
+
+def _assemble_steps(pp, cy: int, cx: int, n: int, packed: np.ndarray):
     q, t = pp["q"], pp["t"]
     C_real, R_real = pp["C_real"], pp["R_real"]
-    cy, cx, n = (int(v) for v in state.cpu())
-    packed = steps[: _cdiv(n, 16)].cpu().numpy()
     if cy > 0 and cx > 0:
         raise RuntimeError(f"the walk stopped inside the plane at ({cy}, {cx})")
     qa_c, ta_c = steps_to_chunks(packed, n, R_real, C_real, q, t)
@@ -852,9 +875,43 @@ def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
     return end, ckpts, state, steps, info
 
 
+def _chunked_walk_host(pp, tb_rows: int, tr: int):
+    """The host walk of :func:`align_single_global_chunked`
+    (``aligner_tpu/ops/wavefront.py:1439-1474``): the same forward fill,
+    then from the last block up, each block the cursor enters replayed with
+    directions on the row-scan fill, its words brought to the host and
+    walked there by :func:`walk_block_host`.  No walk kernel is launched.
+    Returns the end score tensor and the walk's codes and last cell."""
+    from ..observability import counters, measure
+
+    C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
+    TB = min(tb_rows, _cdiv(R_real, tr) * tr)
+    t_dev = torch.as_tensor(_pad_rows(pp["t"], TB), device=dev)
+    with measure(f"{dev.type}/wavefront", R_real * C_real, 1, device=dev):
+        end, _, ckpts = _scan(pp, t_dev, None, 0, with_dirs=False, ckpt_every=TB,
+                              tr=None if tr == TILE_ROWS else tr)
+    t1 = time.perf_counter()
+    cy, cx, codes, blocks = R_real, C_real, [], 0
+    for j in range((R_real - 1) // TB, -1, -1):
+        _, words, _ = _scan(pp, t_dev[j * TB : (j + 1) * TB],
+                            ckpts[j - 1] if j else None, j * TB, with_dirs=True, tr=tr)
+        w = words.cpu().numpy()  # one block's words at a time
+        del words
+        c, y, cx = walk_block_host(w, cy - j * TB, cx)
+        codes += c
+        cy = j * TB + y
+        blocks += 1
+        if cy == 0 or cx == 0:
+            break
+    counters.record(f"{dev.type}/wavefront-replay", blocks * TB * C_real, 1,
+                    time.perf_counter() - t1)
+    return end, cy, cx, codes
+
+
 def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
                                 tb_rows: int = TB_ROWS, tr: int = TILE_ROWS,
-                                device=None, sync_each_block: bool = True):
+                                device=None, sync_each_block: bool = True,
+                                walk: str = "device"):
     """Exact alignment of ONE huge global pair in bounded memory.
 
     Checkpoint-and-replay traceback: a scores-only forward fill stores one
@@ -874,15 +931,25 @@ def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
     65,536 x 65,536 (``chip_smoke.py`` times both), so the read that can
     stop early is the default.
 
+    ``walk="host"`` walks each replayed block on the host instead
+    (:func:`_chunked_walk_host`; the JAX package's ``ALIGNER_DEVICE_WALK=0``),
+    with the same result.
+
     Returns ``(end_score, qa, ta, coords)`` with the reference's traceback
     semantics (seeded last characters, simple/mod.rs:99-127).
     """
     _check_tr(tr)
     if tb_rows < tr or tb_rows % tr:
         raise ValueError("tb_rows must be a positive multiple of tr")
+    if walk not in ("device", "host"):
+        raise ValueError(f"walk must be device or host, got {walk!r}")
     pp = _prep(q, t, matrix, del_, ext, device)
-    end, _, state, steps, _ = _chunked_walk(pp, tb_rows, tr, sync_each_block)
-    qa, ta, coords = _assemble(pp, state, steps)
+    if walk == "host":
+        end, cy, cx, codes = _chunked_walk_host(pp, tb_rows, tr)
+        qa, ta, coords = _assemble_codes(pp, cy, cx, codes)
+    else:
+        end, _, state, steps, _ = _chunked_walk(pp, tb_rows, tr, sync_each_block)
+        qa, ta, coords = _assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords
 
 

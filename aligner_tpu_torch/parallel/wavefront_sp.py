@@ -28,13 +28,16 @@ replayed tile is the identical DP restricted to that tile, so the walk
 follows the directions a full-plane traceback would.  The loop over the
 tiles the cursor crosses is a host loop that reads the cursor once a tile.
 
+The reference's ``ALIGNER_DEVICE_WALK=0`` host walk is ``walk="host"``
+here (the variable is not read): each crossed tile is replayed on the
+column-block fill as before, and its words are walked on the host.
+
 Not carried over: the mesh, ``shard_map`` and the ``ppermute`` halo (one
 device); the one-dispatch ``lax.while_loop`` replay (it exists for the
 reference's per-dispatch round trip); ``auto_shard_config`` and its two
-rate models, which are fits of the reference's accelerator; the
-``ALIGNER_DEVICE_WALK`` host walk.  Not ported yet: the ``"band"`` forward
-engine and the ``"lax"`` engine for integral matrices beyond int8, which
-are refused by name.
+rate models, which are fits of the reference's accelerator.  Not ported
+yet: the ``"band"`` forward engine and the ``"lax"`` engine for integral
+matrices beyond int8, which are refused by name.
 
 Cites: simple/mod.rs:42-144 (fill, borders), simple/mod.rs:99-127
 (traceback semantics).
@@ -292,9 +295,41 @@ def _sharded_walk(pp):
     return end, lb_hist, ckpts, state, steps, info
 
 
+def _sharded_walk_host(pp):
+    """The host walk of :func:`sharded_global_align`
+    (``aligner_tpu/parallel/wavefront_sp.py:906-990``): the same forward
+    fill and records, then each tile the cursor enters replayed with
+    directions on the column-block fill, its words brought to the host and
+    walked there (:func:`ops.wavefront.walk_block_host`).  No walk kernel
+    is launched.  Returns the end score tensor and the walk's codes and
+    last cell."""
+    from ..observability import counters, measure
+
+    dev, Cb, TB = pp["device"], pp["Cb"], pp["tb"]
+    R_real, C_real = pp["R_real"], pp["C_real"]
+    with measure(f"{dev.type}/wavefront-sp", R_real * C_real, 1, device=dev):
+        end, lb_hist, ckpts = _forward(pp, with_trace=True)
+    t1 = time.perf_counter()
+    cy, cx, codes, tiles = R_real, C_real, [], 0
+    while cy > 0 and cx > 0:
+        j, d = (cy - 1) // TB, (cx - 1) // Cb
+        h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
+        words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
+                       with_dirs=True)[3]
+        w = words.cpu().numpy()  # one tile's words at a time
+        del words
+        c, y, x = wf.walk_block_host(w, cy - j * TB, cx - d * Cb)
+        codes += c
+        cy, cx = j * TB + y, d * Cb + x
+        tiles += 1
+    counters.record(f"{dev.type}/wavefront-sp-replay", tiles * TB * Cb, 1,
+                    time.perf_counter() - t1)
+    return end, cy, cx, codes
+
+
 def sharded_global_align(n_blocks, q, t, matrix, del_: float, ext: float, *,
                          tr: int | None = None, tb_rows: int = TB_ROWS,
-                         engine: str | None = None, device=None):
+                         engine: str | None = None, device=None, walk: str = "device"):
     """Exact global ALIGNMENT of one huge pair, its columns cut into blocks
     on ``device``: checkpoint-and-replay traceback on top of the forward
     fill of :func:`sharded_global_end_score` (same ``n_blocks``, ``tr``,
@@ -309,9 +344,16 @@ def sharded_global_align(n_blocks, q, t, matrix, del_: float, ext: float, *,
     checkpoint rows inside a call, so a forward block may hold many).
     Forward extra memory is O(R·n + R·C/tb_rows) ints; the traceback
     replays one (tb_rows x column block) tile per tile the path crosses and
-    reads the cursor after each.
+    reads the cursor after each.  ``walk="host"`` walks each replayed tile
+    on the host instead (:func:`_sharded_walk_host`), with the same result.
     """
+    if walk not in ("device", "host"):
+        raise ValueError(f"walk must be device or host, got {walk!r}")
     pp = _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine, device)
-    end, _, _, state, steps, _ = _sharded_walk(pp)
-    qa, ta, coords = wf._assemble(pp, state, steps)
+    if walk == "host":
+        end, cy, cx, codes = _sharded_walk_host(pp)
+        qa, ta, coords = wf._assemble_codes(pp, cy, cx, codes)
+    else:
+        end, _, _, state, steps, _ = _sharded_walk(pp)
+        qa, ta, coords = wf._assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords

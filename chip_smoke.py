@@ -94,14 +94,29 @@ against the native C++ host engine or the frozen golden fixtures:
    ``backend="wavefront_sp"`` on a small pair against the host engine; the
    path is driven first, alone, and held against the other routes after
    its launch counts are read;
-13. the kernels' launch counts of each path: the pair path (phases 3-6),
+13. the simple aligners and the host walks: the fill kernel with the score
+   plane held bit for bit against its plain version (ragged and dense
+   batches, local and global, f32 and f64, shared and per-problem
+   matrices, PWM mode) and timed on the ``examples/protein.fasta`` pair at
+   B = 1; ``SimpleGlobalAligner``/``SimpleLocalAligner.from_str_seqs`` on the
+   three example FASTAs against the golden fixtures, their planes against
+   ``native.fill``; ``perform_alignment`` in both modes on a seeded
+   8,192 x 8,192 pair (the most ``keep_planes`` takes), its planes against
+   native C++ and its strings against ``device="host"``, timed beside it;
+   then ``walk="host"`` against the default walk on the full batch, the
+   1,024 PWM survivors, ``align_global`` at 65,536 x 65,536 and the
+   column-blocked pipeline on that pair in 4 blocks, with K4 and W launched
+   no time under it;
+14. the kernels' launch counts of each path: the pair path (phases 3-6),
    the population path (phase 7: the count once an iteration), the service
    path (phase 8: the worker process's K2, K4 and count launches, which it
    prints at exit, and calc's K1 launches; the count once an iteration of
    each task), the PWM path (phase 9), the huge-pair path (phase 10), the
-   end-score path (phase 11) and the column-blocked path (phase 12), each
-   counted from zero; the row-scan, column-block and band fills make one
-   launch a call.
+   end-score path (phase 11), the column-blocked path (phase 12), the
+   simple aligners' path (phase 13: the score plane once a pair, no walk
+   kernel) and the host walks' path (phase 13: the fills, no walk kernel),
+   each counted from zero; the row-scan, column-block and band fills make
+   one launch a call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -176,6 +191,10 @@ SMALL_PAIR = (300, 400)  # the routes of global_end_score
 CHUNKED_PAIR = (8_000, 9_000)  # (query, target): past the direct-plane budget
 DIRECT_PAIR = (3_000, 4_000)
 CLI_PAIR_LEN = 3_000
+# the simple aligners: a homologous pair of 2^26 cells, the most keep_planes
+# takes (ops.wavefront.DIRECT_PLANE_CELLS)
+PLANE_LEN = 8_192
+PLANE_SEED = SEED + 31
 # the heuristic population a service worker runs for one request of
 # bench_service.py (kdValue 0, rSquaredValue 1e5, delValue 11, dimValue 24,
 # matricesVolumeValue 64) on the examples/protein.fasta pair; the worker
@@ -703,7 +722,7 @@ def fill_bound(cells, ops_cell, args, matrix, res) -> dict:
     """Bound of one batched fill: its cells' operations against its inputs
     read once and its outputs written once."""
     return bound(ops_cell * cells, nbytes(*args, matrix, res.fmax, res.fy, res.fx,
-                                          res.end, res.words),
+                                          res.end, res.words, res.plane),
                  rate=PEAK_F64_S if matrix.dtype == torch.float64 else PEAK_OPS_S)
 
 
@@ -2655,6 +2674,246 @@ def hold_column_blocked(dev, at, host, wf, sp, plain, wide, out):
           f"global_end_score equal the host engine ({s5['score']})", flush=True)
 
 
+def same_plane(a, b) -> bool:
+    return (same_fill(a, b) and a.plane is not None and a.plane.dtype == b.plane.dtype
+            and torch.equal(a.plane, b.plane))
+
+
+def plane_vs_plain(dev, at, dp_fill, scan_engine) -> int:
+    """The fill kernel with the score plane (K2/K3, ``PLANE``) against its
+    plain version, bit for bit, plane and words: seeded ragged and dense
+    batches, local and global, f32 and f64, a shared and per-problem
+    matrices, PWM mode with shared and per-problem PWMs."""
+    rng = np.random.default_rng(SEED + 31)
+    b62 = np.array(at.blosum62())
+    kw = dict(with_dirs=True, with_scores_plane=True)
+    n = 0
+    for dense in (False, True):
+        q, ql, t, tl = tensors(dev, *random_batch(rng, 300, 40, 37, dense))
+        for dtype in (torch.float32, torch.float64):
+            m = torch.as_tensor(b62, dtype=dtype, device=dev)
+            for mode in ("local", "global"):
+                check(same_plane(dp_fill.fill(q, ql, t, tl, m, DEL, EXT, mode=mode, **kw),
+                                 scan_engine.fill_batch(q, ql, t, tl, m, DEL, EXT,
+                                                        mode=mode, **kw)),
+                      f"dp_fill plane != plain ({dtype}, {mode}, dense={dense})")
+                n += 1
+    q, ql, t, tl = tensors(dev, *random_batch(rng, 130, 24, 29, False))
+    mats = torch.as_tensor(rng.normal(0.0, 3.0, (130, 24, 24)), device=dev)
+    for mode in ("local", "global"):
+        check(same_plane(dp_fill.fill(q, ql, t, tl, mats, 3.5, 1.25, mode=mode, **kw),
+                         scan_engine.fill_batch(q, ql, t, tl, mats, 3.5, 1.25, mode=mode,
+                                                **kw)),
+              f"dp_fill plane != plain (batched f64 matrix, {mode})")
+        n += 1
+    for batched in (False, True):
+        for dtype in (torch.float32, torch.float64):
+            q, ql, pwm = pwm_batch(rng, 300, 45, 37, batched, dtype, dev)
+            check(same_plane(dp_fill.fill_pwm(q, ql, pwm, PWM_DEL, PWM_EXT, **kw),
+                             scan_engine.fill_pwm_batch(q, ql, pwm, PWM_DEL, PWM_EXT, **kw)),
+                  f"PWM dp_fill plane != plain ({dtype}, batched={batched})")
+            n += 1
+    return n
+
+
+def plane_rows(dev, at, dp_fill, scan_engine, pq, pt):
+    """The plane variant at its path's shape: the ``examples/protein.fasta``
+    pair at B = 1 (``keep_planes``, one thread), global and local, each held
+    against its plain version and timed beside it; the global one is the
+    kernels line's row."""
+    from aligner_tpu_torch.align import pad_batch
+
+    m = torch.as_tensor(np.array(at.blosum62()), dtype=torch.float32, device=dev)
+    qq, qql = pad_batch([pq])
+    tt, ttl = pad_batch([pt])
+    args = tensors(dev, qq, qql, tt, ttl)
+    rows = []
+    for mode in ("global", "local"):
+        kw = dict(mode=mode, with_dirs=True, with_scores_plane=True)
+        got, ms, want, plain_ms = timed_pair(
+            lambda: dp_fill.fill(*args, m, DEL, EXT, **kw),
+            lambda: scan_engine.fill_batch(*args, m, DEL, EXT, **kw), 3)
+        check(same_plane(got, want), f"dp_fill plane != plain on the protein pair ({mode})")
+        rows.append(dict(name=f"dp_fill (score plane, keep_planes pair, {mode})",
+                         route="cuda", source="aligner_tpu_torch/csrc/dp_fill_core.cuh",
+                         replaces=REPLACES["dp_fill"], path="simple", counter="planes",
+                         max_abs_err=max(max_abs_err(got.plane, want.plane),
+                                         max_abs_err(got.words, want.words)),
+                         ms=ms, plain_ms=plain_ms,
+                         shape=f"1x{tt.shape[1]}x{qq.shape[1]} f32",
+                         plan=plan_line(dp_fill, 1, tt.shape[1], qq.shape[1], m, ms),
+                         **fill_bound(len(pq) * len(pt), OPS_FILL_DIRS, args, m, got)))
+    print_rows(rows)
+    # the PWM plane (K3) on no path of the run: timed at the survivors' shape
+    rng = np.random.default_rng(SEED + 32)
+    win = PWM_W + OFFSET
+    pwm = torch.as_tensor(scan_pwm(at, rng), device=dev)
+    q, ql = tensors(dev, rng.integers(0, 4, (N_SURVIVORS, win)), np.full(N_SURVIVORS, win))
+    kw = dict(with_dirs=True, with_scores_plane=True)
+    got, ms, want, plain_ms = timed_pair(
+        lambda: dp_fill.fill_pwm(q, ql, pwm, PWM_DEL, PWM_EXT, **kw),
+        lambda: scan_engine.fill_pwm_batch(q, ql, pwm, PWM_DEL, PWM_EXT, **kw), 3)
+    check(same_plane(got, want), "PWM dp_fill plane != plain at the survivors' shape")
+    b = fill_bound(N_SURVIVORS * win * PWM_W, OPS_FILL_DIRS, (q, ql), pwm, got)
+    print(f"  dp_fill PWM (score plane, survivors' shape {N_SURVIVORS}x{win}x{PWM_W} f64, "
+          f"on no path): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
+    return rows[:1]
+
+
+def phase_simple(at, native, read_fasta_file):
+    """The simple aligners, the keep_planes path, on the card:
+    ``SimpleGlobalAligner``/``SimpleLocalAligner.from_str_seqs`` on the three
+    example FASTAs (strings, coords and f against the golden fixtures; the
+    score plane as float64 and the directions against ``native.fill``), then
+    ``perform_alignment`` in both modes on a seeded homologous pair of
+    8,192 x 8,192, the most cells ``keep_planes`` takes: its planes against
+    native C++ bit for bit, its strings against ``device="host"``, timed."""
+    from aligner_tpu_torch.observability import counters
+    from aligner_tpu_torch.ops import wavefront as wf
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "fixtures", "examples_golden.json")) as fh:
+        golden = json.load(fh)
+    classes = {"global": at.SimpleGlobalAligner, "local": at.SimpleLocalAligner}
+    n = 0
+    for example, cases in sorted(golden.items()):
+        recs = read_fasta_file(os.path.join(here, "examples", f"{example}.fasta"))
+        qs, ts = recs[0].seq.decode(), recs[1].seq.decode()
+        q = at.Protein.encode(qs, strict=True)
+        t = at.Protein.encode(ts, strict=True)
+        for key, want in cases.items():
+            mode, d, e = key.split("_")
+            d, e = float(d[1:]), float(e[1:])
+            r = classes[mode].from_str_seqs(qs, ts).perform_alignment(
+                d, e, at.blosum62(), device=DEVICE)
+            aln = r.alignment
+            what = f"{example} {key}"
+            check(aln.f == want["f"], f"{what}: f")
+            check(tuple(map(tuple, aln.coords)) == tuple(map(tuple, want["coords"])),
+                  f"{what}: coords")
+            check(at.Protein.decode(aln.query) == want["query"], f"{what}: query")
+            check(at.Protein.decode(aln.target) == want["target"], f"{what}: target")
+            plane, dirs = native.fill(q, t, np.asarray(at.blosum62()), d, e, mode)
+            check(r.score.shape == plane.shape
+                  and np.array_equal(r.score.astype(np.float64), plane),
+                  f"{what}: the score plane != native C++")
+            check(np.array_equal(r.directions, dirs), f"{what}: the directions != native C++")
+            n += 1
+    check(n == 12, f"expected 12 golden cases, ran {n}")
+    print(f"  the simple aligners on the example FASTAs: {n} of 12 equal the golden "
+          f"fixtures, their planes native C++'s", flush=True)
+
+    q, t = homologous_pair(PLANE_SEED, PLANE_LEN, PLANE_LEN)
+    check(len(q) * len(t) == wf.DIRECT_PLANE_CELLS,
+          "the plane pair is not the direct-plane budget")
+    m = at.blosum62()
+    for mode, cls in classes.items():
+        aligner = cls.from_seqs(q, t)
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = aligner.perform_alignment(DEL, EXT, m, device=DEVICE)
+        wall = time.perf_counter() - t0
+        fill = counters.snapshot()[f"{DEVICE}/{mode}"]
+        t0 = time.perf_counter()
+        h = aligner.perform_alignment(DEL, EXT, m, device="host")
+        host_wall = time.perf_counter() - t0
+        check(r.score.shape == h.score.shape
+              and np.array_equal(r.score.astype(np.float64), h.score),
+              f"{mode} {PLANE_LEN}^2: the score plane != native C++")
+        check(np.array_equal(r.directions, h.directions),
+              f"{mode} {PLANE_LEN}^2: the directions != native C++")
+        check(same_alignment(r.alignment, h.alignment) and r.alignment.f == h.alignment.f,
+              f"{mode} {PLANE_LEN}^2: the alignment != device=\"host\"")
+        cells = PLANE_LEN * PLANE_LEN
+        # the fill's outputs written once: the plane and the words (8 rows a word)
+        b = bound(OPS_FILL_DIRS * cells, cells * r.score.itemsize + cells // 2,
+                  rate=PEAK_OPS_S)
+        print(f"  {cls.__name__} {PLANE_LEN}x{PLANE_LEN} keep_planes: call wall "
+              f"{wall:.3f} s, plane fill (one thread, synchronised) {fill.seconds:.3f} s "
+              f"({fill.seconds * 1e9 / cells:.1f} ns a cell; bound {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']}), the rest (planes to the "
+              f"host, borders, the walk) {wall - fill.seconds:.3f} s; device=\"host\" "
+              f"(native C++ fill and walk) {host_wall:.3f} s; planes equal native C++, "
+              f"the score plane {r.score.dtype}, alignment length "
+              f"{len(r.alignment.query)}, f {r.alignment.f}", flush=True)
+        del r, h
+
+
+def phase_host_walks(at, sp, plain, wide, blocked, launch_counts, reset_counts):
+    """``walk="host"`` against the default walk on every route: the full
+    batch (4,096 x 400^2, local and global), the 1,024 PWM survivors
+    (330 x W 300), ``align_global`` at 65,536 x 65,536 and the column-blocked
+    pipeline on that pair as 4 column blocks.  The default walks run first;
+    the host walks are then this path's run, counted from zero: K4 and W
+    must not launch.  Returns the path's launch counts."""
+    m = at.blosum62()
+    qs, ts = full_batch_pairs()
+    rng = np.random.default_rng(SEED + 33)
+    pwm = scan_pwm(at, rng)
+    surv = list(rng.integers(0, 4, (N_SURVIVORS, PWM_W + OFFSET)).astype(np.int8))
+    want, dev_walls = {}, {}
+    for mode in ("local", "global"):
+        t0 = time.perf_counter()
+        want[mode] = at.batch_align(qs, ts, m, DEL, EXT, mode=mode, with_alignments=True,
+                                    device=DEVICE)
+        dev_walls[mode] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_pwm = at.batch_align_pwm(surv, pwm, PWM_DEL, PWM_EXT, with_alignments=True,
+                                  device=DEVICE)
+    dev_walls["pwm"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    got, walls = {}, {}
+    for mode in ("local", "global"):
+        t0 = time.perf_counter()
+        got[mode] = at.batch_align(qs, ts, m, DEL, EXT, mode=mode, with_alignments=True,
+                                   device=DEVICE, walk="host")
+        walls[mode] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_pwm = at.batch_align_pwm(surv, pwm, PWM_DEL, PWM_EXT, with_alignments=True,
+                                 device=DEVICE, walk="host")
+    walls["pwm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    huge = at.align_global(plain["q"], plain["t"], m, DEL, EXT, device=DEVICE, walk="host")
+    walls["huge"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blk = sp.sharded_global_align(BLOCKED_B, plain["q"], plain["t"], np.asarray(m), DEL,
+                                  EXT, device=DEVICE, walk="host")
+    walls["blocked"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for mode in ("local", "global"):
+        check(all((a is None) == (b is None) and (a is None or (
+            same_alignment(a.alignment, b.alignment) and a.alignment.f == b.alignment.f))
+            for a, b in zip(got[mode], want[mode])),
+            f"full batch {mode}: walk=\"host\" != the device walk")
+    check(all(np.array_equal(a.alignment.numbered, b.alignment.numbered)
+              and np.array_equal(a.alignment.query, b.alignment.query)
+              and a.alignment.coords == b.alignment.coords
+              and a.alignment.f == b.alignment.f for a, b in zip(got_pwm, want_pwm)),
+          "PWM survivors: walk=\"host\" != the device walk")
+    check(same_alignment(huge.alignment, wide["pair_b"]),
+          "align_global 65,536^2: walk=\"host\" != the device walk")
+    res_b = blocked["B"]["res"]
+    check(blk[0] == res_b[0] and np.array_equal(blk[1], res_b[1])
+          and np.array_equal(blk[2], res_b[2]) and blk[3] == res_b[3],
+          "the column-blocked pipeline: walk=\"host\" != the device walk")
+    check(counts["walk"] == 0 and counts["replay_walk"] == 0,
+          f"walk=\"host\" launched a walk kernel ({counts['walk']} K4, "
+          f"{counts['replay_walk']} W)")
+    print(f"  walk=\"host\" equals the device walk: full batch local {walls['local']:.3f} s "
+          f"(device walk {dev_walls['local']:.3f} s), global {walls['global']:.3f} s "
+          f"({dev_walls['global']:.3f} s) ({N_FULL} pairs), PWM survivors "
+          f"{walls['pwm']:.3f} s ({dev_walls['pwm']:.3f} s) ({N_SURVIVORS}), align_global "
+          f"{PAIR_LEN}^2 "
+          f"{walls['huge']:.3f} s, column-blocked {PAIR_LEN}^2 in {BLOCKED_B} blocks "
+          f"{walls['blocked']:.3f} s; K4 and W launched {counts['walk']} and "
+          f"{counts['replay_walk']} times", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2710,6 +2969,7 @@ def main() -> int:
 
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
+                    planes=dp_fill.launches.planes,
                     pwm_scores=dp_fill.launches.pwm_scores,
                     pwm_dirs=dp_fill.launches.pwm_dirs, spilled=dp_fill.launches.spilled,
                     walk=device_walk.launches.walk,
@@ -2777,6 +3037,15 @@ def main() -> int:
     counts["column_blocked"] = launch_counts()
     with phase("column-blocked pair against the other routes"):
         hold_column_blocked(dev, at, host, wf, sp, plain, wide, blocked)
+    with phase("simple aligners and host walks"):
+        n = plane_vs_plain(dev, at, dp_fill, scan_engine)
+        print(f"  {n} score-plane variants bit-identical", flush=True)
+        rows += plane_rows(dev, at, dp_fill, scan_engine, pq, pt)
+        reset_counts()
+        phase_simple(at, native, read_fasta_file)
+        counts["simple"] = launch_counts()
+        counts["host_walk"] = phase_host_walks(at, sp, plain, wide, blocked,
+                                               launch_counts, reset_counts)
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
@@ -2786,7 +3055,10 @@ def main() -> int:
                 ("huge", "phase 10", ("row_scan", "row_scan_dirs", "replay_walk")),
                 ("end_score", "phase 11", ("band",)),
                 ("column_blocked", "phase 12",
-                 ("block_cs", "block_cs_dirs", "replay_walk"))):
+                 ("block_cs", "block_cs_dirs", "replay_walk")),
+                ("simple", "phase 13", ("planes",)),
+                ("host_walk", "phase 13",
+                 ("dirs", "pwm_dirs", "row_scan_dirs", "block_cs_dirs"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,
@@ -2798,6 +3070,9 @@ def main() -> int:
                   and c["band_tile_launches"] == c["band"],
                   f"the {path} path's row-scan, column-block or band calls made other "
                   f"than one launch each")
+        for path in ("simple", "host_walk"):
+            check(counts[path]["walk"] == 0 and counts[path]["replay_walk"] == 0,
+                  f"the {path} path launched a walk kernel: the walks are the host's")
         check(counts["population"]["freq_count"] == pop_iters,
               f"the population ran {pop_iters} iterations but launched the count "
               f"{counts['population']['freq_count']} times")

@@ -6,7 +6,9 @@ the replay walk (also with a column base), the band fill (K6) with the
 end score built on it, and the column-block fill (K7) with the
 column-blocked pipeline built on it, and the heuristic population's
 frequency count with the float64 transform and the population built on
-them.
+them, and the fill's score plane with ``keep_planes`` and the simple
+aligners on it, and the host walks (``walk="host"``) against the device
+walks.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -995,3 +997,173 @@ def test_population_refuses_codes_outside_the_matrices_before_a_launch(dev):
     torch.cuda.synchronize()
     assert (dp_fill.launches.dirs, device_walk.launches.walk,
             freq_count.launches.freq_count) == before
+
+
+# --------------------------------------------------------------------------
+# the score plane (K2/K3 with PLANE), keep_planes and the host walks
+# --------------------------------------------------------------------------
+
+
+def _equal_with_plane(a, b):
+    _equal(a, b)
+    assert a.plane.dtype == b.plane.dtype and torch.equal(a.plane, b.plane)
+
+
+PLANE_KINDS = ["local", "global", "batched-local", "batched-global", "pwm-shared",
+               "pwm-batched"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", PLANE_KINDS)
+@pytest.mark.parametrize("dense", [False, True], ids=["ragged", "dense"])
+def test_fill_kernel_plane_matches_plain(dev, dtype, kind, dense):
+    """The score plane beside the words, bit for bit, in pair mode (shared
+    and per-problem matrices) and PWM mode; one launch counted a plane."""
+    rng = np.random.default_rng(2 * PLANE_KINDS.index(kind) + int(dense))
+    planes = dp_fill.launches.planes
+    if kind.startswith("pwm"):
+        B, R, W = 300, 45, 37
+        q = torch.as_tensor(rng.integers(0, 4, (B, R)), dtype=torch.int32, device=dev)
+        ql = torch.as_tensor(np.full(B, R) if dense else rng.integers(0, R + 1, B),
+                             dtype=torch.int32, device=dev)
+        pwm = rng.normal(0.0, 3.0, (B, 4, W) if kind == "pwm-batched" else (4, W))
+        if dtype == torch.float32:
+            pwm = np.round(pwm)
+        pwm = torch.as_tensor(pwm, dtype=dtype, device=dev)
+        kw = dict(with_dirs=True, with_scores_plane=True)
+        got = dp_fill.fill_pwm(q, ql, pwm, 6.5, 1.75, **kw)
+        want = fill_pwm_batch(q, ql, pwm, 6.5, 1.75, **kw)
+    else:
+        q, ql, t, tl = _batch(7, 300, 40, 37, dense, dev)
+        if kind.startswith("batched"):
+            m = rng.normal(0.0, 3.0, (300, V, V))
+            if dtype == torch.float32:
+                m = np.round(m)
+        else:
+            m = np.array(blosum62())
+        m = torch.as_tensor(m, dtype=dtype, device=dev)
+        kw = dict(mode=kind.split("-")[-1], with_dirs=True, with_scores_plane=True)
+        got = dp_fill.fill(q, ql, t, tl, m, 11.0, 2.0, **kw)
+        want = fill_batch(q, ql, t, tl, m, 11.0, 2.0, **kw)
+    torch.cuda.synchronize()
+    assert dp_fill.launches.planes == planes + 1
+    _equal_with_plane(got, want)
+
+
+@pytest.mark.parametrize("where", [0, 8], ids=["at", "spilled"])
+def test_fill_kernel_plane_around_the_rows_on_chip(dev, where):
+    B, C = 40, 5
+    rng = np.random.default_rng(12)
+    m = torch.as_tensor(np.array(blosum62()), dtype=torch.float64, device=dev)
+    R8 = _rows_on_chip_at_most(m, B) - 1 + where
+    q = torch.as_tensor(rng.integers(0, V, (B, C)), dtype=torch.int32, device=dev)
+    ql = torch.as_tensor(rng.integers(0, C + 1, B), dtype=torch.int32, device=dev)
+    t = torch.as_tensor(rng.integers(0, V, (B, R8)), dtype=torch.int32, device=dev)
+    tl = torch.as_tensor(np.clip(R8 - rng.integers(0, 20, B), 0, R8), dtype=torch.int32,
+                         device=dev)
+    for mode in ("local", "global"):
+        kw = dict(mode=mode, with_dirs=True, with_scores_plane=True)
+        got = dp_fill.fill(q, ql, t, tl, m, 11.0, 2.0, **kw)
+        torch.cuda.synchronize()
+        _equal_with_plane(got, fill_batch(q, ql, t, tl, m, 11.0, 2.0, **kw))
+
+
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_keep_planes_on_the_card_matches_the_host_engine(dev, mode):
+    """A homologous pair with its planes: strings, coords, f, the score
+    plane (in the fill's dtype, compared as float64) and the directions
+    against native C++; one plane launch, no walk kernel."""
+    rng = np.random.default_rng(21)
+    q = rng.integers(0, 24, 700).astype(np.int8)
+    t = np.resize(q, 650).copy()
+    t[rng.random(650) < 0.25] = rng.integers(0, 24, 1)
+    fn = port.align_global if mode == "global" else port.align_local
+    planes, walks = dp_fill.launches.planes, device_walk.launches.walk
+    replays = wavefront.launches.replay_walk
+    got = fn(q, t, blosum62(), 11.0, 2.0, keep_planes=True)
+    want = fn(q, t, blosum62(), 11.0, 2.0, keep_planes=True, device="host")
+    assert dp_fill.launches.planes == planes + 1
+    assert (device_walk.launches.walk, wavefront.launches.replay_walk) == (walks, replays)
+    assert got.score.dtype == np.float32  # integral scoring on the card
+    assert np.array_equal(got.score.astype(np.float64), want.score)
+    assert np.array_equal(got.directions, want.directions)
+    assert np.array_equal(got.alignment.query, want.alignment.query)
+    assert np.array_equal(got.alignment.target, want.alignment.target)
+    assert got.alignment.coords == want.alignment.coords
+    assert got.alignment.f == want.alignment.f
+
+
+def test_simple_aligners_on_the_card(dev):
+    for cls in (port.SimpleGlobalAligner, port.SimpleLocalAligner):
+        a = cls.from_str_seqs("HEAGAWGHEE", "PAWHEAE")
+        got = a.perform_alignment(11.0, 2.0, blosum62())
+        want = a.perform_alignment(11.0, 2.0, blosum62(), device="host")
+        assert np.array_equal(got.score.astype(np.float64), want.score)
+        assert np.array_equal(got.directions, want.directions)
+        assert got.alignment.coords == want.alignment.coords
+        assert got.alignment.f == want.alignment.f
+
+
+def _counts():
+    return (device_walk.launches.walk, wavefront.launches.replay_walk)
+
+
+def _same_pairs(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert np.array_equal(x.alignment.query, y.alignment.query)
+            assert np.array_equal(x.alignment.target, y.alignment.target)
+            assert x.alignment.coords == y.alignment.coords
+            assert x.alignment.f == y.alignment.f
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_host_walk_on_the_card_matches_the_device_walk(dev, mode):
+    """``walk="host"`` equals the default walk on the batch, the PWM batch,
+    a chunked pair and the column-blocked pipeline, and launches neither K4
+    nor W."""
+    rng = np.random.default_rng(31)
+    qs = [rng.integers(0, 24, rng.integers(20, 120)).astype(np.int8) for _ in range(200)]
+    ts = [np.resize(q, len(q) + 5).copy() for q in qs]
+    dev_walk = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, mode=mode,
+                                with_alignments=True)
+    before = _counts()
+    host = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, mode=mode,
+                            with_alignments=True, walk="host")
+    assert _counts() == before
+    _same_pairs(host, dev_walk)
+    pwm = rng.normal(1.0, 3.0, (4, 30))
+    q4 = [rng.integers(0, 4, rng.integers(10, 60)).astype(np.int8) for _ in range(100)]
+    a = port.batch_align_pwm(q4, pwm, 3.0, 1.0, with_alignments=True)
+    before = _counts()
+    b = port.batch_align_pwm(q4, pwm, 3.0, 1.0, with_alignments=True, walk="host")
+    assert _counts() == before
+    for x, y in zip(a, b):
+        assert np.array_equal(x.alignment.numbered, y.alignment.numbered)
+        assert np.array_equal(x.alignment.query, y.alignment.query)
+        assert x.alignment.coords == y.alignment.coords and x.alignment.f == y.alignment.f
+
+
+def test_host_walk_of_the_huge_and_column_blocked_pairs_on_the_card(dev):
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    rng = np.random.default_rng(32)
+    q = rng.integers(0, 24, 3000).astype(np.int8)
+    t = np.resize(q, 3300).copy()
+    t[rng.random(3300) < 0.25] = rng.integers(0, 24, 1)
+    a = wavefront.align_single_global_chunked(q, t, blosum62(), 11.0, 2.0, tb_rows=512)
+    before = _counts()
+    b = wavefront.align_single_global_chunked(q, t, blosum62(), 11.0, 2.0, tb_rows=512,
+                                              walk="host")
+    assert _counts() == before
+    assert a[0] == b[0] and a[3] == b[3]
+    assert np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+    c = sp.sharded_global_align(3, q, t, blosum62(), 11.0, 2.0, tb_rows=512)
+    before = _counts()
+    d = sp.sharded_global_align(3, q, t, blosum62(), 11.0, 2.0, tb_rows=512, walk="host")
+    assert _counts() == before
+    assert c[0] == d[0] == a[0]
+    assert np.array_equal(c[1], d[1]) and np.array_equal(d[1], a[1])
+    assert np.array_equal(c[2], d[2]) and np.array_equal(d[2], a[2])

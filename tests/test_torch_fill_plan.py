@@ -148,7 +148,7 @@ def test_launch_plan_reads_a_per_problem_matrix_through_the_cache(monkeypatch):
 
 @pytest.mark.parametrize("name", list(fill_probe.VARIANTS))
 def test_fill_probe_variant_applies_to_the_kernel_source(name):
-    """Every variant's anchors occur once in ``csrc/dp_fill.cu``, so an edit
+    """Every variant's anchors occur once in ``csrc/dp_fill_core.cuh``, so an edit
     of the kernel that retires one fails here, not on the card."""
     src = fill_probe.variant_sources([name])
     assert src[name] != src["shipped"]
