@@ -10,7 +10,7 @@ One huge global pair has no batch axis: :func:`align_global` runs it on
 the row-scan fill and the replay walk, and :func:`global_end_score` gives
 its end score alone on the band fill (``ops/wavefront.py``); a pair wider
 than one plane, or ``backend="wavefront_sp"``, takes the column-blocked
-pipeline on the column-block fill (``parallel/wavefront_sp.py``).
+pipeline (``parallel/wavefront_sp.py``), whose engine is picked there.
 Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
 ``align_pwm``/``align_global``/``align_local``/``global_end_score``/
 ``local_max_score`` and bit-identical to them.
@@ -421,10 +421,14 @@ def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto) -> b
     :func:`global_end_score` route identically
     (``aligner_tpu.align._route_sharded_pair``; its "huge and more than one
     device" clause needs several cards and waits for the multi-GPU
-    placement of the column blocks)."""
+    placement of the column blocks).  The range guard takes the matrix's
+    largest entry: the pipeline aligns an integral matrix beyond int8 on its
+    ``"lax"`` engine, and refuses the pairs whose scores the reference's
+    guard, which assumes int8 entries, lets wrap."""
     from .ops import wavefront as wf
 
-    ok = integral_params(matrix_np, del_, ext) and wf.range_ok(qlen, tlen, del_, ext)
+    ok = integral_params(matrix_np, del_, ext) and wf.range_ok(
+        qlen, tlen, del_, ext, wf.max_entry(matrix_np))
     if backend == "wavefront_sp":
         if not ok:
             raise ValidationError(
@@ -501,8 +505,9 @@ def align_global(
     to ``ops.wavefront.DIRECT_PLANE_CELLS`` cells, checkpoint-and-replay
     above.  That is exact in global mode because the penalty is constant
     ``ext`` after cell (1,1) (SURVEY.md §2.3.3).  A wider pair with integral
-    scoring, and any such pair under ``backend="wavefront_sp"``, runs on the
-    column-blocked pipeline
+    scoring (a matrix beyond int8 too, on the pipeline's ``"lax"`` engine,
+    within the range guard for its largest entry), and any such pair under
+    ``backend="wavefront_sp"``, runs on the column-blocked pipeline
     (:func:`aligner_tpu_torch.parallel.wavefront_sp.sharded_global_align`),
     whose fills and replay tiles are one column block wide.  Any other pair
     (a transformed, non-integral matrix) runs as a batch of one on the

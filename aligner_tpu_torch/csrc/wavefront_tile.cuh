@@ -19,6 +19,17 @@
 //     chunk also writes the call's right column to `rights`; every test on
 //     a column is on the global column x0 + x.
 //
+// What it assumes of the entries: nothing but int32.  The table is read as
+// int32 into shared memory; a cell forms H[y-1,x-1] + m, H - pen and their
+// maximum in int32, the end cell, the rows handed down (the low half of a
+// tagged word, handoff.cuh) and the checkpoint rows keep all 32 bits.  So
+// any integral matrix is exact as long as every real cell and those sums
+// stay within int32, which the callers' range guard keeps below 2^30
+// (ops/wavefront.py:range_ok with the table's largest entry: the
+// column-blocked pipeline's "lax" engine takes entries beyond int8).
+// Cells of padded rows and columns may leave that range; no real cell
+// reads them.
+//
 // What bounds it on the H100: the latency of one step of one warp.  A cell
 // is a few integer operations, one of them on the chain along the row; the
 // bytes are small (the call's edges, 2 bits a cell of directions when asked

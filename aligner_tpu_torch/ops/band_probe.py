@@ -16,14 +16,15 @@ compiled with the shipped flags into a library of its own under ``--out``.
 The shapes: one band as tall as the 65,536 x 65,536 pair and one as tall as
 the 262,144 x 262,144 pair, as ``end_score_single_global_diag`` builds them
 (scores only, the end cell owned), and the 262,144 x 262,144 block at x0 =
-262,144 of ``band_grid`` on the 524,288 x 524,288 pair (a streamed left
-boundary, the right column on).  The order is earlier, shipped, shipped,
-earlier; then the shipped kernel at other rows a lane and read-aheads
-(``--kp``) and warps a block (``--warps``), and the variants of
-the source named in ``VARIANTS`` (text replaced in ``wavefront_band.cu``;
-every source of ``csrc`` built again, one nvcc a source, all at once),
-each held equal too.  ``--groups N``: a call of N row groups by 65,536
-columns, for the time of one group and the lag between groups.  Prints one
+262,144 of ``parallel.wavefront_sp.band_grid`` on the 524,288 x 524,288
+pair (a streamed left boundary, the right column on).  The order is
+earlier, shipped, shipped, earlier; then the shipped kernel at other rows a
+lane and read-aheads (``--kp``) and warps a block (``--warps``), and the
+variants of the source named in ``VARIANTS`` (text replaced in
+``wavefront_band.cu``; every source of ``csrc`` built again, one nvcc a
+source, all at once), each held equal too.  ``--groups N``: a call of N
+row groups by 65,536 columns, for the time of one group and the lag
+between groups.  Prints one
 line a run and writes them, with the card's name and power limit, to
 ``DIR/band_probe.json``.
 """
@@ -162,6 +163,8 @@ def _end_score_band(dev, n, tb):
 def _grid_block(dev):
     """The 262,144 x 262,144 block at x0 = 262,144 of band_grid on the
     524,288 x 524,288 pair, its left boundary from the shipped kernel."""
+    from ..parallel import wavefront_sp as sp
+
     q, t = _pair(SEED + 5, BLOCKED)
     calls = []
 
@@ -170,7 +173,7 @@ def _grid_block(dev):
         calls.append((args, kw))
         return out
 
-    wf.band_grid(q, t, np.array(blosum62()), 11.0, 2.0, tb=WIDE, cb=WIDE, device=dev,
+    sp.band_grid(q, t, np.array(blosum62()), 11.0, 2.0, tb=WIDE, cb=WIDE, device=dev,
                  block=block, check_codes=False)
     args, kw = calls[1]  # band 0, column block 1
     kw = {k: v for k, v in kw.items() if k in ("Cb", "ext", "with_rc")}

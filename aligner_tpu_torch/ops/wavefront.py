@@ -19,9 +19,10 @@ a plain linear-gap recurrence
     H[y,x] = max(H[y-1,x-1] + s, H[y-1,x] - ext, H[y,x-1] - ext)
 
 whose anti-diagonals are independent.  Arithmetic is **int32** (an
-integral matrix within int8 and integral penalties; :func:`range_ok` keeps
-|H| below 2^30), so the fill is bit-exact against the float64 oracle in
-any evaluation order.  Directions are re-derived from the finished values
+integral matrix, within int8 on one plane and any width on the column
+blocks, and integral penalties; :func:`range_ok` keeps |H| below 2^30 for
+the matrix's largest entry), so the fill is bit-exact against the float64
+oracle in any evaluation order.  Directions are re-derived from the finished values
 with the exact tie policy (top > left > diagonal) and packed 16 rows per
 int32 word, row r of a call at word ``r >> 4``, bits ``2 * (r & 15)``.
 
@@ -114,9 +115,10 @@ class _Launches:
     where a kernel is launched): ``row_scan`` and ``row_scan_dirs`` count
     calls of the fill without and with directions, ``tile_launches`` the
     kernel launches those calls made (one a call), and ``replay_walk`` the
-    walk kernel; ``band`` counts calls of the band fill and
-    ``band_tile_launches`` the kernel launches those calls made (one a
-    call);
+    walk kernel; ``band`` counts calls of the band fill on one plane (the
+    end score), ``band_sp`` its calls as the column-blocked pipeline's
+    ``"band"`` engine, and ``band_tile_launches`` the kernel launches both
+    made (one a call);
     ``block_cs`` and ``block_cs_dirs`` count calls of the column-block fill
     without and with directions and ``block_cs_tile_launches`` the kernel
     launches those calls made (one a call)."""
@@ -127,7 +129,7 @@ class _Launches:
     def reset(self) -> None:
         self.row_scan = self.row_scan_dirs = self.tile_launches = 0
         self.replay_walk = 0
-        self.band = self.band_tile_launches = 0
+        self.band = self.band_sp = self.band_tile_launches = 0
         self.block_cs = self.block_cs_dirs = self.block_cs_tile_launches = 0
 
 
@@ -144,16 +146,29 @@ def _integral_int8(matrix, del_, ext) -> bool:
     )
 
 
-def range_ok(qlen: int, tlen: int, del_, ext) -> bool:
+def max_entry(matrix) -> float:
+    """The largest |entry| of an integral matrix as the int32 fills read it
+    (rounded); inf for an infinite entry, which :func:`range_ok` refuses."""
+    return float(np.abs(np.round(np.asarray(matrix, np.float64))).max(initial=0))
+
+
+def range_ok(qlen: int, tlen: int, del_, ext, max_entry: float = 127) -> bool:
     """int32-exactness guard: the kernel's arithmetic must stay well
     inside int32.  |H| is bounded by the deeper of the gap ramp
     (-(R+C+2)·max(del,ext) along the borders) and the match ramp
-    (min(R,C)·127 down the diagonal); the slack term keeps room for the
-    padded rows and columns and for the offsets a prefix-scan or band
-    formulation of the same fill adds.  Beyond this (about 97M rows at
-    del=11) scores would silently wrap: refuse instead."""
+    (min(R,C)·max(127, ``max_entry``) down the diagonal); the slack term
+    keeps room for the padded rows and columns and for the offsets a
+    prefix-scan or band formulation of the same fill adds.  Beyond this
+    (about 97M rows at del=11) scores would silently wrap: refuse instead.
+
+    ``max_entry`` is the matrix's largest |entry| (:func:`max_entry`).  The
+    single-plane routes take int8 matrices only and leave it at 127, which
+    is the reference's bound for every matrix; the column-blocked routes,
+    whose block fill takes any int32 table, pass the matrix's own.  The
+    reference bounds a wider matrix with 127 too, and so wraps silently
+    (``aligner_tpu/ops/wavefront.py:361-374``); the port refuses instead."""
     pen = max(int(del_), int(ext), 1)
-    h_abs = max((qlen + tlen + 2) * pen, min(qlen, tlen) * 127)
+    h_abs = max((qlen + tlen + 2) * pen, min(qlen, tlen) * max(127, max_entry))
     slack = (qlen + tlen + 2 * 128 + 2) * max(int(ext), 1) + int(del_)
     return h_abs + slack < 2**30
 
@@ -1114,7 +1129,8 @@ def _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb, check_codes):
 
 def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
                    with_rc: bool = True, read_ahead: int = BAND_READ_AHEAD,
-                   rows_per_lane: int = BAND_ROWS_PER_LANE, check_codes: bool = True):
+                   rows_per_lane: int = BAND_ROWS_PER_LANE, check_codes: bool = True,
+                   blocked: bool = False):
     """Fill one block of a global pair, TB rows by ``Cb`` columns, by
     anti-diagonal steps, scores only.
 
@@ -1155,7 +1171,10 @@ def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
     32·``rows_per_lane``, the rows of a warp's group; ``read_ahead``, 16, 32
     or 64, is the slots of the row above a warp reads a chunk ahead;
     :func:`plan_band` sizes the launch); CPU tensors take
-    :func:`run_block_band_plain`.
+    :func:`run_block_band_plain`.  ``blocked`` is the column-blocked
+    pipeline's alone (``parallel.wavefront_sp._forward_band`` passes it):
+    its launches are counted in ``launches.band_sp``, apart from the end
+    score's ``launches.band``.
     """
     j_end, d_end, owned = _check_band(t_band, q, f, c1, c2, fd, matrix, scal, Cb,
                                       check_codes)
@@ -1186,7 +1205,10 @@ def run_block_band(t_band, q, f, c1, c2, fd, matrix, scal, *, Cb: int, ext: int,
             plan.copies, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "wavefront_band")
-        launches.band += 1
+        if blocked:
+            launches.band_sp += 1
+        else:
+            launches.band += 1
         launches.band_tile_launches += 1
     return rb, rc, end
 
@@ -1338,69 +1360,6 @@ def end_score_single_global_diag(q, t, matrix, del_: float, ext: float, *,
     return score
 
 
-def band_grid(q, t, matrix, del_: float, ext: float, *, tb: int, cb: int, device,
-              block=run_block_band, **block_kw):
-    """One global pair as a grid of blocks, ``tb`` rows by ``cb`` columns,
-    on one device: every block takes the row its upper neighbour returned
-    and, as a *streamed* left boundary, the right column its left
-    neighbour returned.  It is the one-device form of the reference's
-    column-sharded pipeline (``aligner_tpu/parallel/wavefront_sp.py``) and
-    exists to hold the block contract of :func:`run_block_band` (``block``)
-    at x0 > 0 against a full plane.  Returns ``(end, rights, bottoms)``:
-    the end score (1,), per column block the plain column
-    H[1 … R_pad, x0 + cb], and per band and column block the plain row
-    H[y_base + tb, x0 + 1 … x0 + cb]."""
-    pp = _prep(q, t, matrix, del_, ext, device, wide=True)
-    C_real, R_real, dev, V = pp["C_real"], pp["R_real"], pp["device"], pp["V"]
-    del_, ext = pp["del"], pp["ext"]
-    i32 = dict(dtype=torch.int32, device=dev)
-    t_dev = torch.as_tensor(_pad_rows(pp["t"], tb), device=dev)
-    n_bands, n_cb = t_dev.numel() // tb, _cdiv(C_real, cb)
-    D = cb + tb - 1
-    dvec = torch.arange(1, D + 1, **i32)
-    khat = (dvec - 1) * ext
-    qs, prevs = [], []
-    for ci in range(n_cb):
-        x0 = ci * cb
-        codes = np.full(D, V, np.int32)
-        part = pp["q"][x0 : x0 + cb]
-        codes[: len(part)] = part
-        qs.append(torch.as_tensor(codes, device=dev))
-        xg = x0 + dvec  # the border row H[0, x] of this block's columns
-        prevs.append((torch.where(xg == C_real, -(C_real + 1) * del_, -xg * del_)
-                      + khat).to(torch.int32))
-    end = torch.full((1,), NEG_I32, **i32)
-    rights = [torch.zeros(t_dev.numel(), **i32) for _ in range(n_cb)]
-    bottoms = []
-    for jb in range(n_bands):
-        y_base = jb * tb
-        ys = y_base + torch.arange(tb + 1, **i32)
-        row = []
-        for ci in range(n_cb):
-            x0 = ci * cb
-            if ci == 0:
-                lb = torch.where(ys == R_real, -(R_real + 1) * del_, -ys * del_)
-                lb = lb.to(torch.int32)
-            else:
-                left = rights[ci - 1]
-                corner = left[y_base - 1 : y_base] if jb else left.new_full((1,), -x0 * del_)
-                lb = torch.cat([corner, left[y_base : y_base + tb]])
-            f, c1, c2, fd = band_streams(prevs[ci], lb, ext,
-                                         del_ - ext if jb == 0 and ci == 0 else 0)
-            j_end, x_loc = R_real - 1 - y_base, C_real - x0
-            owned = 0 <= j_end < tb and 1 <= x_loc <= cb
-            rb, rc, endv = block(t_dev[y_base : y_base + tb], qs[ci], f, c1, c2, fd,
-                                 pp["m_dev"], (j_end, x_loc + j_end, owned), Cb=cb,
-                                 ext=ext, with_rc=True, **block_kw)
-            prevs[ci] = band_handoff(rb, tb, ext)
-            rights[ci][y_base : y_base + tb] = rc
-            row.append(prevs[ci][:cb] - khat[:cb])
-            if owned:
-                end = endv
-        bottoms.append(row)
-    return end, rights, bottoms
-
-
 # ---------------------------------------------------------------------------
 # the column-block fill
 # ---------------------------------------------------------------------------
@@ -1528,7 +1487,10 @@ def run_block_cs_plain(q_blk, t_rows, matrix, h_prev, lbound, x0: int, y_base: i
     with the left border read from ``lbound`` and the tests on a column made
     on the global column ``x0`` + x.  One row per step, the row a
     max-prefix-scan, ``H[y,x] = cummax(M + (x0 + x)·ext)[x] - (x0 + x)·ext``.
-    Same arguments and results as :func:`run_block_cs`."""
+    Same arguments and results as :func:`run_block_cs`.  Any int32 table:
+    M is at most the cell's H and at least the value above it less ext, and
+    the offset (x0 + x)·ext lies within the slack :func:`range_ok` keeps, so
+    a term of a real cell stays inside int32 whatever the matrix's entries."""
     dev = q_blk.device
     Cb, TR = q_blk.numel(), t_rows.numel()
     del_, ext = int(del_), int(ext)

@@ -13,11 +13,39 @@ is also the only route by which a pair wider than
 ``ops.wavefront.MAX_WIDTH`` columns is aligned at all: no fill, replay tile
 or direction plane is ever wider than one column block.
 
-The block engine is the column-block fill (:func:`ops.wavefront.run_block_cs`,
-``csrc/wavefront_block.cu``), the reference's ``"pallas"`` row-scan engine,
-for the forward fill and for the replay.  Arithmetic is int32 and bit-equal
-to the float64 oracle (an integral matrix within int8, integral penalties,
-:func:`ops.wavefront.range_ok`).
+Three block engines, by the reference's names (``engine``):
+
+* ``"pallas"``, the row-scan engine: the column-block fill
+  (:func:`ops.wavefront.run_block_cs`, ``csrc/wavefront_block.cu``) fills
+  each block from its streamed left boundary;
+* ``"band"``, the forward speed path: the band fill
+  (:func:`ops.wavefront.run_block_band`, ``csrc/wavefront_band.cu``) fills
+  each block by anti-diagonal steps, with the row above kept per column
+  block in hat coordinates and the left boundary streamed
+  (:func:`ops.wavefront.band_streams`, :func:`ops.wavefront.band_handoff`;
+  :func:`band_grid` runs it on any grid); it returns only a
+  block's last row, so with a traceback a band is at most ``tb_rows`` tall
+  and divides it, and int8 matrices only;
+* ``"lax"``, the engine for any integral matrix: in the reference the
+  portable ``lax.cummax`` fill of XLA, with no Pallas kernel behind it.
+  Here it is the column-block fill itself, whose (V, V) table is int32:
+  the reference's int8 limit on the row-scan engine belongs to its packed
+  score bytes, which the port does not carry over.  A matrix with an entry
+  beyond int8 turns ``"pallas"`` and ``"band"`` into ``"lax"``, as in the
+  reference (the switch is reported in the call's ``info`` and the
+  package's log), and the magnitude guard
+  (:func:`ops.wavefront.range_ok` with the matrix's largest entry) refuses
+  a pair whose scores could leave the int32-exact range, where the
+  reference bounds every matrix with 127 and so wraps.
+
+The replay of every engine is the column-block fill with directions and the
+replay walk (the reference's ``replay_engine``).  Arithmetic is int32 and
+bit-equal to the float64 oracle whatever the engine.  An engine name
+outside :data:`ENGINES` raises, where the reference's ``else`` branch
+silently runs its lax fill.  With neither ``engine`` nor ``tr`` named, on
+the card, :func:`auto_shard_config` picks the engine and the height of a
+block from the two engines' rates on the H100, as the reference picks from
+its accelerator's; on the CPU the row-scan engine's plain version runs.
 
 Exact alignments, not just end scores: the forward fill also records, on
 the device, one H row every ``tb_rows`` rows (``ckpts``) and every left
@@ -34,10 +62,8 @@ column-block fill as before, and its words are walked on the host.
 
 Not carried over: the mesh, ``shard_map`` and the ``ppermute`` halo (one
 device); the one-dispatch ``lax.while_loop`` replay (it exists for the
-reference's per-dispatch round trip); ``auto_shard_config`` and its two
-rate models, which are fits of the reference's accelerator.  Not ported
-yet: the ``"band"`` forward engine and the ``"lax"`` engine for integral
-matrices beyond int8, which are refused by name.
+reference's per-dispatch round trip); the packed score words, the nibble
+and byte tables of the band engine and the VMEM budgets of the replay.
 
 Cites: simple/mod.rs:42-144 (fill, borders), simple/mod.rs:99-127
 (traceback semantics).
@@ -52,6 +78,7 @@ import torch
 
 from ..backend import integral_params, resolve_device
 from ..errors import ValidationError
+from ..observability import log
 from ..ops import wavefront as wf
 
 # The width of one column block, the rows of one replay tile (the checkpoint
@@ -69,42 +96,136 @@ from ..ops import wavefront as wf
 CB_COLS = 131072
 TB_ROWS = wf.TB_ROWS
 FORWARD_ROWS = 262144
-ENGINES = (None, "pallas")  # the reference's name for its row-scan block engine
+ENGINES = (None, "pallas", "band", "lax")
+
+# The two block engines' rates on one H100, for auto_shard_config.  A block
+# of tr rows by cb columns takes about NS x (cb + L x tr) ns on either fill:
+# its rows enter L column-steps apart (a strip of the row-scan fill starts
+# its chunk a lag behind the strip above, a row group of the band fill a lag
+# behind the group above), and the last rows then cross the block's cb
+# columns.  So a block fills tr·cb / (NS·(cb + L·tr)) cells a ns (GCUPS).
+# Either engine is rated at the height it runs: the row-scan engine's
+# forward block is FORWARD_ROWS rows, or the whole target when that is
+# shorter.  Fitted by least squares on 1 / rate to the calibration points
+# that chip_smoke.py prints (the band engine's forward by band height at
+# CB_COLS-wide blocks and at two other widths; the column-block fill's by
+# column width at FORWARD_ROWS rows and by height at CB_COLS columns):
+# PERF.md §6, the tables of the column-blocked engines, their rows
+# "calibration points" and "the model's largest error" (band: 6.6 %; row
+# scan: 21.7 % at its one-block point, 262,144 columns, and 3.4 %
+# elsewhere), on an NVIDIA H100 80GB HBM3, 700.00 W.
+_BAND_NS_PER_COLUMN = 41.45
+_BAND_COLUMNS_PER_ROW = 5.093
+_ROWSCAN_NS_PER_COLUMN = 138.59
+_ROWSCAN_COLUMNS_PER_ROW = 1.317
+
+
+def band_rate_model(tr: int, cb: int) -> float:
+    """Modelled GCUPS of the band engine at band height ``tr`` and column
+    block width ``cb`` on one H100."""
+    return tr * cb / (_BAND_NS_PER_COLUMN * (cb + _BAND_COLUMNS_PER_ROW * tr))
+
+
+def rowscan_rate_model(cb: int, tr: int = FORWARD_ROWS) -> float:
+    """Modelled GCUPS of the row-scan engine at column block width ``cb``
+    on one H100, in forward blocks of ``tr`` rows."""
+    return tr * cb / (_ROWSCAN_NS_PER_COLUMN * (cb + _ROWSCAN_COLUMNS_PER_ROW * tr))
+
+
+def auto_shard_config(qlen: int, tlen: int, n: int, *,
+                      max_band_tr: int = wf.BAND_ROWS) -> tuple[str, int, float]:
+    """Pick ``(engine, tr, modeled_gcups_per_chip)`` for the pipeline:
+    the row-scan engine at its forward block height (rated at the padded
+    target where that is shorter, as the block is clamped to it), or the
+    band engine at the band height, from 512 rows doubling up to
+    ``max_band_tr`` (a traceback passes its replay tile's rows) and the
+    padded target, that models fastest.  ``n`` is the column blocks (the
+    reference's devices): a block is the query over ``n``, rounded up to
+    128 columns.  The reference multiplies each rate by its pipeline's
+    fill factor J / (J + n - 1); on one card the blocks run one after
+    another, nothing waits for a pipeline to fill, and the factor is 1."""
+    cb = max(wf._cdiv(wf._cdiv(qlen, n), 128) * 128, 128)
+    r128 = max(wf._cdiv(tlen, 128) * 128, 128)
+    best = ("pallas", FORWARD_ROWS, rowscan_rate_model(cb, min(FORWARD_ROWS, r128)))
+    tr = 512
+    while tr <= min(max_band_tr, r128):
+        e = band_rate_model(tr, cb)
+        if e > best[2]:
+            best = ("band", tr, e)
+        tr *= 2
+    return best
+
+
+def _pick_engine(engine, tr, on_card: bool, qlen: int, tlen: int, n: int, tb_rows,
+                 peak: float):
+    """``(engine, tr)`` that run (``aligner_tpu/parallel/wavefront_sp.py:161-179``):
+    with neither named, :func:`auto_shard_config`'s pick on the card, with
+    the band height capped at ``tb_rows`` for a traceback, and the row-scan
+    engine elsewhere; then ``"lax"`` for ``"pallas"`` or ``"band"`` when
+    the matrix's largest entry ``peak`` is beyond int8."""
+    named = engine
+    if engine is None:
+        engine = "pallas"
+        if tr is None and on_card:  # the reference picks only on its own chip
+            engine, tr, _ = auto_shard_config(
+                qlen, tlen, n, max_band_tr=wf.BAND_ROWS if tb_rows is None else tb_rows)
+    if engine in ("pallas", "band") and peak > 127:
+        engine = "lax"  # the block engine for any integral matrix, as in the reference
+    if engine != named:
+        log.info("column-blocked pair %dx%d: engine %s (%s)", tlen, qlen, engine,
+                 "matrix entries beyond int8" if engine == "lax" else "auto_shard_config")
+    return engine, tr
 
 
 def _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine, device):
     """Shared operand prep and validation of the two entry points
-    (``tb_rows`` is None for an end score)."""
+    (``tb_rows`` is None for an end score).  ``pp["engine"]`` is the engine
+    that runs: the one named, the pick of :func:`auto_shard_config`, or
+    ``"lax"`` for a matrix beyond int8."""
     if len(q) == 0 or len(t) == 0:
         raise ValueError("empty sequence")
+    if engine not in ENGINES:
+        raise ValidationError(
+            f"unknown engine {engine!r} of the column-blocked wavefront (choose None, "
+            "\"pallas\", \"band\" or \"lax\")")
     # validate before any per-element conversion: refusing an oversized
     # pair must not be preceded by a giant int32 copy
     matrix = np.asarray(matrix)
     if not integral_params(matrix, del_, ext):
         raise ValidationError("the column-blocked wavefront requires an integral "
                               "matrix and integral penalties")
-    if not wf.range_ok(len(q), len(t), del_, ext):
+    peak = wf.max_entry(matrix)
+    if not wf.range_ok(len(q), len(t), del_, ext, peak):
         raise ValidationError("the column-blocked wavefront: scores would exceed the "
                               "int32-exact range (see ops.wavefront.range_ok)")
-    if engine not in ENGINES:
-        raise ValidationError(
-            f"engine {engine!r} of the column-blocked wavefront is not ported yet: only "
-            "the row-scan block engine (\"pallas\" in the reference) is")
-    if np.abs(matrix).max(initial=0) > 127:
-        raise ValidationError(
-            "the row-scan block engine takes matrix entries within int8; the reference's "
-            "\"lax\" engine for wider integral matrices is not ported yet")
     C_real, R_real = len(q), len(t)
     if n_blocks is not None and n_blocks < 1:
         raise ValueError("need n_blocks >= 1")
     cb = CB_COLS if n_blocks is None else wf._cdiv(C_real, int(n_blocks))
     Cb = min(wf._cdiv(cb, wf.COL_PAD), wf._cdiv(C_real, wf.COL_PAD)) * wf.COL_PAD
     n = wf._cdiv(C_real, Cb)  # column blocks wholly past the query are not run
+    device = resolve_device(device)
+    engine, tr = _pick_engine(engine, tr, device.type == "cuda", C_real, R_real, n,
+                              tb_rows, peak)
     # clamp the blocks to the (word-aligned) target length so wide-short
     # pairs do not fill and replay mostly padding
     r_pad = wf._cdiv(R_real, wf.ROWS_PER_WORD) * wf.ROWS_PER_WORD
     tb = None
-    if tb_rows is None:
+    if engine == "band":
+        # a band's rows are whole row groups of the band walk: a multiple
+        # of 128 as in the reference, clamped to the padded target
+        lanes = wf.LANES
+        tr = wf.BAND_ROWS if tr is None else tr
+        tr = max(lanes, min(wf._cdiv(tr, lanes), wf._cdiv(R_real, lanes)) * lanes)
+        if tb_rows is not None:
+            tb = min(tb_rows, r_pad)
+            wf._check_tr(tb)
+            # the band returns only its last row: every checkpoint row ends
+            # a band, so a band is at most a replay tile and divides it
+            if tr > tb:
+                tr = max(lanes, tb // lanes * lanes)
+            tb = max(tb // tr, 1) * tr
+    elif tb_rows is None:
         tr = min(FORWARD_ROWS if tr is None else tr, r_pad)
         wf._check_tr(tr)
     else:
@@ -131,10 +252,9 @@ def _prep_sharded(n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine, device
     qp[:C_real] = q
     tp = np.zeros(J * tr, np.int32)
     tp[:R_real] = t
-    device = resolve_device(device)
     return {
         "q": q, "t": t, "V": V, "C_real": C_real, "R_real": R_real, "Cb": Cb, "n": n,
-        "C_pad": n * Cb, "tr": tr, "tb": tb, "J": J, "R_pad": J * tr,
+        "C_pad": n * Cb, "tr": tr, "tb": tb, "J": J, "R_pad": J * tr, "engine": engine,
         "del": int(del_), "ext": int(ext), "device": device,
         "q_dev": torch.as_tensor(qp, device=device),
         "t_dev": torch.as_tensor(tp, device=device),
@@ -177,12 +297,16 @@ def _block(pp, d: int, t_rows, h_prev, lb, y_base: int, *, with_dirs: bool = Fal
                            check_codes=False)
 
 
-def _forward(pp, with_trace: bool):
+def _forward(pp, with_trace: bool, trace=None):
     """The forward fill: every (row block, column block) in row-major order,
-    scores only.  Returns ``end`` (1,) on the device, or with ``with_trace``
-    ``(end, lb_hist (n, R_pad), ckpts (R_pad / TB, C_pad))`` with
-    ``lb_hist[d, y - 1] = H[y, d·Cb]`` and ``ckpts[k] = H[(k + 1)·TB]``.
-    Nothing comes back to the host in between."""
+    scores only, on the engine ``pp["engine"]``.  Returns ``end`` (1,) on
+    the device, or with ``with_trace`` ``(end, lb_hist (n, R_pad), ckpts
+    (R_pad / TB, C_pad))`` with ``lb_hist[d, y - 1] = H[y, d·Cb]`` and
+    ``ckpts[k] = H[(k + 1)·TB]``.  Nothing comes back to the host in
+    between.  A ``trace`` list receives every band's ``(args, kwargs,
+    outputs)`` of the band engine."""
+    if pp["engine"] == "band":
+        return _forward_band(pp, with_trace, trace)
     dev, Cb, n, tr, J, TB = pp["device"], pp["Cb"], pp["n"], pp["tr"], pp["J"], pp["tb"]
     i32 = dict(dtype=torch.int32, device=dev)
     prev = [_border_row(pp, d * Cb, Cb) for d in range(n)]
@@ -220,6 +344,98 @@ def _forward(pp, with_trace: bool):
     return (end, lb_hist, ckpts) if with_trace else end
 
 
+def _forward_band(pp, with_trace: bool, trace=None, block=None, **block_kw):
+    """:func:`_forward` on the band engine
+    (``aligner_tpu/parallel/wavefront_sp.py:365-460``): per column block
+    the row above in hat coordinates, slot k = H[y_base, x0 + k + 1] + k·ext,
+    over D = Cb + tr - 1 slots, and one band fill a (row block, column
+    block) with the streamed left boundary; its right column feeds the next
+    column block and ``lb_hist``, and the de-hatted last row of a band that
+    ends a replay tile is that tile's checkpoint row.  ``block`` is the fill
+    of one band (:func:`ops.wavefront.run_block_band`, counted as the
+    pipeline's launch; or another fill with its arguments, such as its
+    plain version), called with ``block_kw`` besides ``Cb``, ``ext`` and
+    ``with_rc``."""
+    dev, Cb, n, tr, J, TB = pp["device"], pp["Cb"], pp["n"], pp["tr"], pp["J"], pp["tb"]
+    C_real, R_real, V = pp["C_real"], pp["R_real"], pp["V"]
+    del_, ext = pp["del"], pp["ext"]
+    i32 = dict(dtype=torch.int32, device=dev)
+    D = Cb + tr - 1
+    dvec = torch.arange(1, D + 1, **i32)
+    khat = (dvec - 1) * ext  # the hat offset of slot k
+    qs, prev = [], []
+    for d in range(n):
+        # the block's query codes, then the padding code V, which scores 0
+        codes = np.full(D, V, np.int32)
+        part = pp["q"][d * Cb:(d + 1) * Cb]
+        codes[:len(part)] = part
+        qs.append(torch.as_tensor(codes, device=dev))
+        xg = d * Cb + dvec  # the border row H[0, x] of the block's columns
+        prev.append((torch.where(xg == C_real, -(C_real + 1) * del_, -xg * del_)
+                     + khat).to(torch.int32))
+    last_bound = [_corner(pp, d * Cb) for d in range(n)]
+    end = torch.zeros(1, **i32)
+    lb_hist = ckpts = None
+    if with_trace:
+        lb_hist = torch.empty((n, pp["R_pad"]), **i32)
+        ckpts = torch.empty((pp["R_pad"] // TB, pp["C_pad"]), **i32)
+    kw = dict(Cb=Cb, ext=ext, with_rc=True, **block_kw)
+    if block is None:
+        block = wf.run_block_band
+        kw.update(check_codes=False, blocked=True)
+    for j in range(J):
+        y_base = j * tr
+        t_rows = pp["t_dev"][y_base:y_base + tr]
+        bl_cur = _border_col(pp, y_base, tr)
+        ck_at = (y_base + tr) // TB - 1 if with_trace and (y_base + tr) % TB == 0 else None
+        j_end = R_real - 1 - y_base
+        for d in range(n):
+            lb = torch.cat([last_bound[d], bl_cur])
+            last_bound[d] = bl_cur[-1:]
+            if with_trace:
+                lb_hist[d, y_base:y_base + tr] = bl_cur
+            # cell (1,1), the only cell whose penalty is del, lies in block (0, 0)
+            streams = wf.band_streams(prev[d], lb, ext, del_ - ext if j == d == 0 else 0)
+            x_loc = C_real - d * Cb
+            owned = 0 <= j_end < tr and 1 <= x_loc <= Cb
+            args = (t_rows, qs[d], *streams, pp["m_dev"], (j_end, x_loc + j_end, owned))
+            out = block(*args, **kw)
+            if trace is not None:
+                trace.append((args, kw, out))
+            prev[d] = wf.band_handoff(out[0], tr, ext)
+            bl_cur = out[1]
+            if owned:
+                end = out[2]
+            if ck_at is not None:
+                ckpts[ck_at, d * Cb:(d + 1) * Cb] = prev[d][:Cb] - khat[:Cb]
+    return (end, lb_hist, ckpts) if with_trace else end
+
+
+def band_grid(q, t, matrix, del_: float, ext: float, *, tb: int, cb: int, device,
+              block=None, **block_kw):
+    """The band engine's forward fill (:func:`_forward_band`) on a grid of
+    blocks of ``tb`` rows by ``cb`` columns, any ``cb``, an int8 matrix:
+    every block takes the row its upper neighbour returned and, as a
+    *streamed* left boundary, the right column its left neighbour returned.
+    It holds the block contract of the band fill at x0 > 0 against a full
+    plane (``block`` and ``block_kw`` as for :func:`_forward_band`).
+    Returns ``(end, rights, bottoms)``: the end score (1,), per column
+    block the plain column H[1 … R_pad, x0 + cb], and per band and column
+    block the plain row H[y_base + tb, x0 + 1 … x0 + cb]."""
+    pp = wf._prep(q, t, matrix, del_, ext, device, wide=True)
+    C_real, R_real = pp["C_real"], pp["R_real"]
+    n, J = wf._cdiv(C_real, cb), wf._cdiv(R_real, tb)
+    pp.update(Cb=cb, n=n, tr=tb, tb=tb, J=J, R_pad=J * tb, C_pad=n * cb,
+              t_dev=torch.as_tensor(wf._pad_rows(pp["t"], tb), device=pp["device"]))
+    trace = []
+    end = _forward_band(pp, False, trace, block, **block_kw)
+    khat = torch.arange(cb, dtype=torch.int32, device=pp["device"]) * pp["ext"]
+    rights = [torch.cat([out[1] for _, _, out in trace[d::n]]) for d in range(n)]
+    bottoms = [[wf.band_handoff(out[0], tb, pp["ext"])[:cb] - khat
+                for _, _, out in trace[j * n:(j + 1) * n]] for j in range(J)]
+    return end, rights, bottoms
+
+
 def sharded_global_end_score(n_blocks, q, t, matrix, del_: float, ext: float, *,
                              tr: int | None = None, engine: str | None = None,
                              device=None) -> float:
@@ -232,11 +448,15 @@ def sharded_global_end_score(n_blocks, q, t, matrix, del_: float, ext: float, *,
     run); with ``None`` a block is :data:`CB_COLS` wide.  ``tr`` is the rows
     of one forward block (a multiple of 16, clamped to the padded target; by
     default the whole target up to :data:`FORWARD_ROWS`: on one device no
-    pipeline waits to be filled).  Requires an integral matrix within int8
-    and integral penalties.  ``engine``: ``None`` or ``"pallas"`` (the
-    reference's name), the column-block row-scan fill; ``"band"`` and
-    ``"lax"`` are not ported yet and raise.  The call waits for the device
-    once, for the score.
+    pipeline waits to be filled; the band engine rounds it up to a multiple
+    of 128, by default :data:`ops.wavefront.BAND_ROWS`).  Requires an
+    integral matrix and integral penalties, with scores in the int32-exact
+    range for the matrix's largest entry.  ``engine``: ``"pallas"`` (the
+    column-block row-scan fill), ``"band"`` (the band fill) or ``"lax"``
+    (the column-block fill for any integral matrix); a matrix beyond int8
+    runs on ``"lax"`` whatever is named.  ``None`` with ``tr`` ``None`` on
+    the card takes :func:`auto_shard_config`'s pick, else ``"pallas"``.
+    The call waits for the device once, for the score.
     """
     from ..observability import counters
 
@@ -290,8 +510,9 @@ def _sharded_walk(pp):
         tiles += 1
     t2 = time.perf_counter()
     counters.record(f"{dev.type}/wavefront-sp-replay", tiles * TB * Cb, 1, t2 - t1)
-    info = dict(tiles=tiles, tr=pp["tr"], tb_rows=TB, forward_blocks=pp["J"] * pp["n"],
-                syncs=syncs, forward_s=t1 - t0, replay_s=t2 - t1)
+    info = dict(engine=pp["engine"], tiles=tiles, tr=pp["tr"], tb_rows=TB,
+                forward_blocks=pp["J"] * pp["n"], syncs=syncs, forward_s=t1 - t0,
+                replay_s=t2 - t1)
     return end, lb_hist, ckpts, state, steps, info
 
 
@@ -341,7 +562,10 @@ def sharded_global_align(n_blocks, q, t, matrix, del_: float, ext: float, *,
     cadence and the rows of one replay tile (rounded down to a multiple of
     ``tr`` when that is the smaller; by default ``tr`` is as for the end
     score, rounded down to whole replay tiles: the kernel writes the
-    checkpoint rows inside a call, so a forward block may hold many).
+    checkpoint rows inside a call, so a forward block may hold many; a band
+    of the band engine is at most a replay tile and divides it, and the
+    pick caps its height at ``tb_rows``).  Every engine replays on the
+    column-block fill with directions.
     Forward extra memory is O(R·n + R·C/tb_rows) ints; the traceback
     replays one (tb_rows x column block) tile per tile the path crosses and
     reads the cursor after each.  ``walk="host"`` walks each replayed tile

@@ -88,12 +88,13 @@ against the native C++ host engine or the frozen golden fixtures:
    checkpoint rows against the single-plane routes and the plain
    versions), the 262,144 x 262,144 pair as 2 (strings and end score
    against the single-plane routes), then 524,288 x 524,288 through
-   ``align_global`` and ``global_end_score`` by its width alone (the end
-   score equals the band fill's on a grid of 262,144-column blocks, the
-   rescored path equals the end score, the strings spell the pair), and
-   ``backend="wavefront_sp"`` on a small pair against the host engine; the
-   path is driven first, alone, and held against the other routes after
-   its launch counts are read;
+   ``align_global`` and ``global_end_score`` by its width alone, each on
+   the block engine ``auto_shard_config`` picks (the end score equals the
+   other block engine's: K7's forward, or the band engine's; the rescored
+   path equals the end score, the strings spell the pair), and
+   ``backend="wavefront_sp"`` on a small pair against the host engine;
+   the path is driven first, alone, and held against the other routes
+   after its launch counts are read;
 13. the simple aligners and the host walks: the fill kernel with the score
    plane held bit for bit against its plain version (ragged and dense
    batches, local and global, f32 and f64, shared and per-problem
@@ -107,16 +108,31 @@ against the native C++ host engine or the frozen golden fixtures:
    1,024 PWM survivors, ``align_global`` at 65,536 x 65,536 and the
    column-blocked pipeline on that pair in 4 blocks, with K4 and W launched
    no time under it;
-14. the kernels' launch counts of each path: the pair path (phases 3-6),
+14. the column-blocked pipeline's engines: the band engine's end score and
+   alignment of the 65,536 x 65,536 pair in 4 column blocks (its boundary
+   history, checkpoint rows and step stream equal the row-scan engine's,
+   its strings phase 12's) and of the 524,288 x 524,288 pair, timed (the end
+   score equals K7's forward, the path rescores to it); that pair with
+   BLOSUM62 x 20, del 220, ext 40 through ``align_global`` and
+   ``global_end_score`` with nothing named (the "lax" engine, by the
+   matrix: the strings equal phase 12's, the end score is 20 times its),
+   and ``aligner-align -g -m FILE`` with that matrix on a 262,144 x 262,400
+   pair (its stdout the rendering of the BLOSUM62 alignment); each of its
+   blocks one K6 or K7 launch and each tile one K7 launch with directions
+   and one walk; then K7 with BLOSUM62 x 20 on ragged blocks and on the
+   last replay tile, and K6 on the band engine's last block of the
+   524,288 x 524,288 alignment, against their plain versions, and the
+   engine pick's calibration points, its fit and its picks;
+15. the kernels' launch counts of each path: the pair path (phases 3-6),
    the population path (phase 7: the count once an iteration), the service
    path (phase 8: the worker process's K2, K4 and count launches, which it
    prints at exit, and calc's K1 launches; the count once an iteration of
    each task), the PWM path (phase 9), the huge-pair path (phase 10), the
    end-score path (phase 11), the column-blocked path (phase 12), the
    simple aligners' path (phase 13: the score plane once a pair, no walk
-   kernel) and the host walks' path (phase 13: the fills, no walk kernel),
-   each counted from zero; the row-scan, column-block and band fills make
-   one launch a call.
+   kernel), the host walks' path (phase 13: the fills, no walk kernel) and
+   the engines' path (phase 14), each counted from zero; the row-scan,
+   column-block and band fills make one launch a call.
 
 Every phase prints one line with its result and wall time; a failing
 check raises and the script exits nonzero.  The line before the last is
@@ -130,6 +146,7 @@ the JSON device record.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import functools
@@ -193,6 +210,17 @@ DIRECT_PAIR = (3_000, 4_000)
 CLI_PAIR_LEN = 3_000
 # the simple aligners: a homologous pair of 2^26 cells, the most keep_planes
 # takes (ops.wavefront.DIRECT_PLANE_CELLS)
+# the column-blocked engines (phase 14): BLOSUM62 x 20 with both penalties
+# x 20 for the "lax" engine (entries -80 ... 220), the CLI's pair one
+# COL_PAD wider than one plane, and the band heights of the engine pick's
+# calibration at WIDE_LEN, by column block width
+LAX_SCALE = 20
+LAX_DEL, LAX_EXT = 220, 40
+CLI_WIDE_PAIR = (262_400, 262_144)  # (query, target)
+BAND_CAL = ((131_072, (8_192, 32_768, 131_072, 262_144)), (65_536, (32_768, 262_144)),
+            (262_144, (32_768, 262_144)))
+K7_CAL_ROWS = (16_384, 65_536)  # K7 on targets this short, at CB_COLS columns
+SHORT_LEN = 16_384  # a short target under a 524,288-wide query, for the pick
 PLANE_LEN = 8_192
 PLANE_SEED = SEED + 31
 # the heuristic population a service worker runs for one request of
@@ -442,7 +470,7 @@ def same_band(got, want, TB, n_cols, with_rc=True) -> bool:
     return ok and torch.equal(got[2], want[2])
 
 
-def band_vs_plain(dev, at, host, wf):
+def band_vs_plain(dev, at, host, wf, sp):
     """K6 against its plain version: band heights at, below and one past
     the row count, widths at and one past a chunk seam, every band of each
     pair (band 0 holds the border column and cell (1,1)), the right column
@@ -478,9 +506,9 @@ def band_vs_plain(dev, at, host, wf):
     C, R, tb, cb = 600, 300, 128, 256
     q, t = homologous_pair(SEED + 10, C, R)
     H = host.align_global(q, t, b62, DEL, EXT).score
-    end, rights, bottoms = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb, device=dev,
+    end, rights, bottoms = sp.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb, device=dev,
                                         read_ahead=64)
-    end_p, rights_p, bottoms_p = wf.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb,
+    end_p, rights_p, bottoms_p = sp.band_grid(q, t, b62, DEL, EXT, tb=tb, cb=cb,
                                               device=dev, block=wf.run_block_band_plain)
     check(int(end) == int(end_p) == H[R, C], "band grid: end score != the host engine")
     for ci in range(C // cb):  # the last block's right column lies past the query
@@ -2089,7 +2117,8 @@ def phase_band_timing(dev, at, wf, q, t):
           "run_block_band != plain at the huge pair's shape")
     row = dict(name="wavefront_band (scores, one band of the huge pair)", route="cuda",
                source="aligner_tpu_torch/csrc/wavefront_band.cu",
-               replaces=REPLACES["band"], path="end_score", counter="band",
+               replaces=REPLACES["band"], path=("end_score", "column_blocked", "engines"),
+               counter=("band", "band_sp"),
                max_abs_err=max(max_abs_err(got[0][rows_b - 1:rows_b - 1 + C],
                                            want[0][rows_b - 1:rows_b - 1 + C]),
                                max_abs_err(got[2], want[2])),
@@ -2115,7 +2144,9 @@ def phase_block_timing(dev, at, wf, sp):
     the walk over that tile.  Then that pair's whole forward fill by the
     rows of a forward block and, on the 262,144 x 262,144 pair, a replay
     tile by its width and the whole forward fill by the rows of a forward
-    block and the width of a column block.  Returns the kernels' rows."""
+    block and the width of a column block.  Returns the kernels' rows and the
+    engine pick's calibration points of the row-scan engine ((rows, width,
+    GCUPS) of the scores-only forward at FORWARD_ROWS rows)."""
     m = np.array(at.blosum62())
     kw = dict(del_=int(DEL), ext=int(EXT))
     lines, rows = [], []
@@ -2127,7 +2158,7 @@ def phase_block_timing(dev, at, wf, sp):
                 pp["m_dev"], h0, lb, d * Cb, j * TB, pp["C_real"], pp["R_real"])
 
     qa, ta = homologous_pair(PAIR_SEED + 5, BLOCKED_LEN, BLOCKED_LEN)
-    pp = sp._prep_sharded(None, qa, ta, m, DEL, EXT, None, sp.TB_ROWS, None, dev)
+    pp = sp._prep_sharded(None, qa, ta, m, DEL, EXT, None, sp.TB_ROWS, "pallas", dev)
     end_a, lb_hist, ckpts = sp._forward(pp, True)
     d, Cb, TB, tr = pp["n"] - 1, pp["Cb"], pp["tb"], pp["tr"]
     y0 = (pp["J"] - 1) * tr  # the last row block starts on a checkpoint row
@@ -2151,7 +2182,8 @@ def phase_block_timing(dev, at, wf, sp):
             name=f"wavefront_block_cs ({what}, one {R_b} x {C_b} block at column "
                  f"{args[5]})", route="cuda",
             source="aligner_tpu_torch/csrc/wavefront_block.cu",
-            replaces=REPLACES["block_cs"], path="column_blocked", counter=counter,
+            replaces=REPLACES["block_cs"], path=("column_blocked", "engines"),
+            counter=counter,
             max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want) if a is not None),
             ms=ms, plain_ms=plain_ms, shape=f"{R_b}x{C_b} int32",
             **bound(ops * R_b * C_b, nbytes(*args[:5], *got))))
@@ -2165,7 +2197,7 @@ def phase_block_timing(dev, at, wf, sp):
     del want, forward
     # the pair's whole forward fill with its records by the rows of a block
     for rows_f in FORWARD_SWEEP:
-        ppf = sp._prep_sharded(None, qa, ta, m, DEL, EXT, rows_f, sp.TB_ROWS, None, dev)
+        ppf = sp._prep_sharded(None, qa, ta, m, DEL, EXT, rows_f, sp.TB_ROWS, "pallas", dev)
         before = wf.launches.block_cs_tile_launches
         out = {}
         ms = gpu_ms(lambda: out.update(end=sp._forward(ppf, True)[0]), 1)
@@ -2191,7 +2223,8 @@ def phase_block_timing(dev, at, wf, sp):
     rows.append(dict(
         name=f"wavefront_replay_walk (one replay tile, column base {tile[5]})",
         route="cuda", source="aligner_tpu_torch/csrc/walk_core.cuh",
-        replaces=REPLACES["replay_walk"], path="column_blocked", counter="replay_walk",
+        replaces=REPLACES["replay_walk"], path=("column_blocked", "engines"),
+        counter="replay_walk",
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)), ms=ms_walk,
         plain_ms=plain_walk_ms, shape=f"{n_steps} steps",
         plan=replay_plan_line(wf, ms_walk, n_steps, walk_stats),
@@ -2202,7 +2235,7 @@ def phase_block_timing(dev, at, wf, sp):
     # path through the 524,288 x 524,288 pair would cross at that width
     q, t = homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN)
     for cb in TILE_CB_SWEEP:
-        ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, None, sp.TB_ROWS, None,
+        ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, None, sp.TB_ROWS, "pallas",
                                dev)
         end_c, *records = sp._forward(ppc, True)
         tile = tile_of(ppc, *records, ppc["R_pad"] // ppc["tb"] - 1, ppc["n"] - 1)
@@ -2217,9 +2250,10 @@ def phase_block_timing(dev, at, wf, sp):
     # the whole forward fill by the rows of a forward block and the width
     # of a column block, scores only and with the alignment's records
     cells = WIDE_LEN * WIDE_LEN
+    k7_points = []  # the engine pick's calibration: forward blocks of FORWARD_ROWS rows
     for tr in TR_SWEEP:
         for cb in CB_SWEEP:
-            ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, tr, sp.TB_ROWS, None,
+            ppc = sp._prep_sharded(WIDE_LEN // cb, q, t, m, DEL, EXT, tr, sp.TB_ROWS, "pallas",
                                    dev)
             before = wf.launches.block_cs_tile_launches
             ms = gpu_ms(lambda: sp._forward(ppc, False), 1)
@@ -2232,10 +2266,12 @@ def phase_block_timing(dev, at, wf, sp):
                          f"x {cb} columns ({ppc['J']} x {ppc['n']} blocks): {ms:.3f} ms "
                          f"({cells / ms / 1e6:.1f} GCUPS), {launched} launches; with the "
                          f"boundary and checkpoint records {ms_rec:.3f} ms")
+            if tr == sp.FORWARD_ROWS:
+                k7_points.append((tr, cb, cells / ms / 1e6))
     print_rows(rows)
     for line in lines:
         print(f"  {line}", flush=True)
-    return rows
+    return rows, k7_points
 
 
 def forward_end_cell(dev, at, wf, q, t) -> int:
@@ -2533,7 +2569,9 @@ def phase_column_blocked(at, wf, sp, plain, wide):
     C = R = BLOCKED_LEN
     check(C > wf.MAX_WIDTH, "the wide pair is not wider than one plane")
     counters.reset()
-    before = (L.block_cs, L.block_cs_dirs, L.block_cs_tile_launches, L.replay_walk)
+    # forward blocks run on the engine the pick chose: K7 scores only, or K6
+    before = (L.block_cs + L.band_sp, L.block_cs_dirs,
+              L.block_cs_tile_launches + L.band_tile_launches, L.replay_walk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("warn")
@@ -2546,8 +2584,9 @@ def phase_column_blocked(at, wf, sp, plain, wide):
     peak = torch.cuda.max_memory_allocated() / 2**20
     kstats = counters.snapshot()
     blocks, tiles, launched, walks = (
-        L.block_cs - before[0], L.block_cs_dirs - before[1],
-        L.block_cs_tile_launches - before[2], L.replay_walk - before[3])
+        L.block_cs + L.band_sp - before[0], L.block_cs_dirs - before[1],
+        L.block_cs_tile_launches + L.band_tile_launches - before[2],
+        L.replay_walk - before[3])
     check(blocks > 0 and tiles > 0 and walks == tiles,
           f"align_global {R}x{C} did not take the column-blocked route ({blocks} blocks, "
           f"{tiles} tiles, {walks} walks)")
@@ -2556,12 +2595,15 @@ def phase_column_blocked(at, wf, sp, plain, wide):
     t0 = time.perf_counter()
     score = at.global_end_score(q, t, m, DEL, EXT, device=DEVICE)
     wall_es = time.perf_counter() - t0
-    blocks_es = L.block_cs - before[0] - blocks
-    launched_es = L.block_cs_tile_launches - before[2] - launched
+    blocks_es = L.block_cs + L.band_sp - before[0] - blocks
+    launched_es = L.block_cs_tile_launches + L.band_tile_launches - before[2] - launched
+    engines = [sp._prep_sharded(None, q, t, m_np, DEL, EXT, None, tb, None, DEVICE)["engine"]
+               for tb in (sp.TB_ROWS, None)]
     check(blocks_es > 0, f"global_end_score {R}x{C} did not take the column-blocked route")
     fwd = kstats[f"{DEVICE}/wavefront-sp"]
     rep = kstats[f"{DEVICE}/wavefront-sp-replay"]
-    print(f"  align_global {R}x{C} (no backend named: by its width): wall {wall:.3f} s "
+    print(f"  align_global {R}x{C} (no backend named: by its width; forward engine "
+          f"{engines[0]!r} by auto_shard_config): wall {wall:.3f} s "
           f"({R * C / wall / 1e9:.1f} GCUPS end to end; forward {fwd.seconds:.4f} s, "
           f"{fwd.gcups:.1f} GCUPS; replay and walks {rep.seconds:.4f} s), {blocks} forward "
           f"blocks run, {tiles} tiles replayed, {launched} kernel launches and {walks} "
@@ -2569,10 +2611,10 @@ def phase_column_blocked(at, wf, sp, plain, wide):
           f"(one after the forward fill, one cursor read a tile, the uploads and "
           f"downloads), peak device memory {peak:.0f} MiB, alignment length "
           f"{len(a.query)}", flush=True)
-    print(f"  global_end_score {R}x{C}: wall {wall_es:.3f} s "
+    print(f"  global_end_score {R}x{C} (engine {engines[1]!r}): wall {wall_es:.3f} s "
           f"({R * C / wall_es / 1e9:.1f} GCUPS), {blocks_es} forward blocks run, "
           f"{launched_es} kernel launches", flush=True)
-    out["A"] = dict(q=q, t=t, alignment=a, score=score)
+    out["A"] = dict(q=q, t=t, alignment=a, score=score, engines=engines)
 
     # backend="wavefront_sp" by name, on a small pair
     q5, t5 = homologous_pair(PAIR_SEED + 3, *SMALL_PAIR)
@@ -2642,26 +2684,28 @@ def hold_column_blocked(dev, at, host, wf, sp, plain, wide, out):
           f"wall {c['wall']:.3f} s; strings equal align_global's single-plane run, end "
           f"score {int(end)} equals global_end_score and the rescored path", flush=True)
 
-    # pair A: both entry points ran K7, so the end score is held by the band
-    # fill on a 2 x 2 grid of blocks, and the path by its rescoring
+    # pair A: the end score is held by the block engine the default did not
+    # run (K7's forward, or the band engine's), and the path by its rescoring
     a = out["A"]
     q, t, aln, score = a["q"], a["t"], a["alignment"], a["score"]
     C, R = len(q), len(t)
     t0 = time.perf_counter()
-    k6 = int(wf.band_grid(q, t, m_np, DEL, EXT, tb=wf.BAND_ROWS, cb=wf.MAX_WIDTH,
-                          device=dev, check_codes=False)[0])
-    wall_k6 = time.perf_counter() - t0
-    check(score == k6, f"{R}x{C}: global_end_score {score} != the band fill's {k6} on "
-                       f"a grid of {wf.BAND_ROWS} x {wf.MAX_WIDTH} blocks")
+    engine = "pallas" if a["engines"][1] == "band" else "band"
+    other = {"pallas": "the \"pallas\" engine's K7 forward",
+             "band": "the band engine's forward"}[engine]
+    k_other = sp.sharded_global_end_score(None, q, t, m_np, DEL, EXT, engine=engine,
+                                          device=dev)
+    wall_other = time.perf_counter() - t0
+    check(score == k_other, f"{R}x{C}: global_end_score {score} != {other}, {k_other}")
     rescored = wf.rescore_steps(*wf.alignment_steps(aln.query, aln.target), q, t, m, DEL,
                                 EXT)
     check(rescored == score,
           f"{R}x{C}: the rescored path {rescored} != global_end_score {score}")
     check(spells(at, aln, q, t) and tuple(map(tuple, aln.coords)) == ((1, C), (1, R)),
           f"{R}x{C}: the aligned strings do not spell the pair")
-    print(f"  {R}x{C}: global_end_score {int(score)} equals the band fill's end score on "
-          f"a grid of {wf.BAND_ROWS} x {wf.MAX_WIDTH} blocks ({wall_k6:.3f} s) and the "
-          f"rescored path of align_global; the strings spell the pair", flush=True)
+    print(f"  {R}x{C}: global_end_score {int(score)} (engine {a['engines'][1]!r}) equals "
+          f"{other} ({wall_other:.3f} s) and the rescored path of align_global; the strings "
+          f"spell the pair", flush=True)
 
     s5 = out["small"]
     ref = host.align_global(s5["q"], s5["t"], m, DEL, EXT)
@@ -2914,6 +2958,323 @@ def phase_host_walks(at, sp, plain, wide, blocked, launch_counts, reset_counts):
     return counts
 
 
+def fit_rate(points):
+    """Least squares of ``1 / rate = NS / tr + NS·L / cb``, relative to each
+    point, over ``(tr, cb, GCUPS)`` points: the ``(NS, L)`` of the engine
+    pick's rate model (``parallel/wavefront_sp.py``)."""
+    a = np.array([[g / tr, g / cb] for tr, cb, g in points])
+    (ns, ns_l), *_ = np.linalg.lstsq(a, np.ones(len(points)), rcond=None)
+    return float(ns), float(ns_l / ns)
+
+
+def engine_calibration(dev, at, wf, sp, k7_points=None):
+    """The engine pick's calibration on the 262,144 x 262,144 pair: the band
+    engine's scores-only forward by band height at CB_COLS-wide column
+    blocks and at two other widths, and the row-scan engine's at
+    FORWARD_ROWS rows by column width (the block sweep's, or measured here
+    when not given) and at CB_COLS columns by the heights of K7_CAL_ROWS,
+    each on a target of that many rows (a short target, one row block);
+    each point beside the shipped model, the model's largest error, this
+    run's least-squares constants, and the picks at 262,144^2, 524,288^2
+    and 524,288 x SHORT_LEN with and without a traceback.  Returns the
+    points."""
+    m = np.array(at.blosum62())
+    q, t = homologous_pair(PAIR_SEED + 2, WIDE_LEN, WIDE_LEN)
+
+    def forward_gcups(cb, tr, engine, rows=WIDE_LEN):
+        pp = sp._prep_sharded(WIDE_LEN // cb, q, t[:rows], m, DEL, EXT, tr, None, engine,
+                              dev)
+        check(pp["Cb"] == cb and pp["tr"] == tr and pp["engine"] == engine,
+              f"the calibration's {engine} blocks came out {pp['tr']} x {pp['Cb']}")
+        ms = gpu_ms(lambda: sp._forward(pp, False), 1)
+        return (tr, cb, rows * WIDE_LEN / ms / 1e6)
+
+    band = [forward_gcups(cb, tr, "band") for cb, heights in BAND_CAL for tr in heights]
+    if k7_points is None:
+        k7_points = [forward_gcups(cb, sp.FORWARD_ROWS, "pallas") for cb in CB_SWEEP]
+    k7_points = list(k7_points) + [forward_gcups(sp.CB_COLS, tr, "pallas", rows=tr)
+                                   for tr in K7_CAL_ROWS]
+    for name, points, model in (
+            ("band", band, sp.band_rate_model),
+            ("row-scan", k7_points, lambda tr, cb: sp.rowscan_rate_model(cb, tr))):
+        errs = []
+        for tr, cb, g in points:
+            p = model(tr, cb)
+            errs.append(p / g - 1)
+            print(f"  calibration, {name} engine, forward in blocks of {tr} rows x {cb} "
+                  f"columns: {g:.1f} GCUPS, modelled {p:.1f} "
+                  f"({errs[-1]:+.1%})", flush=True)
+        ns, L = fit_rate(points)
+        print(f"  calibration, {name} engine: the shipped model's largest error "
+              f"{max(abs(e) for e in errs):.1%}; this run's fit: {ns:.2f} ns a column, "
+              f"{L:.3f} columns a row", flush=True)
+    for q_len, t_len in ((WIDE_LEN, WIDE_LEN), (BLOCKED_LEN, BLOCKED_LEN),
+                         (BLOCKED_LEN, SHORT_LEN)):
+        n = -(-q_len // sp.CB_COLS)
+        for what, cap in (("an end score", wf.BAND_ROWS), ("an alignment", sp.TB_ROWS)):
+            e, tr, g = sp.auto_shard_config(q_len, t_len, n, max_band_tr=cap)
+            print(f"  engine pick at {t_len}x{q_len} in {n} column blocks, {what} (band "
+                  f"height at most {cap}): {e!r} in blocks of {tr} rows, {g:.1f} GCUPS "
+                  f"modelled", flush=True)
+    return dict(band=band, rowscan=k7_points)
+
+
+def phase_engines(at, wf, sp, cli_align, blocked, tmp):
+    """Drives the column-blocked pipeline's engines, and nothing else, so
+    that the launch counts read after it are the path's own: the band
+    engine's end score and alignment of the 65,536 x 65,536 pair in 4
+    column blocks and of the 524,288 x 524,288 pair, that pair's end score
+    on the row-scan engine, its alignment and end score with BLOSUM62 x 20
+    (del 220, ext 40) through ``align_global`` and ``global_end_score`` with
+    no backend and no engine named (the "lax" engine, by the matrix), and
+    ``aligner-align -g -m FILE`` with that matrix on a pair one COL_PAD
+    wider than one plane.  Returns each run's result, wall, the module's
+    counters and the arguments its engine and blocks follow from, for
+    :func:`hold_engines`."""
+    from aligner_tpu_torch.observability import counters
+
+    m_np = np.asarray(at.blosum62())
+    m20 = LAX_SCALE * m_np
+    b, a = blocked["B"], blocked["A"]
+    runs = {}
+
+    def drive(name, fn, n_blocks, q, t, m, d, e, tb, engine):
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        runs[name] = dict(res=res, wall=time.perf_counter() - t0, stats=counters.snapshot(),
+                          prep=(n_blocks, q, t, m, d, e, None, tb, engine))
+
+    for pair, n_blocks, p in (("B", BLOCKED_B, b), ("A", None, a)):
+        q, t = p["q"], p["t"]
+        drive(f"{pair} band end", lambda: sp.sharded_global_end_score(
+            n_blocks, q, t, m_np, DEL, EXT, engine="band", device=DEVICE),
+            n_blocks, q, t, m_np, DEL, EXT, None, "band")
+        drive(f"{pair} band align", lambda: sp.sharded_global_align(
+            n_blocks, q, t, m_np, DEL, EXT, engine="band", device=DEVICE),
+            n_blocks, q, t, m_np, DEL, EXT, sp.TB_ROWS, "band")
+    q, t = a["q"], a["t"]
+    drive("A pallas end", lambda: sp.sharded_global_end_score(
+        None, q, t, m_np, DEL, EXT, engine="pallas", device=DEVICE),
+        None, q, t, m_np, DEL, EXT, None, "pallas")
+    drive("A lax align", lambda: at.align_global(q, t, m20, LAX_DEL, LAX_EXT,
+                                                 device=DEVICE).alignment,
+          None, q, t, m20, LAX_DEL, LAX_EXT, sp.TB_ROWS, None)
+    drive("A lax end", lambda: at.global_end_score(q, t, m20, LAX_DEL, LAX_EXT,
+                                                   device=DEVICE),
+          None, q, t, m20, LAX_DEL, LAX_EXT, None, None)
+    # the CLI on a matrix file, one COL_PAD past the width cap
+    qc, tc = homologous_pair(PAIR_SEED + 7, *CLI_WIDE_PAIR)
+    check(len(qc) > wf.MAX_WIDTH, "the CLI's pair is not wider than one plane")
+    fasta, mfile = os.path.join(tmp, "wide.fasta"), os.path.join(tmp, "b62x20.txt")
+    write_db(fasta, [at.Protein.decode(qc).encode(), at.Protein.decode(tc).encode()],
+             ["query", "target"])
+    with open(mfile, "w") as fh:
+        fh.write("\n".join(" ".join(str(int(v)) for v in row) for row in m20) + "\n")
+    buf = io.StringIO()
+    argv = ["-i", fasta, "-g", "-m", mfile, "-d", str(LAX_DEL), "-e", str(LAX_EXT),
+            "--device", DEVICE]
+
+    def cli():
+        with contextlib.redirect_stdout(buf):
+            return cli_align.main(argv)
+
+    drive("CLI", cli, None, qc, tc, m20, LAX_DEL, LAX_EXT, sp.TB_ROWS, None)
+    runs["CLI"].update(stdout=buf.getvalue(), q=qc, t=tc)
+    return runs
+
+
+def hold_engines(dev, at, wf, sp, cli_align, blocked, runs, counts, k7_points):
+    """What :func:`phase_engines` ran, against the plain versions and the
+    other engines, and its launch counts against its blocks and tiles: K7
+    with BLOSUM62 x 20 on ragged blocks and on the last replay tile of the
+    524,288 x 524,288 pair, bit for bit against its plain version; the band
+    engine's last block of the 524,288 x 524,288 alignment (32,768 x
+    131,072 at its last column block, ending the last replay tile) against
+    the plain band fill; the 65,536 x 65,536 pair's band records in 4
+    column blocks and its step stream against the row-scan engine's, its
+    strings against phase 12's; at 524,288 x 524,288 the band engine's end
+    score against K7's and its rescored path, and the "lax" engine's
+    strings against phase 12's BLOSUM62 alignment with 20 times its end
+    score; the CLI's stdout against the rendering of the BLOSUM62
+    alignment; then the engine pick's calibration.  Returns the kernels' rows."""
+    m_np = np.asarray(at.blosum62())
+    m20 = LAX_SCALE * m_np
+    b, a = blocked["B"], blocked["A"]
+    rows = []
+
+    # the launch counts: one K6 launch a band-engine block, one K7 launch a
+    # row-scan or lax forward block, one K7 launch with directions and one
+    # walk a tile replayed, and no other kernel
+    want = dict(band_sp=0, block_cs=0, tiles=0)
+    for name, r in runs.items():
+        pp = sp._prep_sharded(*r["prep"], DEVICE)
+        blocks = pp["J"] * pp["n"]
+        want["band_sp" if pp["engine"] == "band" else "block_cs"] += blocks
+        rep = r["stats"].get(f"{DEVICE}/wavefront-sp-replay")
+        tiles = rep.cells // (pp["tb"] * pp["Cb"]) if rep else 0
+        want["tiles"] += tiles
+        r.update(engine=pp["engine"], blocks=blocks, tiles=tiles, tr=pp["tr"], Cb=pp["Cb"])
+    check(counts["band_sp"] == counts["band_tile_launches"] == want["band_sp"] > 0
+          and counts["block_cs"] == want["block_cs"] > 0
+          and counts["block_cs_dirs"] == counts["replay_walk"] == want["tiles"] > 0
+          and counts["block_cs_tile_launches"] == want["block_cs"] + want["tiles"],
+          f"the engines' path launched {counts}, its blocks and tiles ask for {want}")
+    others = {k: v for k, v in counts.items()
+              if k not in ("band_sp", "band_tile_launches", "block_cs", "block_cs_dirs",
+                           "block_cs_tile_launches", "replay_walk") and v}
+    check(not others, f"the engines' path launched other kernels: {others}")
+    for name, r in runs.items():
+        print(f"  {name}: engine {r['engine']!r}, {r['blocks']} forward blocks of {r['tr']} "
+              f"rows x {r['Cb']} columns, {r['tiles']} tiles replayed, wall {r['wall']:.3f} s",
+              flush=True)
+
+    # K7 with entries beyond int8 on ragged blocks of the pipeline
+    kw20 = dict(del_=LAX_DEL, ext=LAX_EXT)
+    n_held = 0
+    for C, R, cb, tb in ((513, 100, 256, 64), (700, 300, 512, 128), (260, 1000, 256, 128)):
+        q, t = homologous_pair(SEED + 40 + C, C, R)
+        pp = sp._prep_sharded(-(-C // cb), q, t, m20, LAX_DEL, LAX_EXT, tb, tb, None, dev)
+        check(pp["engine"] == "lax", "BLOSUM62 x 20 did not take the \"lax\" engine")
+        _, lb_hist, ckpts = sp._forward(pp, True)
+        for j in range(pp["J"]):
+            for d in range(pp["n"]):
+                h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+                args = (pp["q_dev"][d * cb:(d + 1) * cb], pp["t_dev"][j * tb:(j + 1) * tb],
+                        pp["m_dev"], h0, lb, d * cb, j * tb, C, R)
+                for dirs in (False, True):
+                    ck = 0 if dirs else tb
+                    got = wf.run_block_cs(*args, **kw20, with_dirs=dirs, ckpt_every=ck)
+                    want_b = wf.run_block_cs_plain(*args, **kw20, with_dirs=dirs, ckpt_every=ck)
+                    check(same_block(got, want_b, min(tb, R - j * tb), min(cb, C - d * cb)),
+                          f"run_block_cs != plain with BLOSUM62 x 20 ({C}x{R}, block "
+                          f"({j}, {d}), dirs={dirs})")
+                    n_held += 1
+    # ... and on the last replay tile of the 524,288 x 524,288 pair
+    q, t = a["q"], a["t"]
+    pp = sp._prep_sharded(None, q, t, m20, LAX_DEL, LAX_EXT, None, sp.TB_ROWS, None, dev)
+    _, lb_hist, ckpts = sp._forward(pp, True)
+    j, d, Cb, TB = pp["R_pad"] // pp["tb"] - 1, pp["n"] - 1, pp["Cb"], pp["tb"]
+    h0, lb = sp._tile_inputs(pp, lb_hist, ckpts, j, d)
+    tile = (pp["q_dev"][d * Cb:(d + 1) * Cb], pp["t_dev"][j * TB:(j + 1) * TB], pp["m_dev"],
+            h0, lb, d * Cb, j * TB, pp["C_real"], pp["R_real"])
+    del lb_hist, ckpts
+    got, ms, want_t, plain_ms = timed_pair(
+        lambda: wf.run_block_cs(*tile, **kw20, with_dirs=True, check_codes=False),
+        lambda: wf.run_block_cs_plain(*tile, **kw20, with_dirs=True), 3)
+    check(same_block(got, want_t, TB, Cb),
+          f"run_block_cs != plain with BLOSUM62 x 20 on the last replay tile ({TB}x{Cb})")
+    n_held += 1
+    rows.append(dict(
+        name=f"wavefront_block_cs (directions, BLOSUM62 x {LAX_SCALE}, the \"lax\" engine's "
+             f"last replay tile at column {d * Cb})", route="cuda",
+        source="aligner_tpu_torch/csrc/wavefront_block.cu", replaces=REPLACES["block_cs"],
+        path="engines", counter="block_cs_dirs",
+        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want_t) if x is not None),
+        ms=ms, plain_ms=plain_ms, shape=f"{TB}x{Cb} int32",
+        **bound(OPS_SCAN_DIRS * TB * Cb, nbytes(*tile[:5], *got))))
+    del got, want_t, tile
+
+    # the band engine's block that ends the last replay tile of pair A's
+    # alignment at its last column block: x0 > 0, a streamed left boundary,
+    # the end cell
+    ppa = sp._prep_sharded(*runs["A band align"]["prep"], dev)
+    trace = collections.deque(maxlen=1)  # the last band alone
+    _, _, ck_a = sp._forward(ppa, True, trace=trace)
+    Cb, tr, d = ppa["Cb"], ppa["tr"], ppa["n"] - 1
+    check(tr == ppa["tb"] and d > 0, "the band engine's bands are not replay tiles")
+    args, kw, _ = trace[-1]
+    got, ms, want_k6, plain_ms = timed_pair(
+        lambda: wf.run_block_band(*args, **kw),
+        lambda: wf.run_block_band_plain(*args, Cb=Cb, ext=kw["ext"]), 3)
+    khat = torch.arange(Cb, dtype=torch.int32, device=dev) * ppa["ext"]
+    bottom = wf.band_handoff(got[0], tr, ppa["ext"])[:Cb] - khat
+    bottom_p = wf.band_handoff(want_k6[0], tr, ppa["ext"])[:Cb] - khat
+    check(same_band(got, want_k6, tr, Cb) and torch.equal(bottom, bottom_p)
+          and torch.equal(bottom, ck_a[-1, d * Cb:(d + 1) * Cb])
+          and int(got[2]) == a["score"],
+          "run_block_band != plain on the band engine's last block (its de-hatted last "
+          "row, its right column, the end cell)")
+    n_held += 1
+    rows.append(dict(
+        name=f"wavefront_band (scores, the band engine's last block of {tr} rows at "
+             f"column {d * Cb})",
+        route="cuda", source="aligner_tpu_torch/csrc/wavefront_band.cu",
+        replaces=REPLACES["band"], path=("column_blocked", "engines"), counter="band_sp",
+        max_abs_err=max(max_abs_err(bottom, bottom_p), max_abs_err(got[1], want_k6[1])),
+        ms=ms, plain_ms=plain_ms, shape=f"{tr}x{Cb} int32",
+        **bound(OPS_BAND * tr * Cb, nbytes(*args[:7], *got))))
+    del got, want_k6, args, trace, ck_a
+    print_rows(rows)
+    print(f"  {n_held} column-block and band fills with the engines' operands bit-identical "
+          f"to their plain versions", flush=True)
+
+    # pair B: the band engine's records and walk are the row-scan engine's
+    q, t = b["q"], b["t"]
+    ppb = sp._prep_sharded(BLOCKED_B, q, t, m_np, DEL, EXT, None, sp.TB_ROWS, "band", dev)
+    ppr = sp._prep_sharded(BLOCKED_B, q, t, m_np, DEL, EXT, None, sp.TB_ROWS, "pallas", dev)
+    _, lb_b, ck_b, state_b, steps_b, info_b = sp._sharded_walk(ppb)
+    _, lb_r, ck_r, state_r, steps_r, info_r = sp._sharded_walk(ppr)
+    C = len(q)
+    check(torch.equal(lb_b, lb_r) and torch.equal(ck_b[:, :C], ck_r[:, :C])
+          and same_walk((state_b, steps_b), (state_r, steps_r)),
+          "the band engine's boundary history, checkpoint rows or step stream != the "
+          "row-scan engine's")
+    end_bb, *aln_bb = runs["B band align"]["res"]
+    check(end_bb == runs["B band end"]["res"] == b["es"]
+          and all(np.array_equal(x, y) for x, y in zip(aln_bb[:2], b["res"][1:3]))
+          and aln_bb[2] == b["res"][3],
+          "the band engine's 4-block alignment != phase 12's")
+    print(f"  {len(t)}x{C} in {ppb['n']} column blocks: the band engine ({ppb['J']} x "
+          f"{ppb['n']} bands of {ppb['tr']} rows, forward {info_b['forward_s']:.4f} s) and the "
+          f"row-scan engine ({ppr['J']} x {ppr['n']} blocks of {ppr['tr']} rows, forward "
+          f"{info_r['forward_s']:.4f} s) record the same boundaries and checkpoint rows and "
+          f"walk the same steps; the strings equal phase 12's", flush=True)
+
+    # pair A: the band engine against K7's forward, the lax engine against
+    # BLOSUM62's alignment
+    q, t = a["q"], a["t"]
+    end_ab, *aln_ab = runs["A band align"]["res"]
+    es_band, es_k7 = runs["A band end"]["res"], runs["A pallas end"]["res"]
+    rescored = wf.rescore_steps(*wf.alignment_steps(*aln_ab[:2]), q, t, m_np, DEL, EXT)
+    check(end_ab == es_band == es_k7 == a["score"] == rescored,
+          f"524,288^2 on the band engine: end score {end_ab} / {es_band}, K7's {es_k7}, "
+          f"phase 12's {a['score']}, rescored {rescored}")
+    check(np.array_equal(aln_ab[0], a["alignment"].query)
+          and np.array_equal(aln_ab[1], a["alignment"].target),
+          "524,288^2: the band engine's strings != phase 12's")
+    lax_aln, es_lax = runs["A lax align"]["res"], runs["A lax end"]["res"]
+    check(same_alignment(lax_aln, a["alignment"]) and es_lax == LAX_SCALE * a["score"],
+          f"524,288^2 with BLOSUM62 x {LAX_SCALE}: end score {es_lax} or the strings != "
+          f"{LAX_SCALE} x phase 12's")
+    rescored20 = wf.rescore_steps(*wf.alignment_steps(lax_aln.query, lax_aln.target), q, t,
+                                  m20, LAX_DEL, LAX_EXT)
+    check(rescored20 == es_lax, f"the lax path rescored {rescored20} != its end score")
+    r = runs
+    print(f"  {len(t)}x{len(q)}: band engine end score {int(es_band)} in "
+          f"{r['A band end']['wall']:.3f} s, alignment {r['A band align']['wall']:.3f} s; "
+          f"K7's forward {r['A pallas end']['wall']:.3f} s, equal; the band path rescored "
+          f"equals it and its strings phase 12's; BLOSUM62 x {LAX_SCALE} (del {LAX_DEL}, "
+          f"ext {LAX_EXT}) on the {r['A lax align']['engine']!r} engine: align_global "
+          f"{r['A lax align']['wall']:.3f} s, global_end_score {r['A lax end']['wall']:.3f} s "
+          f"= {LAX_SCALE} x {int(a['score'])}, strings equal phase 12's", flush=True)
+
+    # the CLI against the rendering of BLOSUM62's alignment of its pair
+    c = runs["CLI"]
+    ref_aln = at.align_global(c["q"], c["t"], m_np, DEL, EXT, device=DEVICE).alignment
+    check(c["res"] == 0 and c["stdout"] == cli_align.reference_debug_format(ref_aln, m20)
+          + "\n", "aligner-align -g -m FILE with BLOSUM62 x 20 != the rendering of the "
+          "BLOSUM62 alignment")
+    print(f"  aligner-align -g -m FILE (BLOSUM62 x {LAX_SCALE}, -d {LAX_DEL} -e {LAX_EXT}) on "
+          f"{CLI_WIDE_PAIR[1]}x{CLI_WIDE_PAIR[0]}: engine {c['engine']!r}, wall "
+          f"{c['wall']:.3f} s, stdout ({len(c['stdout'])} bytes) equals the rendering of the "
+          f"BLOSUM62 alignment", flush=True)
+    engine_calibration(dev, at, wf, sp, k7_points)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2944,7 +3305,7 @@ def main() -> int:
         n = phase_kernels_vs_plain(dev, at, dp_fill, device_walk, scan_engine)
         n += counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop)
         n += wavefront_vs_plain(dev, at, wf)
-        n += band_vs_plain(dev, at, host, wf)
+        n += band_vs_plain(dev, at, host, wf, sp)
         n += block_cs_vs_plain(dev, at, wf, sp)
         n += walks_that_refill(dev, wf, device_walk)
         print(f"  {n} variants bit-identical", flush=True)
@@ -2963,7 +3324,8 @@ def main() -> int:
         rows += wf_rows
         band_rows, plain_end = phase_band_timing(dev, at, wf, plain["q"], plain["t"])
         rows += band_rows
-        rows += phase_block_timing(dev, at, wf, sp)
+        block_rows, k7_points = phase_block_timing(dev, at, wf, sp)
+        rows += block_rows
         rows.append(population_count_row(dev, at, dp_fill, device_walk, freq_count, pop))
         print_rows(rows[-1:])
 
@@ -2978,6 +3340,7 @@ def main() -> int:
                     row_scan_dirs=wf.launches.row_scan_dirs,
                     replay_walk=wf.launches.replay_walk,
                     tile_launches=wf.launches.tile_launches, band=wf.launches.band,
+                    band_sp=wf.launches.band_sp,
                     band_tile_launches=wf.launches.band_tile_launches,
                     block_cs=wf.launches.block_cs,
                     block_cs_dirs=wf.launches.block_cs_dirs,
@@ -3046,6 +3409,14 @@ def main() -> int:
         counts["simple"] = launch_counts()
         counts["host_walk"] = phase_host_walks(at, sp, plain, wide, blocked,
                                                launch_counts, reset_counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with phase("column-blocked engines"):
+            runs = phase_engines(at, wf, sp, cli_align, blocked, tmp)
+        counts["engines"] = launch_counts()
+        with phase("column-blocked engines against the plain versions and each other"):
+            rows += hold_engines(dev, at, wf, sp, cli_align, blocked, runs,
+                                 counts["engines"], k7_points)
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
@@ -3054,11 +3425,12 @@ def main() -> int:
                 ("pwm", "phase 9", ("pwm_scores", "pwm_dirs", "walk")),
                 ("huge", "phase 10", ("row_scan", "row_scan_dirs", "replay_walk")),
                 ("end_score", "phase 11", ("band",)),
-                ("column_blocked", "phase 12",
-                 ("block_cs", "block_cs_dirs", "replay_walk")),
+                ("column_blocked", "phase 12", ("block_cs_dirs", "replay_walk")),
                 ("simple", "phase 13", ("planes",)),
                 ("host_walk", "phase 13",
-                 ("dirs", "pwm_dirs", "row_scan_dirs", "block_cs_dirs"))):
+                 ("dirs", "pwm_dirs", "row_scan_dirs", "block_cs_dirs")),
+                ("engines", "phase 14",
+                 ("band_sp", "block_cs", "block_cs_dirs", "replay_walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,
@@ -3067,9 +3439,14 @@ def main() -> int:
             # the strip walk and the band walk: one kernel launch a call
             check(c["tile_launches"] == c["row_scan"] + c["row_scan_dirs"]
                   and c["block_cs_tile_launches"] == c["block_cs"] + c["block_cs_dirs"]
-                  and c["band_tile_launches"] == c["band"],
+                  and c["band_tile_launches"] == c["band"] + c["band_sp"],
                   f"the {path} path's row-scan, column-block or band calls made other "
                   f"than one launch each")
+        # the column-blocked path's forward blocks ran on K7 or K6, as the
+        # pick chose, and no single-plane kernel ran on it
+        c = counts["column_blocked"]
+        check(c["block_cs"] + c["band_sp"] > 0 and c["band"] == c["row_scan"] == 0,
+              f"the column_blocked path's forward blocks: {c}")
         for path in ("simple", "host_walk"):
             check(counts[path]["walk"] == 0 and counts[path]["replay_walk"] == 0,
                   f"the {path} path launched a walk kernel: the walks are the host's")
@@ -3083,9 +3460,10 @@ def main() -> int:
     kernels = []
     for r in rows:
         paths = r["path"] if isinstance(r["path"], tuple) else (r["path"],)
+        names = r["counter"] if isinstance(r["counter"], tuple) else (r["counter"],)
         kernels.append(dict(name=r["name"], route=r["route"], source=r["source"],
                             replaces=r["replaces"],
-                            launches=sum(counts[p][r["counter"]] for p in paths),
+                            launches=sum(counts[p][k] for p in paths for k in names),
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],

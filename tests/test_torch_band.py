@@ -20,6 +20,7 @@ from aligner_tpu.ops import wavefront as ref_wf
 from aligner_tpu.ops.pallas_dp import lut_params
 from aligner_tpu_torch import host, native, oracle
 from aligner_tpu_torch.ops import wavefront as wf
+from aligner_tpu_torch.parallel import wavefront_sp as sp
 
 torch.set_num_threads(1)
 
@@ -217,7 +218,7 @@ def test_band_grid_streamed_left_boundary_matches_host_plane(C, R, tb, cb):
     host engine's plane."""
     q, t = _pair(C + R + tb, C, R)
     H = host.align_global(q, t, B62, 11.0, 2.0).score
-    end, rights, bottoms = wf.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb, device="cpu",
+    end, rights, bottoms = sp.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb, device="cpu",
                                         block=wf.run_block_band_plain)
     assert len(rights) == -(-C // cb) >= 2 and len(bottoms) == -(-R // tb) >= 2
     assert int(end) == H[R, C]
@@ -239,7 +240,7 @@ def test_band_grid_takes_a_pair_wider_than_one_plane(monkeypatch):
     monkeypatch.setattr(wf, "MAX_WIDTH", 128)
     q, t = _pair(77, 300, 150)
     H = host.align_global(q, t, B62, 11.0, 2.0).score
-    end, _, _ = wf.band_grid(q, t, B62, 11.0, 2.0, tb=128, cb=wf.MAX_WIDTH, device="cpu")
+    end, _, _ = sp.band_grid(q, t, B62, 11.0, 2.0, tb=128, cb=wf.MAX_WIDTH, device="cpu")
     assert int(end) == H[150, 300]
     with pytest.raises(ValueError):
         wf._prep(q, t, B62, 11.0, 2.0, "cpu")

@@ -30,6 +30,7 @@ import torch
 
 from aligner_tpu_torch.matrices import blosum62
 from aligner_tpu_torch.ops import wavefront as wf
+from aligner_tpu_torch.parallel import wavefront_sp as sp
 
 torch.set_num_threads(1)
 
@@ -207,9 +208,9 @@ def test_host_band_grid_streamed_left_boundary(host, C, R, tb, cb, K, P):
     def block(*args, **kw):
         return host_band(host, *args, **kw, rows_per_lane=K, read_ahead=P)
 
-    end, rights, bottoms = wf.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb, device="cpu",
+    end, rights, bottoms = sp.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb, device="cpu",
                                         block=block)
-    end_p, rights_p, bottoms_p = wf.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb,
+    end_p, rights_p, bottoms_p = sp.band_grid(q, t, B62, 11.0, 2.0, tb=tb, cb=cb,
                                               device="cpu", block=wf.run_block_band_plain)
     assert len(rights) >= 2 and int(end) == int(end_p)
     for col, col_p in zip(rights, rights_p):

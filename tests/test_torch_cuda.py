@@ -4,7 +4,8 @@ mode (K1/K2) and in PWM mode (K3), also around the rows of a column it
 keeps on chip, the walk (K4), the row-scan fill of one global pair (K5),
 the replay walk (also with a column base), the band fill (K6) with the
 end score built on it, and the column-block fill (K7) with the
-column-blocked pipeline built on it, and the heuristic population's
+column-blocked pipeline built on it (its three block engines and the
+engine pick), and the heuristic population's
 frequency count with the float64 transform and the population built on
 them, and the fill's score plane with ``keep_planes`` and the simple
 aligners on it, and the host walks (``walk="host"``) against the device
@@ -488,15 +489,16 @@ def test_band_kernel_streamed_left_boundary(dev):
     """Column blocks fed their left neighbour's right column, against the
     host engine's plane and the plain version's grid."""
     from aligner_tpu_torch import host
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
 
     rng = np.random.default_rng(33)
     C, R, tb, cb = 600, 300, 128, 256
     q, t = rng.integers(0, V, C).astype(np.int8), rng.integers(0, V, R).astype(np.int8)
     m = np.array(blosum62())
     H = host.align_global(q, t, m, 11.0, 2.0).score
-    end, rights, bottoms = wavefront.band_grid(q, t, m, 11.0, 2.0, tb=tb, cb=cb,
-                                               device=dev, read_ahead=64)
-    end_p, rights_p, bottoms_p = wavefront.band_grid(
+    end, rights, bottoms = sp.band_grid(q, t, m, 11.0, 2.0, tb=tb, cb=cb, device=dev,
+                                        read_ahead=64)
+    end_p, rights_p, bottoms_p = sp.band_grid(
         q, t, m, 11.0, 2.0, tb=tb, cb=cb, device=dev, block=wavefront.run_block_band_plain)
     assert int(end) == int(end_p) == H[R, C]
     for ci in range(2):  # the third block's right column lies past the query
@@ -773,12 +775,102 @@ def test_column_blocked_pair_on_the_card(dev):
     assert wavefront.rescore_steps(*wavefront.alignment_steps(qa, ta), q, t, m, 11, 2) == end
     b = align_global(q, t, m, 11.0, 2.0, backend="wavefront_sp", device=dev).alignment
     assert np.array_equal(b.query, qa) and np.array_equal(b.target, ta)
-    pp = sp._prep_sharded(4, q, t, m, 11, 2, None, 1024, None, dev)
+    pp = sp._prep_sharded(4, q, t, m, 11, 2, None, 1024, "pallas", dev)
     assert pp["tr"] == n and pp["tb"] == 1024  # one forward block, 8 checkpoints in it
     _, _, ckpts = sp._forward(pp, True)
     pp1 = wavefront._prep(q, t, m, 11, 2, dev)
     _, _, ck1 = wavefront._scan(pp1, pp["t_dev"], None, 0, with_dirs=False, ckpt_every=1024)
     assert torch.equal(ckpts[:, :n], ck1[:, :n])
+
+
+def _homolog(seed, n):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, n).astype(np.int8)
+    t = q.copy()
+    mask = rng.random(n) < 0.25
+    t[mask] = rng.integers(0, 20, int(mask.sum()))
+    return q, t
+
+
+def test_band_engine_on_the_card(dev):
+    """The column-blocked pipeline's band engine on an 8,192 x 8,192 pair in 4
+    column blocks: its boundary history, checkpoint rows and step stream
+    equal the row-scan engine's, each band of its forward fill equals the
+    plain band fill, and one launch a band is counted as the pipeline's."""
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    q, t = _homolog(46, 8192)
+    m = np.array(blosum62())
+    band = sp._prep_sharded(4, q, t, m, 11, 2, None, 1024, "band", dev)
+    rows = sp._prep_sharded(4, q, t, m, 11, 2, None, 1024, "pallas", dev)
+    assert (band["tr"], band["tb"]) == (1024, 1024) and rows["tb"] == 1024
+    L = wavefront.launches
+    before = (L.band, L.band_sp, L.band_tile_launches)
+    eb, lb_b, ck_b, state_b, steps_b, info = sp._sharded_walk(band)
+    assert (L.band, L.band_sp, L.band_tile_launches) == \
+        (before[0], before[1] + 32, before[2] + 32) and info["engine"] == "band"
+    er, lb_r, ck_r, state_r, steps_r, _ = sp._sharded_walk(rows)
+    assert torch.equal(eb, er) and torch.equal(lb_b, lb_r) and torch.equal(ck_b, ck_r)
+    assert torch.equal(state_b, state_r) and torch.equal(steps_b, steps_r)
+    trace = []
+    sp._forward(band, False, trace=trace)
+    for args, kw, out in trace[:5] + trace[-3:]:
+        want = wavefront.run_block_band_plain(*args, Cb=kw["Cb"], ext=kw["ext"])
+        TB = args[0].numel()  # the last row's slots before TB - 1 hold no cell
+        assert torch.equal(out[0][TB - 1:], want[0][TB - 1:])
+        assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+    a = sp.sharded_global_align(4, q, t, m, 11.0, 2.0, tb_rows=1024, engine="band",
+                                device=dev)
+    b = sp.sharded_global_align(4, q, t, m, 11.0, 2.0, tb_rows=1024, engine="pallas",
+                                device=dev)
+    assert a[0] == b[0] == int(er) and a[3] == b[3]
+    assert np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+    assert sp.sharded_global_end_score(4, q, t, m, 11.0, 2.0, engine="band",
+                                       device=dev) == a[0]
+
+
+def test_lax_engine_on_the_card(dev):
+    """BLOSUM62 x 20 with del 220 and ext 40 (entries -80 ... 220): the
+    column-block fill equals its plain version on blocks of the pipeline,
+    and the alignment is BLOSUM62's with 20 times its end score (scaling
+    every score by a positive integer keeps every tie)."""
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    m = np.array(blosum62())
+    for d, j, with_dirs in ((1, 1, True), (2, 0, False), (0, 1, True)):
+        args = _block_case(47, 700, 300, 256, 128, d, j, dev, m=20 * m, del_=220, ext=40)
+        kw = dict(del_=220, ext=40, with_dirs=with_dirs, ckpt_every=0 if with_dirs else 64)
+        got = wavefront.run_block_cs(*args, **kw)
+        torch.cuda.synchronize()
+        want = wavefront.run_block_cs_plain(*args, **kw)
+        assert _same_block(got, want, min(128, 300 - args[6]), min(256, 700 - args[5]))
+    q, t = _homolog(48, 8192)
+    assert sp._prep_sharded(4, q, t, 20 * m, 220, 40, None, 1024, None, dev)["engine"] == "lax"
+    a = sp.sharded_global_align(4, q, t, 20 * m, 220, 40, tb_rows=1024, device=dev)
+    b = sp.sharded_global_align(4, q, t, m, 11, 2, tb_rows=1024, engine="pallas", device=dev)
+    assert a[0] == 20 * b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+    assert sp.sharded_global_end_score(4, q, t, 20 * m, 220, 40, device=dev) == a[0]
+
+
+def test_engine_pick_on_the_card(dev):
+    """With neither ``engine`` nor ``tr`` named the card runs the engine and
+    the block height ``auto_shard_config`` picks, the band height capped at
+    the replay tile's rows for an alignment; the results are the row-scan
+    engine's."""
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    q, t = _homolog(49, 8192)
+    m = np.array(blosum62())
+    for tb in (None, 1024):
+        pp = sp._prep_sharded(4, q, t, m, 11, 2, None, tb, None, dev)
+        cap = wavefront.BAND_ROWS if tb is None else tb
+        e, tr, _ = sp.auto_shard_config(8192, 8192, 4, max_band_tr=cap)
+        assert pp["engine"] == e and (e == "pallas" or pp["tr"] == tr)
+    a = sp.sharded_global_align(4, q, t, m, 11.0, 2.0, tb_rows=1024, device=dev)
+    b = sp.sharded_global_align(4, q, t, m, 11.0, 2.0, tb_rows=1024, engine="pallas",
+                                device=dev)
+    assert a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+    assert sp.sharded_global_end_score(4, q, t, m, 11.0, 2.0, device=dev) == a[0]
 
 
 # the walker core of both walks (csrc/walk_core.cuh) on raw codes: the cases

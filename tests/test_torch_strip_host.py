@@ -90,7 +90,7 @@ def _handed_down(hand, sync, n_tr, warps):
 
 
 def host_block_cs(lib, q, t, m, h_prev, lbound, x0, y_base, C_real, R_real, *, with_dirs,
-                  ckpt_every, TR, K, grid=None):
+                  ckpt_every, TR, K, grid=None, del_=11, ext=2):
     """``run_block_cs``'s outputs from the host build of the kernel."""
     Cb, rows = q.numel(), t.numel()
     warps, blocks = _grid(rows, Cb, TR, K, grid)
@@ -101,7 +101,7 @@ def host_block_cs(lib, q, t, m, h_prev, lbound, x0, y_base, C_real, R_real, *, w
     ckpts = torch.empty((rows // ckpt_every, Cb), **i32) if ckpt_every else None
     err = lib.strip_walk_host(
         1, _ptr(q), _ptr(t), _ptr(m), V, _ptr(h_prev), _ptr(lbound), _ptr(h_new),
-        _ptr(hand), _ptr(sync), _ptr(rights), x0, y_base, C_real, R_real, 11, 2, K, TR,
+        _ptr(hand), _ptr(sync), _ptr(rights), x0, y_base, C_real, R_real, del_, ext, K, TR,
         rows // TR, Cb // (32 * K), _ptr(end), _ptr(words), _ptr(ckpts), ckpt_every, warps,
         blocks)
     assert err == 0
@@ -199,6 +199,61 @@ def test_host_block_cs_matches_plain(host, C, R, cb, d, y_base, rows, TR, K, gri
                         grid=grid)
     want = wf.run_block_cs_plain(*args, del_=11, ext=2, with_dirs=with_dirs,
                                  ckpt_every=ck)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    if with_dirs:
+        assert _same_words(got[3], want[3], rows, cb)
+    else:
+        assert torch.equal(got[4], want[4])
+
+
+# (C, R, column block, column block d, y_base, rows, strip rows, columns a
+# lane, grid): the block with cell (1,1) and a block inside the pair
+WIDE_CASES = [(512, 128, 256, 0, 0, 128, 32, 4, None),
+              (768, 256, 256, 1, 128, 128, 64, 8, (2, 2))]
+
+
+@pytest.mark.parametrize("with_dirs", [False, True], ids=["scores", "dirs"])
+@pytest.mark.parametrize("C,R,cb,d,y_base,rows,TR,K,grid", WIDE_CASES,
+                         ids=[f"{c[0]}x{c[1]}-d{c[3]}-y{c[4]}" for c in WIDE_CASES])
+def test_host_block_cs_wide_entries_near_the_guard(host, C, R, cb, d, y_base, rows, TR, K,
+                                                   grid, with_dirs):
+    """The column-block fill with a matrix beyond int8 (the "lax" engine's
+    table), its entries up to the largest the range guard admits for the
+    pair, and edges as large as such a pair's rows reach: a narrowing of an
+    entry or of a value anywhere in the body (the cell, the -ext chain,
+    the end cell, the tagged words handed down) shows against the plain
+    version."""
+    rng = np.random.default_rng(C + R + d + 7)
+    del_, ext = 220, 40
+    top = (2**30 - 1) // min(C, R)
+    peak = max(e for e in range(top - 4096, top + 1)
+               if wf.range_ok(C, R, del_, ext, e))
+    assert not wf.range_ok(C, R, del_, ext, peak + 1)
+    m = torch.from_numpy(rng.integers(-peak, peak + 1, (V, V)).astype(np.int32))
+    m[0, 0] = peak
+    q, t = _codes(rng, cb, cb), _codes(rng, rows, rows)
+    q[:8] = t[:8] = 0  # the diagonal of the largest entry starts the block
+    x0 = d * cb
+    reach = y_base * peak  # as high as the rows above can climb
+    if y_base == 0:
+        x = x0 + torch.arange(1, cb + 1, dtype=torch.int32)
+        h_prev = torch.where(x == C, -(C + 1) * del_, -x * del_).to(torch.int32)
+    else:
+        h_prev = torch.from_numpy(rng.integers(-reach, reach, cb).astype(np.int32))
+        h_prev[:8] = reach
+    if x0 == 0:
+        y = y_base + torch.arange(0, rows + 1, dtype=torch.int32)
+        lbound = torch.where(y == R, -(R + 1) * del_, -y * del_).to(torch.int32)
+    else:
+        lbound = torch.from_numpy(rng.integers(-reach, reach, rows + 1).astype(np.int32))
+    ck = 0 if with_dirs else TR
+    args = (q, t, m, h_prev, lbound, x0, y_base, C, R)
+    got = host_block_cs(host, *args, with_dirs=with_dirs, ckpt_every=ck, TR=TR, K=K,
+                        grid=grid, del_=del_, ext=ext)
+    want = wf.run_block_cs_plain(*args, del_=del_, ext=ext, with_dirs=with_dirs,
+                                 ckpt_every=ck)
+    assert int(want[0].abs().max()) > 2**29  # the values climb past int16 and beyond
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
     if with_dirs:

@@ -227,13 +227,22 @@ def test_align_global_refusals(monkeypatch):
     with pytest.raises(port.ValidationError) as got:
         port.align_global(z4, z4, m, 11.0, 2.0, device="cpu")
     assert str(got.value) == str(want.value)
-    # too wide for one plane: the column-blocked route takes it, and
-    # refuses a matrix its block engine does not take
+    # too wide for one plane: the column-blocked route takes it, a matrix
+    # beyond int8 on its "lax" engine; past the range guard for the matrix's
+    # largest entry it declines, and the pair is refused as one past the
+    # direct-plane budget, in the JAX package's words
     monkeypatch.setattr(wf, "MAX_WIDTH", 3)
     a = port.align_global(z4, z4, B62, 11.0, 2.0, device="cpu")
     _same_alignment(a, ref.align_global(z4, z4, B62, 11.0, 2.0, backend="oracle"))
-    with pytest.raises(port.ValidationError, match="int8"):
-        port.align_global(z4, z4, np.full((24, 24), 200.0), 11.0, 2.0, device="cpu")
+    wide = np.full((24, 24), 200.0)
+    _same_alignment(port.align_global(z4, z4, wide, 11.0, 2.0, device="cpu"),
+                    ref.align_global(z4, z4, wide, 11.0, 2.0, backend="oracle"))
+    past = np.full((24, 24), 2.0**28)
+    with pytest.raises(ref.ValidationError) as want:
+        ref.align_global(z4, z4, past, 11.0, 2.0)
+    with pytest.raises(port.ValidationError) as got:
+        port.align_global(z4, z4, past, 11.0, 2.0, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_range_guard_matches_reference():

@@ -417,15 +417,22 @@ def test_backend_wavefront_sp_on_a_narrow_pair(mesh):
 def test_column_blocked_route_refusals(monkeypatch):
     z8 = np.zeros(8, np.int8)
     half = np.full((24, 24), 0.5)  # non-integral
-    wide = np.full((24, 24), 200.0)  # integral, beyond int8
+    wide = np.full((24, 24), 200.0)  # integral, beyond int8: the "lax" engine takes it
+    huge = np.full((24, 24), 2.0**27)  # 8 x 2^27 = 2^30: past the range guard
     for fn in (port.align_global, port.global_end_score):
         with pytest.raises(port.ValidationError, match="integral"):
             fn(z8, z8, half, 11.0, 2.0, backend="wavefront_sp", device="cpu")
-        with pytest.raises(port.ValidationError, match="int8"):
-            fn(z8, z8, wide, 11.0, 2.0, backend="wavefront_sp", device="cpu")
+        with pytest.raises(port.ValidationError, match="int32"):
+            fn(z8, z8, huge, 11.0, 2.0, backend="wavefront_sp", device="cpu")
         for e in (np.zeros(0, np.int8), ):
             with pytest.raises(port.ResultIsEmpty):
                 fn(e, z8, B62, 11.0, 2.0, backend="wavefront_sp", device="cpu")
+    want = ref.align_global(z8, z8, wide, 11.0, 2.0, backend="oracle").alignment
+    got = port.align_global(z8, z8, wide, 11.0, 2.0, backend="wavefront_sp",
+                            device="cpu").alignment
+    assert np.array_equal(got.query, want.query) and np.array_equal(got.target, want.target)
+    assert port.global_end_score(z8, z8, wide, 11.0, 2.0, backend="wavefront_sp",
+                                 device="cpu") == 8 * 200.0
     with pytest.raises(ref.ValidationError) as want:
         ref.align_global(z8, z8, half, 11.0, 2.0, backend="wavefront_sp")
     with pytest.raises(port.ValidationError) as got:
@@ -438,14 +445,21 @@ def test_column_blocked_route_refusals(monkeypatch):
             fn(2, np.zeros(0, np.int8), z8, B62, 11, 2, device="cpu")
         with pytest.raises(port.ValidationError):
             fn(2, z8, z8, half, 11, 2, device="cpu")
-        for engine in ("band", "lax"):
-            with pytest.raises(port.ValidationError, match="not ported"):
-                fn(2, z8, z8, B62, 11, 2, engine=engine, device="cpu")
+        with pytest.raises(port.ValidationError, match="unknown engine"):
+            fn(2, z8, z8, B62, 11, 2, engine="nope", device="cpu")
         # refused by its length alone, before any per-element work
         t_huge = np.broadcast_to(np.int8(0), (2**30 // 11,))
         with pytest.raises(port.ValidationError, match="int32"):
             fn(2, z8, t_huge, B62, 11, 2, device="cpu")
-    # a wide pair with a matrix the block engine does not take says so
+    # a pair wider than one plane with a matrix beyond int8 is aligned by
+    # its width alone; past the range guard the route declines it
+    from aligner_tpu_torch import align as port_align
+
     monkeypatch.setattr(wf, "MAX_WIDTH", 4)
-    with pytest.raises(port.ValidationError, match="not ported"):
-        port.align_global(z8, z8, wide, 11.0, 2.0, device="cpu")
+    want = ref.align_global(z8, z8, wide, 11.0, 2.0, backend="oracle").alignment
+    got = port.align_global(z8, z8, wide, 11.0, 2.0, device="cpu").alignment
+    assert np.array_equal(got.query, want.query) and np.array_equal(got.target, want.target)
+    assert port.global_end_score(z8, z8, wide, 11.0, 2.0, device="cpu") == 8 * 200.0
+    assert port_align._route_sharded_pair(8, 8, wide, 11.0, 2.0, backend=None, auto=True)
+    assert not port_align._route_sharded_pair(8, 8, huge, 11.0, 2.0, backend=None,
+                                              auto=True)
