@@ -36,11 +36,23 @@ pair's dense score and direction planes (``AlignmentResult.score``,
 (:class:`SimpleGlobalAligner`, :class:`SimpleLocalAligner`, which default
 it to true): the pair is filled as a batch of one with the score plane, and
 walked on the host over the returned directions.
+
+Every batched fill shards its problems over this process's cards
+(:func:`_auto_shard_devices`, as ``aligner_tpu.align`` shards over its
+devices): the batch is padded with zero-length problems to a multiple of the
+card count, each card fills a contiguous share with its own copy of the
+scoring state, and the scores come back in batch order on the caller's
+device; with alignments each share's words are walked on their card.  Each
+problem's fill is independent of the others', so the results are
+bit-identical to one card's.  ``ALIGNER_AUTO_SHARD=0`` keeps every fill on
+the one device; so does a device with an index (``"cuda:1"``), a batch of
+one and a fill with its score plane.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
@@ -49,8 +61,10 @@ import torch
 from .alphabet import DNA, Alphabet, Protein
 from .backend import dtype_for, integral_params, resolve_device
 from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
+from .ops.scan_engine import FillResult
 from .result import Alignment, AlignmentResult, PWMAlignment
 from .traceback import traceback_global, traceback_local, traceback_pwm
+
 
 def _check_walk(walk) -> None:
     if walk not in ("device", "host"):
@@ -98,11 +112,116 @@ class BatchScores:
     end: np.ndarray
 
 
+def _shard_devices(device: torch.device) -> list[torch.device]:
+    """Every device a batched fill on ``device`` may shard over: this
+    process's visible cards for ``"cuda"`` with no index, else ``device``
+    alone (a named card, the CPU)."""
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _auto_shard_devices(device: torch.device) -> list[torch.device]:
+    """The shards of a batched fill on ``device``: :func:`_shard_devices`,
+    or ``device`` alone under ``ALIGNER_AUTO_SHARD=0``."""
+    if os.environ.get("ALIGNER_AUTO_SHARD", "1") == "0":
+        return [device]
+    return _shard_devices(device)
+
+
+def _engine_name(device: torch.device, shards, mode: str) -> str:
+    """The counter of a fill: ``"cuda/local"``, or ``"cudax2/local"`` over
+    two shards (the reference's ``f"{backend}x{ndev}/{mode}"``)."""
+    n = len(shards)
+    return f"{device.type}x{n}/{mode}" if n > 1 else f"{device.type}/{mode}"
+
+
+def _dev_i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+
+def _pad_batch_rows(arrs, B: int, Bp: int):
+    """Right-pad the batch axis of each array with zeros to Bp rows."""
+    return [a if len(a) == Bp else np.pad(a, [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1))
+            for a in arrs]
+
+
+def _assemble_sharded_fill(parts, B: int, per: int, device) -> FillResult:
+    """The shards' FillResults (``per`` rows each, in batch order) as one
+    FillResult of the B real rows: the scores on ``device``, and with
+    directions ``words`` as the tuple of the shards' words of real rows,
+    each left on its card (:func:`~aligner_tpu_torch.ops.device_walk.walk_batch`
+    walks them there).  Shards of padding alone drop out.  One shard's
+    result is returned as it is (no padding, ``words`` one tensor, the
+    score plane kept)."""
+    if len(parts) == 1:
+        return parts[0]
+    real = [(r, min(per, B - k * per)) for k, r in enumerate(parts) if k * per < B]
+
+    def cat(field):
+        return torch.cat([getattr(r, field)[:n].to(device) for r, n in real])
+
+    words = (tuple(r.words[:n] for r, n in real)
+             if parts[0].words is not None else None)
+    return FillResult(cat("fmax"), cat("fy"), cat("fx"), cat("end"), words)
+
+
+def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
+                  **call) -> FillResult:
+    """A batched fill split over ``devices`` (one shard each, a device may
+    repeat; one device is one launch of the whole batch).
+
+    ``fill_cls``: :class:`~aligner_tpu_torch.ops.dp_fill.DPFill` with
+    ``rows`` (q, ql, t, tl), or :class:`~aligner_tpu_torch.ops.dp_fill.PWMFill`
+    with ``rows`` (q, ql); ``scoring``: a shared (V, V) matrix or (4, W)
+    PWM, which goes to each device once, or per-problem (B, ...) ones,
+    which split with the batch; ``call``: the fill's keyword arguments.
+    B is padded with zero-length problems to a multiple of the shard count
+    and split into contiguous shards.  Every shard is launched before any
+    is read; the result is :func:`_assemble_sharded_fill`'s, on ``device``."""
+    B = len(rows[1])
+    n = len(devices)
+    per = -(-B // n)
+    scoring = np.asarray(scoring)
+    batched = scoring.ndim == 3
+    rows = _pad_batch_rows(rows, B, per * n)
+    if batched:
+        (scoring,) = _pad_batch_rows([scoring], B, per * n)
+    shared = {}
+    parts = []
+    for k, dev in enumerate(devices):
+        part = slice(k * per, (k + 1) * per)
+        if batched:
+            dp = fill_cls.from_numpy(scoring[part], del_, ext, device=dev, dtype=dtype)
+        elif dev in shared:
+            dp = shared[dev]
+        else:
+            dp = shared[dev] = fill_cls.from_numpy(scoring, del_, ext, device=dev,
+                                                   dtype=dtype)
+        parts.append(dp(*(_dev_i32(a[part], dev) for a in rows), **call))
+    return _assemble_sharded_fill(parts, B, per, device)
+
+
+def _host_words(words, n: int) -> torch.Tensor:
+    """The first ``n`` problems' direction words on the host, from one
+    tensor or from the shards' tuple (:func:`_assemble_sharded_fill`), read
+    shard by shard in batch order."""
+    out = []
+    for w in words if isinstance(words, tuple) else (words,):
+        if n <= 0:
+            break
+        out.append(w[:n].cpu())
+        n -= len(w)
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
           track_argmax=True, with_plane=False):
-    """One batched fill on ``device``; returns the FillResult with its
-    tensors (and packed words when ``with_dirs``, the score plane's interior
-    with ``with_plane``) left on the device."""
+    """One batched fill on ``device``, sharded over
+    :func:`_auto_shard_devices` (one shard for a batch of one and with the
+    score plane) by :func:`_fill_sharded`; returns the
+    FillResult with its tensors (and packed words when ``with_dirs``, the
+    score plane's interior with ``with_plane``) left on the device."""
     from .observability import measure
     from .ops.dp_fill import DPFill
 
@@ -113,16 +232,11 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
             raise ValidationError(
                 f"{name} codes must lie in the {vol}-symbol scoring alphabet"
             )
-    dp = DPFill.from_numpy(matrix, del_, ext, device=device, dtype=dtype)
-
-    def dev_i32(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
-
-    with measure(f"{device.type}/{mode}", cells, len(ql), device=device):
-        res = dp(dev_i32(q), dev_i32(ql), dev_i32(t), dev_i32(tl), mode=mode,
-                 track_argmax=track_argmax, with_dirs=with_dirs,
-                 with_scores_plane=with_plane)
-    return res
+    shards = [device] if with_plane or len(ql) < 2 else _auto_shard_devices(device)
+    with measure(_engine_name(device, shards, mode), cells, len(ql), device=shards):
+        return _fill_sharded(DPFill, matrix, [q, ql, t, tl], del_, ext, dtype, shards,
+                             device, mode=mode, track_argmax=track_argmax,
+                             with_dirs=with_dirs, with_scores_plane=with_plane)
 
 
 def _pair_result(mode, walk_q, walk_t, q_b, t_b, ql_b, tl_b,
@@ -274,8 +388,9 @@ def batch_align(
         # None for just that problem instead of failing the whole batch
         skip_mask = skip_mask | (sy_full[:n_real] == 0) | (sx_full[:n_real] == 0)
     if walk == "host":
-        return _walk_pairs_on_host(res.words[:n_real].cpu().numpy(), mode, qs, ts, q, t,
-                                   ql, tl, sy_full, sx_full, fmax_np, skip_mask, alphabet)
+        return _walk_pairs_on_host(_host_words(res.words, n_real).numpy(), mode, qs, ts,
+                                   q, t, ql, tl, sy_full, sx_full, fmax_np, skip_mask,
+                                   alphabet)
     from .ops.device_walk import decode_pair_batch, walk_batch
 
     steps, lens, ey, ex = walk_batch(
@@ -296,8 +411,9 @@ def batch_align(
 
 
 def _fill_pwm(q, ql, pwm, del_, ext, with_dirs, device, dtype, track_argmax=True):
-    """One batched PWM fill on ``device``; returns the FillResult with its
-    tensors (and packed words when ``with_dirs``) left on the device."""
+    """One batched PWM fill on ``device``, sharded as :func:`_fill` shards
+    (one shard for a batch of one); returns the FillResult with its tensors (and
+    packed words when ``with_dirs``) left on the device."""
     from .observability import measure
     from .ops.dp_fill import PWMFill
 
@@ -305,15 +421,10 @@ def _fill_pwm(q, ql, pwm, del_, ext, with_dirs, device, dtype, track_argmax=True
     cells = int(np.asarray(ql, np.int64).sum()) * int(width)
     if q.size and (int(q.min()) < 0 or int(q.max()) >= 4):
         raise ValidationError("query codes must lie in the 4-symbol DNA alphabet")
-    dp = PWMFill.from_numpy(pwm, del_, ext, device=device, dtype=dtype)
-
-    def dev_i32(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
-
-    with measure(f"{device.type}/pwm", cells, len(ql), device=device):
-        res = dp(dev_i32(q), dev_i32(ql), track_argmax=track_argmax,
-                 with_dirs=with_dirs)
-    return res
+    shards = [device] if len(ql) < 2 else _auto_shard_devices(device)
+    with measure(_engine_name(device, shards, "pwm"), cells, len(ql), device=shards):
+        return _fill_sharded(PWMFill, pwm, [q, ql], del_, ext, dtype, shards, device,
+                             track_argmax=track_argmax, with_dirs=with_dirs)
 
 
 def batch_align_pwm(
@@ -385,7 +496,7 @@ def batch_align_pwm(
         from .ops.dp_fill import dirs_from_packed
 
         # the real problems' planes only: pad_to padding never transfers
-        dirs = dirs_from_packed(res.words[:n_real].cpu().numpy(),
+        dirs = dirs_from_packed(_host_words(res.words, n_real).numpy(),
                                 np.full(n_real, width), ql[:n_real], "local")
         out = []
         for b in range(n_real):

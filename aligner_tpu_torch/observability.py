@@ -100,14 +100,16 @@ counters = Counters()
 
 @contextlib.contextmanager
 def measure(engine: str, cells: int, problems: int, device=None):
-    """Record a launch in the global counters.  With a CUDA ``device`` the
-    device is synchronised before the clock stops."""
+    """Record a launch in the global counters.  With a CUDA ``device`` (or
+    a list of devices: the shards of a fill) each card is synchronised
+    before the clock stops."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        for d in dict.fromkeys(device if isinstance(device, (list, tuple)) else [device]):
+            if d is not None and torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
         counters.record(engine, cells, problems, time.perf_counter() - t0)
 
 

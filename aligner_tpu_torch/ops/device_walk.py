@@ -217,21 +217,25 @@ def walk_batch(words, mode: str, sy, sx, R: int, C: int):
     """Run the walk over B packed planes and return host-side
     (steps (S, B) uint8, lens, end_y, end_x).
 
-    ``words``: the fill's (B, R8/8, C) int32 output on its device;
-    ``R``/``C``: the interior plane dims (padded batch shapes), S = R+C+1.
+    ``words``: the fill's (B, R8/8, C) int32 output on its device, or a
+    sharded fill's tuple of such tensors, each on its own device, that
+    split the batch in order: each shard is walked where its words lie,
+    every walk is launched before any is read, and the results are joined
+    in batch order.  ``R``/``C``: the interior plane dims (padded batch
+    shapes), S = R+C+1.
     """
     S = R + C + 1
-    dev = words.device
-    packed, n, ey, ex = walk(
-        words, torch.as_tensor(np.array(sy, np.int32), device=dev),
-        torch.as_tensor(np.array(sx, np.int32), device=dev), S=S, mode=mode,
-    )
-    return (
-        _unpack_steps(packed.cpu().numpy(), S),
-        n.cpu().numpy(),
-        ey.cpu().numpy(),
-        ex.cpu().numpy(),
-    )
+    sy = np.array(sy, np.int32)
+    sx = np.array(sx, np.int32)
+    walks, lo = [], 0
+    for w in words if isinstance(words, tuple) else (words,):
+        hi = lo + w.shape[0]
+        walks.append(walk(w, torch.as_tensor(sy[lo:hi], device=w.device),
+                          torch.as_tensor(sx[lo:hi], device=w.device), S=S, mode=mode))
+        lo = hi
+    packed, n, ey, ex = (np.concatenate([r[i].cpu().numpy() for r in walks], axis=-1)
+                         for i in range(4))
+    return _unpack_steps(packed, S), n, ey, ex
 
 
 def _cursor_replay_all(d: np.ndarray, sy, sx):

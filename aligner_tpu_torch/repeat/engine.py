@@ -48,7 +48,7 @@ import os
 import numpy as np
 import torch
 
-from ..align import batch_align_pwm
+from ..align import _auto_shard_devices, _engine_name, batch_align_pwm
 from ..alphabet import DNA, Index, index_coord, rotate_indices
 from ..backend import dtype_for, resolve_device
 from ..heuristic import Heuristics, heuristic_align_pwm
@@ -134,35 +134,58 @@ def _scan_scores(
     launch.  The sequence goes to the device once; each chunk's windows
     are gathered there from it, straight into the kernel's (R8, B) row
     layout and masked by the window length (the counterpart of the JAX
-    package's ``_scan_chunk_gather_impl``)."""
+    package's ``_scan_chunk_gather_impl``).
+
+    With several shards (:func:`aligner_tpu_torch.align._auto_shard_devices`,
+    for more than one window) each device gets the sequence once and each
+    shard gathers and fills its contiguous share of every chunk on its
+    device; no score is read before the last chunk is launched.  These are
+    the windows the JAX package sends through its sharded
+    ``batch_align_pwm``, with the same scores, without building the window
+    slices on the host."""
     fs = np.empty(len(wins), dtype=np.float64)
     if not wins:
         return fs
     device = resolve_device(opts.device)
+    devices = _auto_shard_devices(device) if len(wins) > 1 else [device]
     starts = np.fromiter((j for j, _ in wins), np.int64, len(wins))
     borders = np.fromiter((b for _, b in wins), np.int64, len(wins))
-    dp = PWMFill.from_numpy(
-        matrix, opts.deletions, opts.extension, device=device,
-        dtype=dtype_for(device, matrix, opts.deletions, opts.extension,
-                        lengths=(int((borders - starts).max()), matrix.shape[-1])),
-    )
+    dtype = dtype_for(device, matrix, opts.deletions, opts.extension,
+                      lengths=(int((borders - starts).max()), matrix.shape[-1]))
     cells = int((borders - starts).sum()) * int(matrix.shape[-1])
     R8 = round8(int((borders - starts).max()))
-    seq_dev = torch.as_tensor(np.asarray(seq, np.int32), device=device)
-    starts_dev = torch.as_tensor(starts, device=device)
-    qlen_dev = torch.as_tensor((borders - starts).astype(np.int32), device=device)
-    rows = torch.arange(R8, device=device)[:, None]
-    out = torch.empty(len(wins), dtype=torch.float64, device=device)
-    with measure(f"{device.type}/pwm-scan", cells, len(wins), device=device):
+    state = {}  # per device: the scoring state, the sequence, the windows, the scores
+    for dev in devices:
+        if dev not in state:
+            state[dev] = (
+                PWMFill.from_numpy(matrix, opts.deletions, opts.extension, device=dev,
+                                   dtype=dtype),
+                torch.as_tensor(np.asarray(seq, np.int32), device=dev),
+                torch.as_tensor(starts, device=dev),
+                torch.as_tensor((borders - starts).astype(np.int32), device=dev),
+                torch.arange(R8, device=dev)[:, None],
+                torch.empty(len(wins), dtype=torch.float64, device=dev), [])
+    with measure(_engine_name(device, devices, "pwm-scan"), cells, len(wins),
+                 device=devices):
         for lo in range(0, len(wins), chunk):
             hi = min(lo + chunk, len(wins))
-            ql = qlen_dev[lo:hi]
-            idx = (starts_dev[None, lo:hi] + rows).clamp_(max=len(seq) - 1)
-            qT = torch.where(rows < ql[None, :], seq_dev[idx], 0)  # (R8, B)
-            # only f feeds the mean/std and z-filter (calc.rs:72-86,
-            # 139-144): no per-cell argmax bookkeeping
-            out[lo:hi] = dp(qT.T, ql, track_argmax=False).fmax
-    fs[:] = out.cpu().numpy()
+            per = -(-(hi - lo) // len(devices))
+            for k, dev in enumerate(devices):
+                a, b = min(lo + k * per, hi), min(lo + (k + 1) * per, hi)
+                if a == b:
+                    continue
+                dp, seq_dev, starts_dev, qlen_dev, rows, out, spans = state[dev]
+                ql = qlen_dev[a:b]
+                idx = (starts_dev[None, a:b] + rows).clamp_(max=len(seq) - 1)
+                qT = torch.where(rows < ql[None, :], seq_dev[idx], 0)  # (R8, B)
+                # only f feeds the mean/std and z-filter (calc.rs:72-86,
+                # 139-144): no per-cell argmax bookkeeping
+                out[a:b] = dp(qT.T, ql, track_argmax=False).fmax
+                spans.append((a, b))
+    for *_, out, spans in state.values():
+        host = out.cpu().numpy()
+        for a, b in spans:
+            fs[a:b] = host[a:b]
     return fs
 
 

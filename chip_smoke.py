@@ -123,7 +123,22 @@ against the native C++ host engine or the frozen golden fixtures:
    last replay tile, and K6 on the band engine's last block of the
    524,288 x 524,288 alignment, against their plain versions, and the
    engine pick's calibration points, its fit and its picks;
-15. the kernels' launch counts of each path: the pair path (phases 3-6),
+15. multi-device on the one card: the auto-shard's fills with the card
+   given twice as the shard list, through ``batch_align`` on the p-value's
+   4,999 shuffles (K1, no argmax) and the full batch of 4,096 pairs with
+   alignments, local and global (K2 and K4 a shard; the fill's scores and
+   words and the strings), and ``repeat._scan_scores`` on the chromosome's
+   333,334 windows (K3 a shard a chunk), each equal bit for bit to the
+   unsharded call and timed beside it in turns; then two ranks (copies of
+   this script, ``--mesh-rank``; gloo, the card twice each: a (2, 2) mesh)
+   run ``sharded_scores`` on their ``shard_local_batch`` blocks of the
+   shuffles (an odd count: an uneven layout), ``window_scan_step`` on the
+   scan's windows padded with empty ones and ``matrix_population_step``
+   with 64 seeded {-1, 0, 1} matrices on the service's 6 pairs: gathered,
+   the scores equal the unsharded K1 fill and the one-card scan, the mean,
+   std and z are within 1e-12 of the scan's, the best matrices equal the
+   one-process step; each rank prints its launch counts and step walls;
+16. the kernels' launch counts of each path: the pair path (phases 3-6),
    the population path (phase 7: the count once an iteration), the service
    path (phase 8: the worker process's K2, K4 and count launches, which it
    prints at exit, and calc's K1 launches; the count once an iteration of
@@ -131,7 +146,8 @@ against the native C++ host engine or the frozen golden fixtures:
    end-score path (phase 11), the column-blocked path (phase 12), the
    simple aligners' path (phase 13: the score plane once a pair, no walk
    kernel), the host walks' path (phase 13: the fills, no walk kernel) and
-   the engines' path (phase 14), each counted from zero; the row-scan,
+   the engines' path (phase 14) and the sharded path (phase 15: this
+   process's and the ranks'), each counted from zero; the row-scan,
    column-block and band fills make one launch a call.
 
 Every phase prints one line with its result and wall time; a failing
@@ -154,6 +170,7 @@ import io
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -239,6 +256,13 @@ SERVICE_BATCH = 64
 SERVICE_POLL_S = 0.2
 SERVICE_IDLE_POLLS = 25  # the worker's poll cycles after the queue drains
 SERVICE_DEADLINE_S = 600
+# the multi-device phase: the one card as 2 shards, and 2 ranks (gloo)
+# each with the card twice as its shards, a (2, 2) mesh
+MESH_SHARDS = 2
+MESH_RANKS = 2
+MESH_SEED = SEED + 35
+RANK_DEADLINE_S = 300
+MESH_STATS_TOL = 1e-12  # mean, std and z of the ranks' scan against the one-card scan's
 # runs the worker module as __main__ (what ``python -m`` does) and prints the
 # process's kernel launch counts when it exits: its launches are counted in
 # its own process
@@ -866,7 +890,7 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
     check(same_fill(got, want), "dp_fill != plain at the p-value shape")
     rows.append(dict(name="dp_fill (scores only, p-value launch)", route="cuda",
                      source="aligner_tpu_torch/csrc/dp_fill.cu",
-                     replaces=REPLACES["dp_fill"], path=("pair", "service"),
+                     replaces=REPLACES["dp_fill"], path=("pair", "service", "sharded"),
                      counter="scores",
                      max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms,
                      plain_ms=plain_ms,
@@ -886,7 +910,7 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
     check(same_fill(got, want), "dp_fill != plain at the full-mode shape")
     rows.append(dict(name="dp_fill (directions, full-mode batch)", route="cuda",
                      source="aligner_tpu_torch/csrc/dp_fill.cu",
-                     replaces=REPLACES["dp_fill"], path=("pair", "service"),
+                     replaces=REPLACES["dp_fill"], path=("pair", "service", "sharded"),
                      counter="dirs",
                      max_abs_err=max(max_abs_err(got.fmax, want.fmax),
                                      max_abs_err(got.words, want.words)),
@@ -902,7 +926,7 @@ def phase_timing(dev, at, dp_fill, device_walk, scan_engine, q, t):
           "device_walk != plain at the full-mode shape")
     rows.append(dict(name="device_walk (full-mode batch)", route="cuda",
                      source="aligner_tpu_torch/csrc/walk_core.cuh",
-                     replaces=REPLACES["device_walk"], path=("pair", "service"),
+                     replaces=REPLACES["device_walk"], path=("pair", "service", "sharded"),
                      counter="walk",
                      max_abs_err=max(max_abs_err(a, b) for a, b in zip(wk, wp)),
                      ms=ms, plain_ms=plain_ms, shape=f"{N_FULL}x{S} steps",
@@ -980,7 +1004,8 @@ def phase_pwm_timing(dev, at, dp_fill, device_walk, scan_engine, repeat, seq):
     R8 = -(-win // 8) * 8
     rows.append(dict(name="dp_fill PWM (scores only, window scan)", route="cuda",
                      source="aligner_tpu_torch/csrc/dp_fill.cu",
-                     replaces=REPLACES["dp_fill"], path="pwm", counter="pwm_scores",
+                     replaces=REPLACES["dp_fill"], path=("pwm", "sharded"),
+                     counter="pwm_scores",
                      max_abs_err=max_abs_err(got.fmax, want.fmax), ms=ms,
                      plain_ms=plain_ms, shape=f"{B}x{R8}x{PWM_W} f64",
                      plan=plan_line(dp_fill, B, R8, PWM_W, pwm64, ms),
@@ -3275,10 +3300,332 @@ def hold_engines(dev, at, wf, sp, cli_align, blocked, runs, counts, k7_points):
     return rows
 
 
+@contextlib.contextmanager
+def card_twice(align):
+    """The auto-shard's shard list (``align._shard_devices``) given as the
+    one card ``MESH_SHARDS`` times, for the duration: the sharded path on a
+    one-card machine."""
+    saved = align._shard_devices
+    align._shard_devices = lambda device: [torch.device(DEVICE, 0)] * MESH_SHARDS
+    try:
+        yield
+    finally:
+        align._shard_devices = saved
+
+
+def timed(fn):
+    """(fn(), host wall in s with the card synchronised on both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_inputs(at, repeat, pq, pt, raw, service_text):
+    """The multi-device phase's inputs (the ranks get them as an ``.npz``):
+    the p-value's 4,999 shuffles padded as ``batch_align`` pads them, the
+    10 Mb chromosome with its scan's window bounds padded with empty
+    windows to a multiple of the ranks' 4 slots and a scan PWM, the
+    service's 6 task pairs (every two of its 4 records) and 64 seeded
+    {-1, 0, 1} matrices (V = 24, as ``service/store.py`` makes them)."""
+    from aligner_tpu_torch.align import pad_batch
+
+    sh = shuffles_for_p_value(at, pq, pt, N_PVALUE)
+    sh_q, sh_ql = pad_batch([pq] * len(sh))
+    sh_t, sh_tl = pad_batch(sh)
+    seq = at.DNA.encode(raw)
+    opts = repeat.SearchOptions(repeat_length=PWM_W, query_offset=OFFSET,
+                                deletions=PWM_DEL, extension=PWM_EXT, device=DEVICE)
+    wins = repeat.windows_of(len(seq), opts, OFFSET)
+    pad = -len(wins) % (MESH_RANKS * MESH_SHARDS)
+    recs = [at.Protein.encode(r.split("\n", 1)[1].replace("\n", ""), strict=True)
+            for r in service_text.split(">")[1:]]
+    pairs = [(a, b) for i, a in enumerate(recs) for b in recs[i + 1:]]
+    pop_q, pop_ql = pad_batch([a for a, _ in pairs])
+    pop_t, pop_tl = pad_batch([b for _, b in pairs])
+    rng = np.random.default_rng(MESH_SEED)
+    return dict(
+        sh_q=sh_q, sh_ql=sh_ql, sh_t=sh_t, sh_tl=sh_tl, seq=seq, n_wins=len(wins),
+        starts=np.array([a for a, _ in wins] + [0] * pad, np.int64),
+        borders=np.array([b for _, b in wins] + [0] * pad, np.int64),
+        pwm=scan_pwm(at, rng),
+        mats=rng.integers(-1, 2, (POP_M, POP_DIM, POP_DIM)).astype(np.float64),
+        pop_q=pop_q, pop_ql=pop_ql, pop_t=pop_t, pop_tl=pop_tl,
+        b62=np.asarray(at.blosum62(), np.float64)), sh, wins, opts
+
+
+def window_rows(seq, starts, borders):
+    """(windows (B, R8) int32, lengths (B,)) of the given window bounds,
+    as the scan gathers them (an empty window for bounds (0, 0))."""
+    lens = (borders - starts).astype(np.int32)
+    R8 = -(-int(lens.max(initial=1)) // 8) * 8
+    cols = np.arange(R8, dtype=np.int64)
+    idx = np.minimum(starts[:, None] + cols, len(seq) - 1)
+    return np.where(cols < lens[:, None], seq[idx], 0).astype(np.int32), lens
+
+
+def mesh_rank(in_path: str, out_prefix: str) -> int:
+    """One rank of the multi-device phase, started by it as a copy of this
+    script (``--mesh-rank IN OUT`` with ``ALIGNER_COORDINATOR``,
+    ``ALIGNER_PROCESS_ID`` and ``ALIGNER_NUM_PROCESSES`` set): joins the
+    gloo group, builds the global mesh with the card twice as its shards (a
+    (2, 2) mesh over 2 ranks), runs the three mesh steps on its
+    ``process_span`` blocks, gathers the results through the layouts into
+    ``OUT.<rank>.npz`` and prints its launch counts and step walls."""
+    import torch.distributed as dist
+
+    from aligner_tpu_torch.ops import _build, device_walk, dp_fill
+    from aligner_tpu_torch.parallel import mesh as pm
+    from aligner_tpu_torch.parallel import multihost
+
+    multihost.initialize_from_env("gloo")
+    rank = dist.get_rank()
+    _build.load()
+    x = dict(np.load(in_path))
+    mesh = multihost.global_mesh(devices=[torch.device(DEVICE, 0)] * MESH_SHARDS)
+    check(mesh.shape == {"data": 2, "matrix": 2}, f"the ranks' mesh is {mesh.shape}")
+    out, walls = {}, {}
+
+    def step(name, fn):
+        res, walls[name] = timed(fn)
+        return res
+
+    def blocks(rows, n, lo=0):
+        """This rank's blocks of ``rows`` (its span from row ``lo`` of
+        them) in a batch of ``n`` rows, and their layout."""
+        a, b = multihost.process_span(n)
+        got = [multihost.shard_local_batch(mesh, r[a - lo:b - lo], global_rows=n)
+               for r in rows]
+        return [g for g, _ in got], got[0][1]
+
+    n = len(x["sh_ql"])
+    (q, ql, t, tl), lay = blocks((x["sh_q"], x["sh_ql"], x["sh_t"], x["sh_tl"]), n)
+    out["layout"] = np.array([*lay.spans[rank], len(q), lay.per_pad, lay.global_rows])
+    res = step("sharded_scores", lambda: pm.sharded_scores(mesh, q, ql, t, tl, x["b62"],
+                                                          DEL, EXT))
+    got = step("gather of its 4 outputs", lambda: [lay.gather(r) for r in res])
+    for f, g in zip(("fmax", "fy", "fx", "end"), got):
+        out[f"scores_{f}"] = g.cpu().numpy()
+
+    n = len(x["starts"])
+    lo, hi = multihost.process_span(n)
+    rows = step("window rows on the host", lambda: window_rows(
+        x["seq"], x["starts"][lo:hi], x["borders"][lo:hi]))
+    (ws, wl), lay = blocks(rows, n, lo)
+    scan = step("window_scan_step", lambda: pm.window_scan_step(mesh, ws, wl, x["pwm"],
+                                                               PWM_DEL, PWM_EXT))
+    got = step("gather of scores and z", lambda: [lay.gather(g) for g in scan[:2]])
+    out["scan_scores"], out["scan_z"] = (g.cpu().numpy() for g in got)
+    out["scan_stats"] = np.array([float(scan[2]), float(scan[3])])
+    partial = torch.zeros(3, dtype=torch.float64)
+    dist.barrier()
+    step("all_reduce of 3 float64 (the step's collective)",
+         lambda: dist.all_reduce(partial))
+
+    (q, ql, t, tl), lay = blocks((x["pop_q"], x["pop_ql"], x["pop_t"], x["pop_tl"]),
+                                 len(x["pop_ql"]))
+    best, win = step("matrix_population_step", lambda: pm.matrix_population_step(
+        mesh, q, ql, t, tl, x["mats"], DEL, DEL))
+    out["pop_best"], out["pop_win"] = (lay.gather(g).cpu().numpy() for g in (best, win))
+    np.savez(f"{out_prefix}.{rank}.npz", **out)
+    print("launches " + json.dumps(dict(
+        scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
+        pwm_scores=dp_fill.launches.pwm_scores, pwm_dirs=dp_fill.launches.pwm_dirs,
+        walk=device_walk.launches.walk)), flush=True)
+    print("walls " + json.dumps(walls), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(in_path: str, out_prefix: str, tmp: str):
+    """Start the ranks (copies of this script) on a free local port, wait
+    for them (at most ``RANK_DEADLINE_S``, then kill them) and return each
+    rank's (stdout lines, results); a rank that fails fails the phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs, procs = [], []
+    for rank in range(MESH_RANKS):
+        env = dict(os.environ, ALIGNER_COORDINATOR=f"127.0.0.1:{port}",
+                   ALIGNER_NUM_PROCESSES=str(MESH_RANKS), ALIGNER_PROCESS_ID=str(rank),
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        logs.append(os.path.join(tmp, f"rank{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", in_path,
+                 out_prefix], cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"the ranks did not finish within {RANK_DEADLINE_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as fh:
+            text = fh.read()
+        check(p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+        out.append((text.splitlines(), dict(np.load(f"{out_prefix}.{rank}.npz"))))
+    return out
+
+
+def tagged(lines, tag: str) -> dict:
+    """The JSON of a rank's last stdout line that starts with ``tag``."""
+    return json.loads([ln for ln in lines if ln.startswith(tag + " ")][-1][len(tag) + 1:])
+
+
+def same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (x is None) == (y is None) and (x is None or (
+            np.array_equal(x.alignment.query, y.alignment.query)
+            and np.array_equal(x.alignment.target, y.alignment.target)
+            and tuple(map(tuple, x.alignment.coords)) == tuple(map(tuple, y.alignment.coords))
+            and x.alignment.f == y.alignment.f)) for x, y in zip(a, b))
+
+
+def phase_multi_device(at, repeat, x, sh, wins, opts, pq, tmp, launch_counts,
+                       reset_counts):
+    """Phase 15: the sharded path on the one card, two shards of it.  The
+    auto-shard's fills (``align._fill_sharded`` through ``batch_align``,
+    its shard list the card twice) on the p-value batch (K1, no argmax) and
+    the full batch with alignments, local and global (K2 and K4 a shard),
+    and one scan of the chromosome's windows (``_scan_scores``, K3 a shard
+    a chunk), each equal bit for bit to the unsharded call and timed beside
+    it in turns (unsharded, sharded | sharded, unsharded); then two ranks,
+    copies of this script, on a (2, 2) mesh with the card twice each
+    (gloo), whose gathered mesh steps equal the one-process ones.  Returns
+    the launch counts of the sharded runs and the ranks (the counts start
+    at zero just before the first sharded run)."""
+    from aligner_tpu_torch import align
+    from aligner_tpu_torch.backend import dtype_for
+    from aligner_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(DEVICE)
+    m = x["b62"]
+    fq, ft = full_batch_pairs()
+    fb = align.pad_batch(fq) + align.pad_batch(ft)
+    fb_dtype = dtype_for(dev, m, DEL, EXT, lengths=(fb[2].shape[1], fb[0].shape[1]))
+    walls = collections.defaultdict(list)
+    scan = f"scan of {len(wins):,} windows"
+
+    def run(sharded: bool) -> dict:
+        ctx = card_twice(align) if sharded else contextlib.nullcontext()
+        tag = "sharded" if sharded else "one shard"
+        r = {}
+        with ctx:
+            for name, fn in (
+                    ("p-value batch", lambda: at.batch_align(
+                        [pq] * len(sh), sh, m, DEL, EXT, track_argmax=False,
+                        device=DEVICE)),
+                    ("full batch fill, local", lambda: align._fill(
+                        *fb, m, DEL, EXT, "local", True, dev, fb_dtype)),
+                    ("full batch fill, global", lambda: align._fill(
+                        *fb, m, DEL, EXT, "global", True, dev, fb_dtype)),
+                    ("full batch with alignments, local", lambda: at.batch_align(
+                        fq, ft, m, DEL, EXT, mode="local", with_alignments=True,
+                        device=DEVICE)),
+                    ("full batch with alignments, global", lambda: at.batch_align(
+                        fq, ft, m, DEL, EXT, mode="global", with_alignments=True,
+                        device=DEVICE)),
+                    (scan, lambda: repeat._scan_scores(
+                        x["seq"], wins, x["pwm"], opts))):
+                r[name], wall = timed(fn)
+                walls[(name, tag)].append(wall)
+        return r
+
+    # the one-process references of the ranks' steps, then the unsharded runs
+    ref_scores = align._fill(x["sh_q"], x["sh_ql"], x["sh_t"], x["sh_tl"], m, DEL, EXT,
+                             "local", False, dev, dtype_for(
+                                 dev, m, DEL, EXT, lengths=(x["sh_t"].shape[1],
+                                                            x["sh_q"].shape[1])))
+    ref_pop = pm.matrix_population_step(
+        pm.make_mesh(1, devices=[dev]), x["pop_q"], x["pop_ql"], x["pop_t"], x["pop_tl"],
+        x["mats"], DEL, DEL)
+    one = run(False)
+    reset_counts()
+    two = run(True)
+    in_path = os.path.join(tmp, "mesh_inputs.npz")
+    np.savez(in_path, **x)
+    ranks, rank_wall = timed(lambda: run_mesh_ranks(in_path, os.path.join(tmp, "mesh"),
+                                                    tmp))
+    counts = launch_counts()
+    for lines, _ in ranks:
+        for k, v in tagged(lines, "launches").items():
+            counts[k] += v
+    # the second pair of timed runs, in the other order
+    run(True)
+    run(False)
+
+    pv1, pv2 = one["p-value batch"], two["p-value batch"]
+    check(all(np.array_equal(getattr(pv1, f), getattr(pv2, f))
+              for f in ("fmax", "fy", "fx", "end")), "p-value batch: two shards != one")
+    for mode in ("local", "global"):
+        a, b = one[f"full batch fill, {mode}"], two[f"full batch fill, {mode}"]
+        check(isinstance(b.words, tuple) and len(b.words) == MESH_SHARDS
+              and torch.equal(a.words, torch.cat(b.words))
+              and all(torch.equal(getattr(a, f), getattr(b, f))
+                      for f in ("fmax", "fy", "fx", "end")),
+              f"full batch fill {mode}: two shards != one")
+        check(same_results(one[f"full batch with alignments, {mode}"],
+                           two[f"full batch with alignments, {mode}"]),
+              f"full batch {mode}: the alignments of two shards != one")
+    fs = one[scan]
+    check(np.array_equal(fs, two[scan]), "scan: two shards != one")
+
+    (lines0, r0), (lines1, r1) = ranks
+    n = len(x["sh_ql"])
+    per = -(-n // MESH_RANKS)
+    for rank, r in enumerate((r0, r1)):
+        check(r["layout"].tolist() == [rank * per, min((rank + 1) * per, n), per, per, n],
+              f"rank {rank}'s layout of the {n} shuffles: {r['layout'].tolist()}")
+    for f in ("fmax", "fy", "fx", "end"):
+        want = getattr(ref_scores, f).cpu().numpy()
+        check(np.array_equal(r0[f"scores_{f}"], want) and np.array_equal(
+            r1[f"scores_{f}"], want), f"ranks' sharded_scores {f} != the one-process fill")
+    check(np.array_equal(r0["scan_stats"], r1["scan_stats"])
+          and np.array_equal(r0["scan_z"], r1["scan_z"])
+          and np.array_equal(r0["scan_scores"], r1["scan_scores"]),
+          "the ranks' window_scan_step differ")
+    nw = x["n_wins"]
+    check(np.array_equal(r0["scan_scores"][:nw], fs) and not r0["scan_scores"][nw:].any(),
+          "ranks' window scores != the one-card scan")
+    mean = fs.sum() / nw
+    std = np.sqrt(max((fs * fs).sum() / nw - mean * mean, 0.0))
+    z = (fs - mean) / max(std, np.finfo(np.float64).tiny)
+    check(np.allclose(r0["scan_stats"], [mean, std], rtol=MESH_STATS_TOL, atol=0)
+          and np.allclose(r0["scan_z"][:nw], z, rtol=MESH_STATS_TOL, atol=MESH_STATS_TOL),
+          f"ranks' mean, std {r0['scan_stats'].tolist()} (or z) != the scan's "
+          f"{[mean, std]} to {MESH_STATS_TOL}")
+    for key, want in (("pop_best", ref_pop[0]), ("pop_win", ref_pop[1])):
+        check(np.array_equal(r0[key], want.cpu().numpy())
+              and np.array_equal(r1[key], r0[key]),
+              f"ranks' matrix_population_step ({key}) != the one-process step")
+
+    for (name, tag), ws in walls.items():
+        print(f"  {name}, {tag}: " + ", ".join(f"{w:.4f}" for w in ws) + " s", flush=True)
+    for rank, (lines, _) in enumerate(ranks):
+        print(f"  rank {rank} walls (s): {json.dumps(tagged(lines, 'walls'))}", flush=True)
+        print(f"  rank {rank} launches: {json.dumps(tagged(lines, 'launches'))}", flush=True)
+    print(f"  the ranks from start to exit: {rank_wall:.3f} s; the scan's mean "
+          f"{float(mean)!r}, std {float(std)!r}, the ranks' "
+          f"{r0['scan_stats'].tolist()}; population: best f "
+          f"{r0['pop_best'].tolist()}, matrices {r0['pop_win'].tolist()}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(*sys.argv[2:4])
     import aligner_tpu_torch as at
     from aligner_tpu_torch import host, native
     from aligner_tpu_torch.repeat import engine as repeat
@@ -3417,6 +3764,11 @@ def main() -> int:
         with phase("column-blocked engines against the plain versions and each other"):
             rows += hold_engines(dev, at, wf, sp, cli_align, blocked, runs,
                                  counts["engines"], k7_points)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("multi-device (one card)"):
+            mesh_x = mesh_inputs(at, repeat, pq, pt, raw, service_fasta(at, read_fasta_file))
+            counts["sharded"] = phase_multi_device(at, repeat, *mesh_x, pq, tmp,
+                                                   launch_counts, reset_counts)
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
@@ -3430,7 +3782,8 @@ def main() -> int:
                 ("host_walk", "phase 13",
                  ("dirs", "pwm_dirs", "row_scan_dirs", "block_cs_dirs")),
                 ("engines", "phase 14",
-                 ("band_sp", "block_cs", "block_cs_dirs", "replay_walk"))):
+                 ("band_sp", "block_cs", "block_cs_dirs", "replay_walk")),
+                ("sharded", "phase 15", ("scores", "dirs", "pwm_scores", "walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,

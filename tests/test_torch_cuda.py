@@ -1259,3 +1259,85 @@ def test_host_walk_of_the_huge_and_column_blocked_pairs_on_the_card(dev):
     assert c[0] == d[0] == a[0]
     assert np.array_equal(c[1], d[1]) and np.array_equal(d[1], a[1])
     assert np.array_equal(c[2], d[2]) and np.array_equal(d[2], a[2])
+
+
+def _shard_counts():
+    return (dp_fill.launches.scores, dp_fill.launches.dirs, device_walk.launches.walk)
+
+
+def _two_shards(monkeypatch):
+    from aligner_tpu_torch import align
+
+    monkeypatch.setattr(align, "_shard_devices", lambda device: [torch.device("cuda", 0)] * 2)
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_two_shards_of_one_card_equal_the_unsharded_fill(dev, monkeypatch, mode):
+    """The auto-shard's fills on two shards of the one card (a ragged batch
+    of 301, padded to 302): scores bit for bit, alignments equal, and each
+    shard one launch of the fill and one of the walk."""
+    rng = np.random.default_rng(40)
+    qs = [rng.integers(0, V, int(rng.integers(1, 90))) for _ in range(301)]
+    ts = [rng.integers(0, V, int(rng.integers(1, 90))) for _ in range(301)]
+    kw = dict(mode=mode)
+    one = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, **kw)
+    one_aln = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, with_alignments=True, **kw)
+    _two_shards(monkeypatch)
+    before = _shard_counts()
+    two = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, **kw)
+    two_aln = port.batch_align(qs, ts, blosum62(), 11.0, 2.0, with_alignments=True, **kw)
+    assert tuple(a - b for a, b in zip(_shard_counts(), before)) == (2, 2, 2)
+    for f in ("fmax", "fy", "fx", "end"):
+        assert np.array_equal(getattr(one, f), getattr(two, f))
+    for x, y in zip(one_aln, two_aln):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert np.array_equal(x.alignment.query, y.alignment.query)
+            assert np.array_equal(x.alignment.target, y.alignment.target)
+            assert x.alignment.coords == y.alignment.coords and x.alignment.f == y.alignment.f
+
+
+def test_two_shards_of_one_card_scan_and_pwm(dev, monkeypatch):
+    """The repeat scan and the PWM batch with alignments on two shards of
+    the one card equal the one-shard runs."""
+    from aligner_tpu_torch.repeat import engine
+
+    rng = np.random.default_rng(41)
+    seq = rng.integers(0, 4, 5000).astype(np.int8)
+    pwm = rng.normal(0.0, 2.0, (4, 40))
+    opts = engine.SearchOptions(repeat_length=40, query_offset=10, deletions=5.0,
+                                extension=2.0)
+    wins = engine.windows_of(len(seq), opts, opts.query_offset)
+    qs = [seq[a:b] for a, b in wins[:97]]
+    one = engine._scan_scores(seq, wins, pwm, opts, chunk=128)
+    one_aln = port.batch_align_pwm(qs, pwm, 5.0, 2.0, with_alignments=True)
+    _two_shards(monkeypatch)
+    assert np.array_equal(one, engine._scan_scores(seq, wins, pwm, opts, chunk=128))
+    for x, y in zip(one_aln, port.batch_align_pwm(qs, pwm, 5.0, 2.0, with_alignments=True)):
+        assert np.array_equal(x.alignment.numbered, y.alignment.numbered)
+        assert np.array_equal(x.alignment.query, y.alignment.query)
+        assert x.alignment.coords == y.alignment.coords and x.alignment.f == y.alignment.f
+
+
+def test_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two ranks (gloo), each with the card twice as its shards: what they
+    gather equals the one-process steps on the card; the statistics to a
+    relative 1e-12."""
+    from torch_multihost_proc import POP_B, UNEVEN, one_process, run_ranks
+
+    ranks = run_ranks(tmp_path / "ranks.json", "cuda:0", timeout=300)
+    one = one_process("cuda:0")
+    for r in ranks:
+        for got, want in zip(r["scores"], one["scores"]):
+            assert np.array_equal(np.asarray(got), want.cpu().numpy())
+        for got, want in zip(r["uneven_scores"], one["scores"]):
+            assert np.array_equal(np.asarray(got), want.cpu().numpy()[:UNEVEN])
+        best, win = one["population"]
+        assert np.array_equal(np.asarray(r["population"][0]), best.cpu().numpy()[:POP_B])
+        assert np.array_equal(np.asarray(r["population"][1]), win.cpu().numpy()[:POP_B])
+    assert ranks[0]["scan"] == ranks[1]["scan"]
+    scores, z, mean, std = (a.cpu().numpy() for a in one["scan"])
+    assert np.array_equal(np.asarray(ranks[0]["scan"]["scores"]), scores[:UNEVEN])
+    np.testing.assert_allclose(ranks[0]["scan"]["z"], z[:UNEVEN], rtol=1e-12, atol=0)
+    np.testing.assert_allclose([ranks[0]["scan"]["mean"], ranks[0]["scan"]["std"]],
+                               [mean, std], rtol=1e-12, atol=0)

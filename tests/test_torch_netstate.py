@@ -292,9 +292,16 @@ def test_service_processes_two_workers_one_over_http(tmp_path):
                        where at2.hash = ?""", (hashes[0],)).fetchone()[0] == 1
 
         _wait_for("promotion", promoted, procs)
-        with sqlite3.connect(db) as conn:
-            done = conn.execute("select status, attempts from jobs").fetchall()
-        assert done == [("done", 1)] * 4
+
+        def jobs():
+            with sqlite3.connect(db) as conn:
+                return conn.execute("select status, attempts from jobs").fetchall()
+
+        # a worker commits its batch after it stores the subtasks, so the
+        # last commit can land just after the promotion
+        _wait_for("the last batch committed",
+                  lambda: all(status != "claimed" for status, _ in jobs()), procs)
+        assert jobs() == [("done", 1)] * 4
     finally:
         for p in procs.values():
             if p.poll() is None:
