@@ -10,7 +10,9 @@ One huge global pair has no batch axis: :func:`align_global` runs it on
 the row-scan fill and the replay walk, and :func:`global_end_score` gives
 its end score alone on the band fill (``ops/wavefront.py``); a pair wider
 than one plane, or ``backend="wavefront_sp"``, takes the column-blocked
-pipeline (``parallel/wavefront_sp.py``), whose engine is picked there.
+pipeline (``parallel/wavefront_sp.py``), whose engine is picked there, and
+so does a pair above ``DIRECT_PLANE_CELLS`` when the auto-shard sees
+several cards: its column blocks are then spread over them.
 Counterparts of ``aligner_tpu.align.batch_align``/``batch_align_pwm``/
 ``align_pwm``/``align_global``/``align_local``/``global_end_score``/
 ``local_max_score`` and bit-identical to them.
@@ -524,15 +526,17 @@ def batch_align_pwm(
     return out
 
 
-def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto) -> bool:
+def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto,
+                        huge: bool = False, several: bool = False) -> bool:
     """Shared huge-pair dispatch: does this single-pair request run on the
     column-blocked pipeline?  Raises ValidationError for an explicit
     ``backend="wavefront_sp"`` the pipeline cannot honour (the auto path
     simply declines).  One definition, so that :func:`align_global` and
     :func:`global_end_score` route identically
-    (``aligner_tpu.align._route_sharded_pair``; its "huge and more than one
-    device" clause needs several cards and waits for the multi-GPU
-    placement of the column blocks).  The range guard takes the matrix's
+    (``aligner_tpu.align._route_sharded_pair``): by itself the pipeline
+    takes a pair wider than one plane, and a ``huge`` pair (above
+    ``DIRECT_PLANE_CELLS``) when ``several`` devices are in the auto-shard's
+    list (:func:`_pipeline_place`).  The range guard takes the matrix's
     largest entry: the pipeline aligns an integral matrix beyond int8 on its
     ``"lax"`` engine, and refuses the pairs whose scores the reference's
     guard, which assumes int8 entries, lets wrap."""
@@ -547,7 +551,24 @@ def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *, backend, auto) -> b
                 "with scores in the int32-exact range"
             )
         return True
-    return auto and ok and qlen > wf.MAX_WIDTH
+    return auto and ok and (qlen > wf.MAX_WIDTH or (huge and several))
+
+
+def _pipeline_place(device: torch.device):
+    """Where the column-blocked pipeline runs a pair asked for on
+    ``device``: ``(mesh, None)``, an (n, 1) mesh of the auto-shard's devices
+    (:func:`_auto_shard_devices`, this process's alone) when there are
+    several, as the reference runs it on its ``_data_mesh``
+    (``aligner_tpu/align.py:60-70``; ``make_mesh``'s square factoring would
+    leave half of them idle); else ``(None, device)``, every block on
+    ``device``."""
+    devices = _auto_shard_devices(device)
+    if len(devices) == 1:
+        return None, device
+    from .parallel.mesh import Mesh
+
+    return Mesh(("data", "matrix"), np.arange(len(devices)).reshape(-1, 1),
+                tuple(devices)), None
 
 
 def _huge_global_refusal(qlen: int, tlen: int) -> ValidationError:
@@ -620,7 +641,12 @@ def align_global(
     within the range guard for its largest entry), and any such pair under
     ``backend="wavefront_sp"``, runs on the column-blocked pipeline
     (:func:`aligner_tpu_torch.parallel.wavefront_sp.sharded_global_align`),
-    whose fills and replay tiles are one column block wide.  Any other pair
+    whose fills and replay tiles are one column block wide; so does such a
+    pair above ``DIRECT_PLANE_CELLS`` when the auto-shard's list
+    (:func:`_auto_shard_devices`) holds several devices, and then, as with
+    any pipeline pair, its column blocks are spread over an (n, 1) mesh of
+    them (:func:`_pipeline_place`).  A named card, ``ALIGNER_AUTO_SHARD=0``
+    and one visible card keep every block on ``device``.  Any other pair
     (a transformed, non-integral matrix) runs as a batch of one on the
     batched fill up to the direct-plane budget and is refused above it: no
     route materialises an O(R·C) plane at that scale.  ``backend`` keeps
@@ -666,12 +692,14 @@ def align_global(
         return _host_result(host.align_global(q, t, matrix_np, del_, ext), keep_planes,
                             alphabet)
     device = resolve_device(device)
+    mesh, on = _pipeline_place(device)
     if _route_sharded_pair(len(q), len(t), matrix_np, del_, ext, backend=backend,
-                           auto=auto and not keep_planes):
+                           auto=auto and not keep_planes, huge=huge,
+                           several=mesh is not None):
         from .parallel.wavefront_sp import sharded_global_align
 
-        _, qa, ta, coords = sharded_global_align(None, q, t, matrix_np, del_, ext,
-                                                 device=device, walk=walk)
+        _, qa, ta, coords = sharded_global_align(mesh, q, t, matrix_np, del_, ext,
+                                                 device=on, walk=walk)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)) and (
             backend == "wavefront" or not keep_planes):
@@ -732,7 +760,9 @@ def global_end_score(
     ``"wavefront_sp"`` is the column-blocked pipeline
     (:func:`aligner_tpu_torch.parallel.wavefront_sp.sharded_global_end_score`),
     which a pair with integral scoring and a query wider than
-    ``ops.wavefront.MAX_WIDTH`` takes by itself, as in :func:`align_global`.
+    ``ops.wavefront.MAX_WIDTH`` takes by itself, and a pair above
+    ``DIRECT_PLANE_CELLS`` with several devices in the auto-shard's list,
+    over an (n, 1) mesh of them, as in :func:`align_global`.
     The JAX package sends a small pair to the host below a cell count that
     was tuned for its accelerator's dispatch cost; that threshold is not
     carried over: no size picks the host silently.
@@ -756,11 +786,13 @@ def global_end_score(
     device = resolve_device(device)
     auto = backend in (None, "auto")
     cells = len(q) * len(t)
+    mesh, on = _pipeline_place(device)
     if _route_sharded_pair(len(q), len(t), matrix_np, del_, ext, backend=backend,
-                           auto=auto):
+                           auto=auto, huge=cells > wf.DIRECT_PLANE_CELLS,
+                           several=mesh is not None):
         from .parallel.wavefront_sp import sharded_global_end_score
 
-        return sharded_global_end_score(None, q, t, matrix_np, del_, ext, device=device)
+        return sharded_global_end_score(mesh, q, t, matrix_np, del_, ext, device=on)
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
         return wf.end_score_single_global_diag(q, t, matrix_np, del_, ext, device=device)
     if backend == "diag":

@@ -16,7 +16,10 @@ structures map as there:
   matrix (handlers.rs:238-250) and the promotion of the best subtask
   (queries.rs:74-80): the matrices shard over the ``matrix`` axis, each
   device scores its (data shard x matrix shard) tile, and the best matrix
-  of each problem is the max over the ``matrix`` axis.
+  of each problem is the max over the ``matrix`` axis;
+* :func:`data_slots`: the slots of one axis in global order, with this
+  process's neighbours, on which the column-blocked pipeline
+  (:mod:`.wavefront_sp`) places its column blocks.
 
 A :class:`Mesh` is a grid of shard slots.  Each slot is one launch on one
 device; a device may hold several slots (two shards of one card measure the
@@ -140,6 +143,56 @@ def _collective_device(group, device: torch.device) -> torch.device:
     import torch.distributed as dist
 
     return torch.device("cpu") if dist.get_backend(group) == "gloo" else device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSlots:
+    """The slots of one axis of a mesh in global order, for a pipeline that
+    runs one slot a shard of that axis.
+
+    ``devices``: this process's slots, in order; ``first``: the global index
+    of the first of them; ``spans``: every process's [lo, hi) of the slots,
+    in process order; ``left``, ``right``: the ranks that hold the slots just
+    before and just after this process's, or None; ``group``: the mesh's
+    process group."""
+
+    devices: tuple[torch.device, ...]
+    first: int
+    spans: tuple[tuple[int, int], ...]
+    left: int | None
+    right: int | None
+    group: object = None
+
+    @property
+    def total(self) -> int:
+        return max(hi for _, hi in self.spans)
+
+
+def data_slots(mesh: Mesh, axis: str | None = None) -> DataSlots:
+    """The slots of ``axis`` (by default the mesh's first, ``data``): one a
+    shard, the first slot of the shard's row of the grid.  Each process owns
+    whole data shards (:meth:`Mesh.local_grid`, which refuses a data axis
+    that the processes cannot split), so its slots are a contiguous run and
+    its neighbours are the ranks before and after it.  On the other axis
+    only the first data shard's row runs, on the process that owns it; the
+    reference runs the same program redundantly along ``data``, here those
+    slots stay idle."""
+    axis = mesh.axis_names[0] if axis is None else axis
+    if axis not in mesh.axis_names:
+        raise ValidationError(f"the mesh has axes {mesh.axis_names}, not {axis!r}")
+    rows = mesh.local_grid()
+    n, i = mesh.process_count, mesh.process_index
+    if axis == mesh.axis_names[0]:
+        spans = tuple((p * len(rows), (p + 1) * len(rows)) for p in range(n))
+        devices = [slots[0] for slots in rows]
+    else:
+        m = mesh.grid.shape[1]
+        spans = ((0, m),) + ((m, m),) * (n - 1)
+        devices = rows[0] if i == 0 else []
+    lo, hi = spans[i]
+    left = i - 1 if 0 < lo < hi else None
+    right = i + 1 if lo < hi and i + 1 < n and spans[i + 1][0] < spans[i + 1][1] else None
+    return DataSlots(tuple(devices), lo, spans, left, right, mesh.group)
 
 
 def sharded_scores(mesh: Mesh, q, qlen, t, tlen, matrix, del_: float, ext: float, *,

@@ -129,7 +129,13 @@ against the native C++ host engine or the frozen golden fixtures:
    alignments, local and global (K2 and K4 a shard; the fill's scores and
    words and the strings), and ``repeat._scan_scores`` on the chromosome's
    333,334 windows (K3 a shard a chunk), each equal bit for bit to the
-   unsharded call and timed beside it in turns; then two ranks (copies of
+   unsharded call and timed beside it in turns; the column-blocked
+   pipeline on a (2, 1) mesh of the card twice (the 524,288 x 524,288
+   pair, 2 of its 4 column blocks a slot, bit-equal to phase 12 with its
+   launch counts) and ``align_global``/``global_end_score`` of the
+   65,536 x 65,536 pair with the card twice as the auto-shard's list (a
+   huge pair on several devices takes the pipeline; bit-equal to phases 10
+   and 11); then two ranks (copies of
    this script, ``--mesh-rank``; gloo, the card twice each: a (2, 2) mesh)
    run ``sharded_scores`` on their ``shard_local_batch`` blocks of the
    shuffles (an odd count: an uneven layout), ``window_scan_step`` on the
@@ -137,7 +143,10 @@ against the native C++ host engine or the frozen golden fixtures:
    with 64 seeded {-1, 0, 1} matrices on the service's 6 pairs: gathered,
    the scores equal the unsharded K1 fill and the one-card scan, the mean,
    std and z are within 1e-12 of the scan's, the best matrices equal the
-   one-process step; each rank prints its launch counts and step walls;
+   one-process step; and align and end-score the 524,288 x 524,288 pair
+   on the pipeline over their mesh's data axis (one slot a rank, the
+   boundaries and the trace records through the CPU), bit-equal to phase
+   12; each rank prints its launch counts and walls;
 16. the kernels' launch counts of each path: the pair path (phases 3-6),
    the population path (phase 7: the count once an iteration), the service
    path (phase 8: the worker process's K2, K4 and count launches, which it
@@ -2142,7 +2151,8 @@ def phase_band_timing(dev, at, wf, q, t):
           "run_block_band != plain at the huge pair's shape")
     row = dict(name="wavefront_band (scores, one band of the huge pair)", route="cuda",
                source="aligner_tpu_torch/csrc/wavefront_band.cu",
-               replaces=REPLACES["band"], path=("end_score", "column_blocked", "engines"),
+               replaces=REPLACES["band"], path=("end_score", "column_blocked", "engines",
+                                                "sharded"),
                counter=("band", "band_sp"),
                max_abs_err=max(max_abs_err(got[0][rows_b - 1:rows_b - 1 + C],
                                            want[0][rows_b - 1:rows_b - 1 + C]),
@@ -2207,7 +2217,7 @@ def phase_block_timing(dev, at, wf, sp):
             name=f"wavefront_block_cs ({what}, one {R_b} x {C_b} block at column "
                  f"{args[5]})", route="cuda",
             source="aligner_tpu_torch/csrc/wavefront_block.cu",
-            replaces=REPLACES["block_cs"], path=("column_blocked", "engines"),
+            replaces=REPLACES["block_cs"], path=("column_blocked", "engines", "sharded"),
             counter=counter,
             max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want) if a is not None),
             ms=ms, plain_ms=plain_ms, shape=f"{R_b}x{C_b} int32",
@@ -2248,7 +2258,7 @@ def phase_block_timing(dev, at, wf, sp):
     rows.append(dict(
         name=f"wavefront_replay_walk (one replay tile, column base {tile[5]})",
         route="cuda", source="aligner_tpu_torch/csrc/walk_core.cuh",
-        replaces=REPLACES["replay_walk"], path=("column_blocked", "engines"),
+        replaces=REPLACES["replay_walk"], path=("column_blocked", "engines", "sharded"),
         counter="replay_walk",
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)), ms=ms_walk,
         plain_ms=plain_walk_ms, shape=f"{n_steps} steps",
@@ -2312,7 +2322,8 @@ def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
     """The end score of one huge global pair through ``global_end_score``:
     65,536 x 65,536 against K5's forward end cell and the plain band
     engine, two smaller pairs against the host engine, the routes on a
-    small pair, the width cap timed, and ``local_max_score``."""
+    small pair, the width cap timed, and ``local_max_score``.  Returns the
+    65,536 x 65,536 end score."""
     import warnings
 
     from aligner_tpu_torch.observability import counters
@@ -2361,6 +2372,7 @@ def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
           f"{info['tb']} rows, {tiles} kernel launches, {n_read} wait for the device a "
           f"call; score {int(score)} equals K5's forward end cell"
           + ("" if plain_end is None else " and the plain band engine's"), flush=True)
+    end_score = score
     print(f"  the band loop alone: enqueued in {enqueued:.4f} s, the score read after "
           f"{device_s:.4f} s; torch's sync debug mode flagged {n_loop} synchronising "
           f"calls while the loop was enqueued (it uploads the two sequences before its "
@@ -2421,6 +2433,7 @@ def phase_end_score(dev, at, native, host, wf, q, t, plain_end, pq, pt):
           "local_max_score != native C++")
     print(f"  local_max_score on examples/protein.fasta: {f} at ({my}, {mx}), equals "
           f"native C++", flush=True)
+    return end_score
 
 
 def dp_fill_scores() -> int:
@@ -2639,7 +2652,8 @@ def phase_column_blocked(at, wf, sp, plain, wide):
     print(f"  global_end_score {R}x{C} (engine {engines[1]!r}): wall {wall_es:.3f} s "
           f"({R * C / wall_es / 1e9:.1f} GCUPS), {blocks_es} forward blocks run, "
           f"{launched_es} kernel launches", flush=True)
-    out["A"] = dict(q=q, t=t, alignment=a, score=score, engines=engines)
+    out["A"] = dict(q=q, t=t, alignment=a, score=score, engines=engines,
+                    launches=dict(align=(blocks, tiles, walks), end=blocks_es))
 
     # backend="wavefront_sp" by name, on a small pair
     q5, t5 = homologous_pair(PAIR_SEED + 3, *SMALL_PAIR)
@@ -3227,7 +3241,8 @@ def hold_engines(dev, at, wf, sp, cli_align, blocked, runs, counts, k7_points):
         name=f"wavefront_band (scores, the band engine's last block of {tr} rows at "
              f"column {d * Cb})",
         route="cuda", source="aligner_tpu_torch/csrc/wavefront_band.cu",
-        replaces=REPLACES["band"], path=("column_blocked", "engines"), counter="band_sp",
+        replaces=REPLACES["band"], path=("column_blocked", "engines", "sharded"),
+        counter="band_sp",
         max_abs_err=max(max_abs_err(bottom, bottom_p), max_abs_err(got[1], want_k6[1])),
         ms=ms, plain_ms=plain_ms, shape=f"{tr}x{Cb} int32",
         **bound(OPS_BAND * tr * Cb, nbytes(*args[:7], *got))))
@@ -3372,12 +3387,21 @@ def mesh_rank(in_path: str, out_prefix: str) -> int:
     gloo group, builds the global mesh with the card twice as its shards (a
     (2, 2) mesh over 2 ranks), runs the three mesh steps on its
     ``process_span`` blocks, gathers the results through the layouts into
-    ``OUT.<rank>.npz`` and prints its launch counts and step walls."""
+    ``OUT.<rank>.npz``; then aligns and end-scores the 524,288 x 524,288 pair
+    (made here from ``PAIR_SEED + 5``) on the column-blocked pipeline over
+    the mesh's data axis (one slot a rank, 2 of the 4 column blocks each,
+    the engines ``auto_shard_config`` picks for 2 slots), its end score,
+    strings and coordinates into the same file; and prints its launch
+    counts and walls (the pipeline's forward, hand-off wait, gather bytes
+    and seconds and replay from the counters)."""
     import torch.distributed as dist
 
+    from aligner_tpu_torch.observability import counters
     from aligner_tpu_torch.ops import _build, device_walk, dp_fill
+    from aligner_tpu_torch.ops import wavefront as wf
     from aligner_tpu_torch.parallel import mesh as pm
     from aligner_tpu_torch.parallel import multihost
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
 
     multihost.initialize_from_env("gloo")
     rank = dist.get_rank()
@@ -3428,11 +3452,35 @@ def mesh_rank(in_path: str, out_prefix: str) -> int:
     best, win = step("matrix_population_step", lambda: pm.matrix_population_step(
         mesh, q, ql, t, tl, x["mats"], DEL, DEL))
     out["pop_best"], out["pop_win"] = (lay.gather(g).cpu().numpy() for g in (best, win))
+
+    q, t = homologous_pair(PAIR_SEED + 5, BLOCKED_LEN, BLOCKED_LEN)
+    b62 = np.asarray(x["b62"])
+    name = f"{DEVICE}/wavefront-sp"
+    dist.barrier()
+    counters.reset()
+    end, qa, ta, coords = step("sharded_global_align of the 524,288^2 pair", lambda: (
+        sp.sharded_global_align(mesh, q, t, b62, DEL, EXT)))
+    k = counters.snapshot()
+    walls.update({
+        "its forward": k[name].seconds, "its replay": k[f"{name}-replay"].seconds,
+        "its hand-off wait": k[f"{name}-handoff"].seconds if rank else 0.0,
+        "its hand-offs": k[f"{name}-handoff"].cells if rank else 0,
+        "its gather": k[f"{name}-gather"].seconds,
+        "its gather bytes": k[f"{name}-gather"].cells})
+    dist.barrier()
+    score = step("sharded_global_end_score of the 524,288^2 pair", lambda: (
+        sp.sharded_global_end_score(mesh, q, t, b62, DEL, EXT)))
+    out.update(pipe_end=np.array([end, score]), pipe_qa=qa, pipe_ta=ta,
+               pipe_coords=np.array(coords))
     np.savez(f"{out_prefix}.{rank}.npz", **out)
+    L = wf.launches
     print("launches " + json.dumps(dict(
         scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
         pwm_scores=dp_fill.launches.pwm_scores, pwm_dirs=dp_fill.launches.pwm_dirs,
-        walk=device_walk.launches.walk)), flush=True)
+        walk=device_walk.launches.walk, block_cs=L.block_cs,
+        block_cs_dirs=L.block_cs_dirs, block_cs_tile_launches=L.block_cs_tile_launches,
+        band_sp=L.band_sp, band_tile_launches=L.band_tile_launches,
+        replay_walk=L.replay_walk)), flush=True)
     print("walls " + json.dumps(walls), flush=True)
     dist.destroy_process_group()
     return 0
@@ -3490,19 +3538,89 @@ def same_results(a, b) -> bool:
             and x.alignment.f == y.alignment.f)) for x, y in zip(a, b))
 
 
+def pipeline_on_the_card(at, sp, wf, align, pipe) -> dict:
+    """The column-blocked pipeline on the card given twice: a (2, 1) mesh of
+    it, ``sharded_global_align`` and ``sharded_global_end_score`` of phase
+    12's 524,288 x 524,288 pair on the engine and block height the one-card
+    route picked (4 column blocks, 2 a slot, the boundary copied to the
+    second slot, which is the same card), bit-equal to phase 12's results
+    with its launch counts; then ``align_global`` and ``global_end_score``
+    of the 65,536 x 65,536 pair under :func:`card_twice`, which send that
+    huge pair to the pipeline over the two (2 column blocks of 32,768, the
+    engines ``auto_shard_config`` picks for 2 slots), bit-equal to phase
+    10's alignment and phase 11's end score.  Returns the walls."""
+    from aligner_tpu_torch.observability import counters
+    from aligner_tpu_torch.parallel import mesh as pm
+    from aligner_tpu_torch.result import Alignment
+
+    L = wf.launches
+
+    def launched():
+        return (L.block_cs + L.band_sp, L.block_cs_dirs, L.replay_walk,
+                L.row_scan + L.row_scan_dirs + L.band)
+
+    a, m = pipe["A"], at.blosum62()
+    m_np = np.asarray(m)
+    q, t = a["q"], a["t"]
+    mesh = pm.make_mesh(MESH_SHARDS, devices=[torch.device(DEVICE, 0)] * MESH_SHARDS)
+    walls = {}
+    for what, tb, fn in (("align", sp.TB_ROWS, sp.sharded_global_align),
+                         ("end", None, sp.sharded_global_end_score)):
+        one = sp._prep_sharded(None, q, t, m_np, DEL, EXT, None, tb, None, DEVICE)
+        counters.reset()
+        before = launched()
+        res, walls[f"{what}, 524,288^2 on a (2, 1) mesh"] = timed(lambda: fn(
+            mesh, q, t, m_np, DEL, EXT, engine=one["engine"], tr=one["tr"]))
+        got = [b - a0 for a0, b in zip(before, launched())]
+        hand = counters.snapshot()[f"{DEVICE}/wavefront-sp-handoff"]
+        walls[f"{what}: hand-offs received"] = hand.cells
+        walls[f"{what}: hand-off wait"] = hand.seconds
+        if what == "align":
+            end, qa, ta, coords = res
+            check(end == a["score"] and same_alignment(
+                Alignment(qa, ta, coords, 0.0, at.Protein), a["alignment"]),
+                "the 524,288^2 alignment on two slots of the card != the one-card route's")
+            check(tuple(got[:3]) == a["launches"]["align"] and got[3] == 0,
+                  f"the 524,288^2 alignment on two slots launched {got}, the one-card "
+                  f"route {a['launches']['align']}")
+        else:
+            check(res == a["score"],
+                  f"the 524,288^2 end score on two slots {res} != {a['score']}")
+            check(got[0] == a["launches"]["end"] and got[1:] == [0, 0, 0],
+                  f"the 524,288^2 end score on two slots launched {got}, the one-card "
+                  f"route {a['launches']['end']} blocks")
+
+    q, t = pipe["q65"], pipe["t65"]
+    with card_twice(align):
+        before = launched()
+        aln, walls["align_global 65,536^2, card twice"] = timed(
+            lambda: at.align_global(q, t, m, DEL, EXT, device=DEVICE).alignment)
+        score, walls["global_end_score 65,536^2, card twice"] = timed(
+            lambda: at.global_end_score(q, t, m, DEL, EXT, device=DEVICE))
+    got = [b - a0 for a0, b in zip(before, launched())]
+    check(got[0] > 0 and got[1] > 0 and got[2] == got[1] and got[3] == 0,
+          f"the huge 65,536^2 pair with the card twice did not take the pipeline: {got}")
+    check(same_alignment(aln, pipe["aln65"]) and score == pipe["end65"],
+          "the 65,536^2 pair on the pipeline != phase 10's alignment or phase 11's score")
+    return walls
+
+
 def phase_multi_device(at, repeat, x, sh, wins, opts, pq, tmp, launch_counts,
-                       reset_counts):
+                       reset_counts, sp, wf, pipe):
     """Phase 15: the sharded path on the one card, two shards of it.  The
     auto-shard's fills (``align._fill_sharded`` through ``batch_align``,
     its shard list the card twice) on the p-value batch (K1, no argmax) and
     the full batch with alignments, local and global (K2 and K4 a shard),
     and one scan of the chromosome's windows (``_scan_scores``, K3 a shard
     a chunk), each equal bit for bit to the unsharded call and timed beside
-    it in turns (unsharded, sharded | sharded, unsharded); then two ranks,
-    copies of this script, on a (2, 2) mesh with the card twice each
-    (gloo), whose gathered mesh steps equal the one-process ones.  Returns
-    the launch counts of the sharded runs and the ranks (the counts start
-    at zero just before the first sharded run)."""
+    it in turns (unsharded, sharded | sharded, unsharded); the column-blocked
+    pipeline on the card twice (:func:`pipeline_on_the_card`); then two
+    ranks, copies of this script, on a (2, 2) mesh with the card twice each
+    (gloo), whose gathered mesh steps equal the one-process ones and whose
+    pipeline on the 524,288 x 524,288 pair equals phase 12's results.
+    Returns the launch counts of the sharded runs and the ranks (the counts
+    start at zero just before the first sharded run)."""
+    from aligner_tpu_torch.result import Alignment
     from aligner_tpu_torch import align
     from aligner_tpu_torch.backend import dtype_for
     from aligner_tpu_torch.parallel import mesh as pm
@@ -3551,6 +3669,7 @@ def phase_multi_device(at, repeat, x, sh, wins, opts, pq, tmp, launch_counts,
     one = run(False)
     reset_counts()
     two = run(True)
+    piped = pipeline_on_the_card(at, sp, wf, align, pipe)
     in_path = os.path.join(tmp, "mesh_inputs.npz")
     np.savez(in_path, **x)
     ranks, rank_wall = timed(lambda: run_mesh_ranks(in_path, os.path.join(tmp, "mesh"),
@@ -3607,9 +3726,17 @@ def phase_multi_device(at, repeat, x, sh, wins, opts, pq, tmp, launch_counts,
         check(np.array_equal(r0[key], want.cpu().numpy())
               and np.array_equal(r1[key], r0[key]),
               f"ranks' matrix_population_step ({key}) != the one-process step")
+    a = pipe["A"]
+    for rank, r in enumerate((r0, r1)):
+        check(r["pipe_end"].tolist() == [a["score"]] * 2 and same_alignment(
+            Alignment(r["pipe_qa"], r["pipe_ta"], r["pipe_coords"], 0.0, at.Protein),
+            a["alignment"]), f"rank {rank}'s column-blocked pipeline on the 524,288^2 "
+                             f"pair != the one-card route's")
 
     for (name, tag), ws in walls.items():
         print(f"  {name}, {tag}: " + ", ".join(f"{w:.4f}" for w in ws) + " s", flush=True)
+    print("  the column-blocked pipeline on the card twice (s; hand-offs received): "
+          + json.dumps(piped), flush=True)
     for rank, (lines, _) in enumerate(ranks):
         print(f"  rank {rank} walls (s): {json.dumps(tagged(lines, 'walls'))}", flush=True)
         print(f"  rank {rank} launches: {json.dumps(tagged(lines, 'launches'))}", flush=True)
@@ -3738,8 +3865,8 @@ def main() -> int:
     counts["huge"] = launch_counts()
     reset_counts()
     with phase("huge-pair end score"):
-        phase_end_score(dev, at, native, host, wf, plain["q"], plain["t"], plain_end, pq,
-                        pt)
+        end_65k = phase_end_score(dev, at, native, host, wf, plain["q"], plain["t"],
+                                  plain_end, pq, pt)
     counts["end_score"] = launch_counts()
     reset_counts()
     with phase("column-blocked pair"):
@@ -3767,8 +3894,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with phase("multi-device (one card)"):
             mesh_x = mesh_inputs(at, repeat, pq, pt, raw, service_fasta(at, read_fasta_file))
+            pipe = dict(A=blocked["A"], q65=plain["q"], t65=plain["t"],
+                        aln65=wide["pair_b"], end65=end_65k)
             counts["sharded"] = phase_multi_device(at, repeat, *mesh_x, pq, tmp,
-                                                   launch_counts, reset_counts)
+                                                   launch_counts, reset_counts, sp, wf,
+                                                   pipe)
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
@@ -3783,7 +3913,8 @@ def main() -> int:
                  ("dirs", "pwm_dirs", "row_scan_dirs", "block_cs_dirs")),
                 ("engines", "phase 14",
                  ("band_sp", "block_cs", "block_cs_dirs", "replay_walk")),
-                ("sharded", "phase 15", ("scores", "dirs", "pwm_scores", "walk"))):
+                ("sharded", "phase 15", ("scores", "dirs", "pwm_scores", "walk",
+                                         "block_cs_dirs", "replay_walk"))):
             print(f"  {path} path ({phases}): {counts[path]}", flush=True)
             for k in keys:
                 check(counts[path][k] > 0,
@@ -3797,9 +3928,10 @@ def main() -> int:
                   f"than one launch each")
         # the column-blocked path's forward blocks ran on K7 or K6, as the
         # pick chose, and no single-plane kernel ran on it
-        c = counts["column_blocked"]
-        check(c["block_cs"] + c["band_sp"] > 0 and c["band"] == c["row_scan"] == 0,
-              f"the column_blocked path's forward blocks: {c}")
+        for path in ("column_blocked", "sharded"):
+            c = counts[path]
+            check(c["block_cs"] + c["band_sp"] > 0 and c["band"] == c["row_scan"] == 0,
+                  f"the {path} path's forward blocks: {c}")
         for path in ("simple", "host_walk"):
             check(counts[path]["walk"] == 0 and counts[path]["replay_walk"] == 0,
                   f"the {path} path launched a walk kernel: the walks are the host's")

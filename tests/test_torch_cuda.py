@@ -1341,3 +1341,43 @@ def test_two_gloo_ranks_share_the_card(dev, tmp_path):
     np.testing.assert_allclose(ranks[0]["scan"]["z"], z[:UNEVEN], rtol=1e-12, atol=0)
     np.testing.assert_allclose([ranks[0]["scan"]["mean"], ranks[0]["scan"]["std"]],
                                [mean, std], rtol=1e-12, atol=0)
+
+
+CARD_PAIR = ((65536, 4096, None),)  # 2 column blocks of 32,768 on 2 slots
+
+
+def _launch_counts():
+    L = wavefront.launches
+    return (L.block_cs, L.block_cs_dirs, L.band_sp, L.replay_walk)
+
+
+def test_column_blocked_pipeline_on_two_slots_of_the_card(dev):
+    """The pipeline on a mesh of the card twice, a (2, 1) grid (the right
+    boundary copied to the second slot, which is the same card): every
+    engine's end score and both walks' alignments of a 65,536 x 4,096 pair
+    equal the integer form's on the same 2 blocks, with the same launches."""
+    from aligner_tpu_torch.parallel import mesh as pm
+    from torch_multihost_proc import wavefront_runs
+
+    before = _launch_counts()
+    one = wavefront_runs(2, CARD_PAIR, device=dev)
+    mid = _launch_counts()
+    two = wavefront_runs(pm.make_mesh(2, devices=[torch.device("cuda", 0)] * 2), CARD_PAIR)
+    after = _launch_counts()
+    assert two == one
+    assert [b - a for a, b in zip(before, mid)] == [b - a for a, b in zip(mid, after)]
+    assert all(b > a for a, b in zip(before, mid))
+
+
+def test_column_blocked_pipeline_across_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two ranks (gloo) of one slot each, both on the card: the boundaries
+    and the trace records cross the ranks through the CPU; each rank's
+    results equal the other's and the integer form's on the 65,536 x 4,096
+    pair."""
+    from torch_multihost_proc import run_ranks, wavefront_runs
+
+    ranks = run_ranks(tmp_path / "ranks.json", "cuda:0", shards=1, timeout=300,
+                      pairs=CARD_PAIR)
+    one = wavefront_runs(2, CARD_PAIR, device=dev)
+    assert ranks[0]["wavefront"] == ranks[1]["wavefront"] == one
+    assert "cuda/wavefront-sp-handoff" in ranks[1]["wavefront_counters"]

@@ -5,20 +5,32 @@ with real processes: two gloo ranks on the CPU, each with 2 CPU shards of a
 one-process steps of the port and the JAX package (the first half of
 ``tests/test_multihost.py::test_two_process_jax_distributed``).  Scores, best
 matrices and indices bit for bit; the window statistics to a relative 1e-12
-in float64 (equal on both ranks).
+in float64 (equal on both ranks).  The same ranks, and four of one shard
+each, run the column-blocked pipeline on their mesh (its second half: the
+right boundary handed across the ranks, the end score reduced, the trace
+records gathered): every rank's end score, strings and coordinates equal
+the others', the JAX package's mesh form and its host engine, bit for bit.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax.sharding import Mesh
+
+from aligner_tpu import host as ref_host
 from aligner_tpu.parallel import mesh as ref
+from aligner_tpu.parallel import wavefront_sp as ref_sp
+from aligner_tpu_torch.matrices import blosum62
 from aligner_tpu_torch.parallel import mesh as pm
 from aligner_tpu_torch.parallel import multihost
-from torch_multihost_proc import POP_B, UNEVEN, inputs, local_block, one_process, run_ranks
+from torch_multihost_proc import (ENGINES, POP_B, UNEVEN, WAVEFRONT_PAIRS, WF_TB, WF_TR,
+                                  inputs, local_block, one_process, run_ranks,
+                                  wavefront_pair)
 
 torch.set_num_threads(1)
 
@@ -47,6 +59,67 @@ def one():
         jax_population=ref.matrix_population_step(
             ref.make_mesh(4), *out["pop"], x["mats"], 7.0, 3.0, dtype=jnp.float64))
     return out
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return run_ranks(tmp_path_factory.mktemp("four") / "ranks.json", "cpu", n=4, shards=1,
+                     timeout=RANK_TIMEOUT_S)
+
+
+def _wavefront_reference(data_slots: int) -> dict:
+    """Each pair of the ranks' pipeline through the JAX package's mesh form
+    (``engine="lax"``, the ranks' ``tr`` and ``tb_rows``, a mesh of the
+    ranks' data width) and its host engine: ``{"CxR": (end, qa, ta,
+    coords)}``, the end equal in both."""
+    jmesh = Mesh(np.array(jax.devices()[:data_slots]), ("data",))
+    m = np.asarray(blosum62())
+    out = {}
+    for C, R, _ in WAVEFRONT_PAIRS:
+        q, t = wavefront_pair(C, R)
+        end = ref_sp.sharded_global_end_score(jmesh, q, t, m, 11.0, 2.0, tr=WF_TR,
+                                              engine="lax")
+        a = ref_sp.sharded_global_align(jmesh, q, t, m, 11.0, 2.0, tr=WF_TR, tb_rows=WF_TB,
+                                        engine="lax")
+        o = ref_host.align_global(q, t, m, 11.0, 2.0)
+        assert end == a[0] == o.score[R, C]
+        assert np.array_equal(a[1], o.query_aligned) and np.array_equal(a[2], o.target_aligned)
+        out[f"{C}x{R}"] = (end, a[1].tolist(), a[2].tolist(), [list(c) for c in a[3]])
+    return out
+
+
+def _check_wavefront(ranks, data_slots: int) -> None:
+    """Every rank's runs are the first rank's, and each equals the
+    reference: every engine's end score, and both walks' alignments.  Every
+    rank but the first received boundaries, and every rank gathered the
+    others' records (the counters ``cpu/wavefront-sp-handoff`` and
+    ``-gather``, whose cells count boundaries and bytes)."""
+    want = _wavefront_reference(data_slots)
+    for i, r in enumerate(ranks):
+        assert r["wavefront"] == ranks[0]["wavefront"]
+        counted = r["wavefront_counters"]
+        assert ("cpu/wavefront-sp-handoff" in counted) == (i > 0)
+        assert counted["cpu/wavefront-sp-gather"][1] > 0
+    for pair, runs in ranks[0]["wavefront"].items():
+        end, qa, ta, coords = want[pair]
+        assert [run["engine"] for run in runs] == list(ENGINES)
+        for run in runs:
+            assert run["end"] == end
+            assert run["alignments"] == [[end, qa, ta, coords]] * 2
+
+
+def test_two_ranks_column_blocked_pipeline(ranks):
+    """Two ranks, the data axis of their (2, 2) mesh: the 96-column pair is
+    one block on rank 0 (rank 1's slot has only padding and joins the
+    reduce and the gather); the 1,100-column pair is 5 blocks of 256, 3 on
+    rank 0 and 2 on rank 1, every row block's boundary handed across."""
+    _check_wavefront(ranks, 2)
+
+
+def test_four_ranks_column_blocked_pipeline(four_ranks):
+    """Four ranks of one slot each, a (4, 1) mesh: the 1,100-column pair's 5
+    blocks lie 2, 1, 1, 1, each boundary handed through three ranks."""
+    _check_wavefront(four_ranks, 4)
 
 
 def test_two_ranks_sharded_scores(ranks, one):
@@ -134,13 +207,12 @@ def test_one_process_layout_and_refusals():
         lay.gather(torch.arange(5))
 
 
-def test_four_ranks_one_shard_each(tmp_path, one):
+def test_four_ranks_one_shard_each(four_ranks, one):
     """Four ranks of one shard each (a card a rank, as under NCCL): a (4, 1)
     mesh, every data shard within one process; the gathered steps equal the
     one-process ones (the window statistics to a relative 1e-12, its sums
     taken in another order)."""
-    ranks = run_ranks(tmp_path / "ranks.json", "cpu", n=4, shards=1,
-                      timeout=RANK_TIMEOUT_S)
+    ranks = four_ranks
     assert [r["mesh"] for r in ranks] == [[4, 1]] * 4
     assert [r["uneven_layout"][1] for r in ranks] == [4] * 4  # ceil(15 / 4) rows a rank
     scores, z, mean, std = one["scan"]

@@ -313,3 +313,60 @@ def test_service_processes_two_workers_one_over_http(tmp_path):
                 os.killpg(p.pid, signal.SIGKILL)
                 p.communicate(timeout=30)
     assert all(p.poll() is not None for p in procs.values())
+
+
+def test_launch_pod_torch_script_two_hosts(tmp_path):
+    """``deploy/launch_pod_torch.sh`` for host 0 and host 1 on this machine,
+    the workers on ``--device cpu``: host 0 runs the state endpoint, the
+    dispatcher and a worker, host 1 a worker that reaches the state over
+    HTTP with the shared token; both register, a request is drained and
+    promoted, and every process stops when told (each wait bounded)."""
+    state_port, http_port = _free_port(), _free_port()
+    db = str(tmp_path / "aligner.db")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               ALIGNER_DB=db, ALIGNER_STATE_PORT=str(state_port),
+               ALIGNER_HTTP_PORT=str(http_port), ALIGNER_DEVICE="cpu",
+               ALIGNER_WORKER_ARGS="--batch 1 --poll-interval 0.1 --max-batches 3000",
+               ALIGNER_LOG="info", ALIGNER_STATE_TOKEN="test-pod-secret")
+    env.pop("ALIGNER_QUEUE", None)
+    env_h1 = dict(env)
+    del env_h1["ALIGNER_DB"]  # host 1 derives the HTTP endpoint itself
+    script = os.path.join(REPO, "deploy", "launch_pod_torch.sh")
+    procs = {name: subprocess.Popen(
+        ["bash", script, "2", str(i), "127.0.0.1"], env=e, cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for i, (name, e) in enumerate((("host0", env), ("host1", env_h1)))}
+    base = f"http://127.0.0.1:{http_port}"
+    try:
+        def registered():
+            nodes = json.loads(_get(f"{base}/health/check"))["nodes"]
+            return {"node-host0", "node-host1"} <= {n["consumerName"] for n in nodes}
+
+        _wait_for("both hosts' workers registered", registered, procs)
+        req = urllib.request.Request(f"{base}/validate", data=json.dumps(REQ).encode(),
+                                     headers={"Content-Type": "application/json"})
+        hashes = json.loads(urllib.request.urlopen(req, timeout=30).read())["hashes"]
+        assert len(hashes) == 1
+
+        def promoted():
+            with urllib.request.urlopen(f"{base}/progress?hashes={hashes[0]}",
+                                        timeout=30) as r:
+                assert r.readline().decode().startswith("data:")
+            with sqlite3.connect(db) as conn:
+                return conn.execute(
+                    """select count(1) from result_matrices rm
+                       inner join align_tasks at2 on rm.task_id = at2.id
+                       where at2.hash = ?""", (hashes[0],)).fetchone()[0] == 1
+
+        _wait_for("promotion", promoted, procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGTERM)
+        for p in procs.values():
+            try:
+                p.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate(timeout=30)
+    assert all(p.poll() is not None for p in procs.values())
