@@ -21,28 +21,22 @@
 // time.  The design keeps it one launch and short:
 //   * one warp a member, its (V, V) counts in shared memory (2.3 KB at
 //     V = 24), blocks of 4 warps; nothing is shared across warps;
-//   * a round reads 32 consecutive words of the member, one a lane; each
-//     lane unpacks its 16 codes and counts its moves up and left; a warp
-//     scan by __shfl_up_sync gives each lane its cursor at its first code
-//     (the round's start minus the moves of the lanes before it); each lane
-//     then replays its codes and adds its DIAG pairs with shared-memory
-//     atomics; the round's totals carry to the next round, and the rounds
-//     stop at n;
-//   * lane 0 adds the seed pair, and the warp writes its counts out.
+//   * a warp scan of the cursor a round of 32 words, the DIAG pairs added by
+//     shared-memory atomics, the seed pair by lane 0 (count_core.cuh).
 //
-// The CUDA-only parts (the launch) sit under __CUDACC__; a host build of
-// the kernel's body (tests/freq_count_host.cpp) supplies the warp
-// intrinsics.
-#include "handoff.cuh"
+// The body, count_core.cuh's fc::count_member, is shared with the counting
+// walk (walk_core.cuh), which runs it on the stream its warp has just
+// written; the population's path takes that kernel, and this one stays as
+// the earlier build that chip_smoke.py times it against.  The CUDA-only
+// part (the launch) sits under __CUDACC__; a host build of the kernel's body
+// (tests/freq_count_host.cpp) supplies the warp intrinsics.
+#include "count_core.cuh"
 
 namespace {
 
 namespace fc {
-constexpr int TOP = 0, LEFT = 1, DIAG = 2;
 constexpr int WARPS = 4;  // warps a block: 4 * 24 * 24 * 4 B = 9.2 KB of counts at most
 }
-
-__device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 
 // M members in blocks of fc::WARPS warps, one warp a member; dynamic shared
 // memory: V * V ints a warp.
@@ -55,51 +49,8 @@ freq_count_kernel(const int* __restrict__ steps, int words, const int* __restric
     const int warp = int(threadIdx.x >> 5);
     const long long m = (long long)blockIdx.x * fc::WARPS + warp;
     if (m >= M) return;
-    const int lane = int(threadIdx.x & 31);
-    const int VV = V * V;
-    int* counts = dynamic_smem() + warp * VV;
-    for (int i = lane; i < VV; i += 32) counts[i] = 0;
-    __syncwarp();
-    const int* qm = q + m * C;
-    const int* tm = t + m * R;
-    const int nm = n[m];
-    int y = sy[m], x = sx[m];
-    for (int w0 = 0; w0 < words && 16 * w0 < nm; w0 += 32) {
-        const int w = w0 + lane;
-        const int k_end = w < words ? min(16, max(0, nm - 16 * w)) : 0;
-        const unsigned word = k_end > 0 ? unsigned(steps[(long long)w * M + m]) : 0u;
-        int up = 0, lf = 0;
-        for (int k = 0; k < k_end; ++k) {
-            const int d = int(word >> (2 * k)) & 3;
-            up += d == fc::TOP || d == fc::DIAG;
-            lf += d == fc::LEFT || d == fc::DIAG;
-        }
-        int su = up, sl = lf;  // inclusive sums over the lanes
-        for (int s = 1; s < 32; s <<= 1) {
-            const int a = __shfl_up_sync(FULL, su, s);
-            const int b = __shfl_up_sync(FULL, sl, s);
-            if (lane >= s) {
-                su += a;
-                sl += b;
-            }
-        }
-        int cy = y - (su - up), cx = x - (sl - lf);
-        for (int k = 0; k < k_end; ++k) {
-            const int d = int(word >> (2 * k)) & 3;
-            if (d == fc::DIAG)
-                atomicAdd(&counts[tm[clip(cy - 1, R - 1)] * V + qm[clip(cx - 1, C - 1)]], 1);
-            cy -= d == fc::TOP || d == fc::DIAG;
-            cx -= d == fc::LEFT || d == fc::DIAG;
-        }
-        y -= __shfl_sync(FULL, su, 31);
-        x -= __shfl_sync(FULL, sl, 31);
-    }
-    __syncwarp();
-    const int fy = sy[m], fx = sx[m];
-    if (lane == 0 && alive[m] && fy > 0 && fx > 0)
-        atomicAdd(&counts[tm[clip(fy - 1, R - 1)] * V + qm[clip(fx - 1, C - 1)]], 1);
-    __syncwarp();
-    for (int i = lane; i < VV; i += 32) out[m * VV + i] = counts[i];
+    fc::count_member(steps + m, M, words, n[m], sy[m], sx[m], q + m * C, C, t + m * R, R,
+                     alive[m] != 0, V, dynamic_smem() + warp * V * V, out + m * V * V);
 }
 
 }  // namespace

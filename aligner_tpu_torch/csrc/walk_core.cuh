@@ -45,6 +45,7 @@
 // __CUDACC__; a host build of the kernels (tests/walk_host.cpp) supplies
 // them, its copies landing at their wait.
 #pragma once
+#include "count_core.cuh"
 #include "handoff.cuh"
 
 namespace {
@@ -108,6 +109,26 @@ constexpr int WALK_DEPTH = 8;
 __host__ __device__ constexpr int ring_ints(int D, int span) {
     return D * (span + GUARD) + (D < 4 ? 4 : D);
 }
+
+// The ints of shared memory one warp of K4 takes: its ring, and for the
+// counting walk (V > 0) at least the member's V * V counts, which take the
+// ring's place once the walk is done; in whole 16-byte groups.
+__host__ __device__ constexpr int walk_warp_ints(int span, int V) {
+    const int counts = (V * V + 3) & ~3;
+    return ring_ints(WALK_DEPTH, span) > counts ? ring_ints(WALK_DEPTH, span) : counts;
+}
+
+// What the counting walk counts with: the members' padded codes q (B, Cq)
+// and t (B, Rt), which members are alive, V, and the (B, V, V) counts out.
+struct CountArgs {
+    const int* q;
+    int Cq;
+    const int* t;
+    int Rt;
+    const unsigned char* alive;
+    int V;
+    int* out;
+};
 
 // The stream of codes: 16 a word, stored by lane 0 at out[k * stride].
 // Every lane keeps the same copy.  Codes come in at the top of `cur` and
@@ -384,12 +405,22 @@ replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
 // reference does.  After a walk ends its words are all Beginning.  `stats`,
 // when given, gains the rows asked for, the rows refilled and the rounds
 // walked.
-template <bool GLOBAL, int VEC>
+//
+// With COUNT (local mode only), the counting walk: the count of
+// count_core.cuh as the walk's epilogue, on the stream its warp has just
+// written, the member's (V, V) counts in the warp's shared memory where its
+// ring was (walk_warp_ints(span, V) ints a warp), written to count.out.  It
+// replaces the standalone count (freq_count.cu) on the heuristic
+// population's path: one launch an iteration instead of two, the stream
+// read back by the warp that has just written it.
+template <bool GLOBAL, int VEC, bool COUNT>
 __global__ void __launch_bounds__(256)
 device_walk_kernel(const int* __restrict__ words, int word_rows, int C,
                    const int* __restrict__ sy, const int* __restrict__ sx, int B, int S,
                    int span, int* __restrict__ steps, int* __restrict__ n_out,
-                   int* __restrict__ ey, int* __restrict__ ex, int* __restrict__ stats) {
+                   int* __restrict__ ey, int* __restrict__ ex, int* __restrict__ stats,
+                   walk::CountArgs count) {
+    static_assert(!(COUNT && GLOBAL), "the counting walk is local");
     const int warp = int(threadIdx.x >> 5);
     const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
     if (b >= B) return;
@@ -397,7 +428,8 @@ device_walk_kernel(const int* __restrict__ words, int word_rows, int C,
     const long long W = (long long)word_rows * C;
     const int* w_b = words + b * W;
     constexpr int D = walk::WALK_DEPTH;
-    walk::Ring<8, D, VEC> ring{w_b, C, dynamic_smem() + warp * walk::ring_ints(D, span), span};
+    int* const mine = dynamic_smem() + warp * walk::walk_warp_ints(span, COUNT ? count.V : 0);
+    walk::Ring<8, D, VEC> ring{w_b, C, mine, span};
     walk::Stream st{steps + b, B, S, 0, ~0u};
     int y = sy[b], x = sx[b];
     while (st.room > 0) {
@@ -430,6 +462,15 @@ device_walk_kernel(const int* __restrict__ words, int word_rows, int C,
     if (lane == 0 && (n & 15) != 0) *st.wp = int(st.partial(~0u));
     for (int k = (n + 15) / 16 + lane; k < (S + 15) / 16; k += 32)
         steps[(long long)k * B + b] = -1;
+    if (COUNT) {
+        // lane 0's words visible to every lane; the ring is idle (walk_runs
+        // ends with no copy in flight), so the counts take its memory
+        __syncwarp();
+        const int V = count.V;
+        fc::count_member(steps + b, B, (S + 15) / 16, n, sy[b], sx[b], count.q + b * count.Cq,
+                         count.Cq, count.t + b * count.Rt, count.Rt, count.alive[b] != 0, V,
+                         mine, count.out + b * V * V);
+    }
     if (lane == 0) {
         n_out[b] = n;
         ey[b] = y;

@@ -15,8 +15,9 @@ with the matrix that produced it attached.
   of starting matrices, the job of a service worker.  On the card it is a
   host loop over device kernels with the population's state kept on the
   card: per iteration one batched fill with direction words
-  (``ops/dp_fill.py``), one batched walk (``ops/device_walk.py``), one
-  frequency count (``ops/freq_count.py``) and the batched float64 transform
+  (``ops/dp_fill.py``), one counting walk (``ops/device_walk.py:walk_counts``:
+  the batched walk with the frequency count as its epilogue, one launch)
+  and the batched float64 transform
   (:func:`~aligner_tpu_torch.matrices.transform_matrix_torch`), and one
   read of the ``done`` flags back to the host.  The TPU fused the loop into
   one dispatch only because of its per-dispatch round trip; the port keeps
@@ -124,7 +125,7 @@ def _population_loop(q2, ql0, t2, tl0, state: _Population, del_, ext, kd, r_squa
     """Run the population's iterations on ``q2``'s device until every
     member is done or ``max_iters`` are spent.  A transform with no real
     roots leaves NaN in ``state.trans``."""
-    from .ops import device_walk, dp_fill, freq_count
+    from .ops import device_walk, dp_fill
 
     V = state.trans.shape[-1]
     S = t2.shape[1] + q2.shape[1] + 1
@@ -135,8 +136,7 @@ def _population_loop(q2, ql0, t2, tl0, state: _Population, del_, ext, kd, r_squa
         tl = torch.where(state.done, 0, tl0)
         r = dp_fill.fill(q2, ql, t2, tl, state.trans, del_, ext, mode="local",
                          with_dirs=True)
-        steps, n, _, _ = device_walk.walk(r.words, r.fy, r.fx, S=S, mode="local")
-        counts = freq_count.count_pairs(steps, n, r.fy, r.fx, q2, t2, alive, V)
+        counts = device_walk.walk_counts(r.words, r.fy, r.fx, q2, t2, alive, V, S=S)
         newt = transform_matrix_torch(counts.to(torch.float64), kd, r_squared, freqs)
         newly_dead = alive & ((r.fy == 0) | (r.fx == 0))
         improved = alive & ~newly_dead & (r.fmax > state.max_f)
@@ -168,8 +168,9 @@ def heuristic_align_population(
     The starting matrices are transformed on the host (numpy, as the
     reference does: a matrix with no real roots raises
     :class:`WrongMatrixSpecified` there); then every iteration runs on
-    ``device`` as one batched fill, walk, frequency count and float64
-    transform over the still-improving members, the converged ones masked
+    ``device`` as one batched fill, one counting walk (the walk and the
+    frequency count in one launch) and the float64 transform over the
+    still-improving members, the converged ones masked
     to zero length.  A transform with no real roots inside the loop leaves
     NaN in the final matrices and raises :class:`WrongMatrixSpecified` after
     the loop, checked over every member before a member that spent

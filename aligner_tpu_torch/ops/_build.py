@@ -157,6 +157,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32, i32, i32, p, p,  # warps a block, blocks, span, stats, stream
     ]
     lib.device_walk_launch.restype = i32
+    lib.device_walk_count_launch.argtypes = [
+        p, i32, i32, p, p,  # words, word rows, C, sy, sx
+        i32, i32,  # B, S
+        p, p, p, p,  # steps, n, ey, ex
+        p, i32, p, i32, p, i32, p,  # q, its columns, t, its rows, alive, V, counts
+        i32, i32, i32, p, p,  # warps a block, blocks, span, stats, stream
+    ]
+    lib.device_walk_count_launch.restype = i32
     lib.freq_count_launch.argtypes = [
         p, i32, p, p, p,  # steps, words, n, sy, sx
         p, i32, p, i32,  # q, C, t, R

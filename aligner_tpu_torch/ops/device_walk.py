@@ -83,17 +83,39 @@ def walk_plan(B: int, C: int, device) -> WalkPlan:
 
 
 class _Launches:
-    """Launch count of :func:`walk`'s kernel (a plain integer, bumped only
-    where the kernel is launched)."""
+    """Launch counts of :func:`walk`'s kernel and of :func:`walk_counts`'s
+    (plain integers, bumped only where the kernel is launched)."""
 
     def __init__(self):
-        self.walk = 0
+        self.reset()
 
     def reset(self) -> None:
         self.walk = 0
+        self.walk_count = 0
 
 
 launches = _Launches()
+
+
+def _check_walk(words, sy, sx, S: int, stats) -> None:
+    dev = words.device
+    for name, a in (("words", words), ("sy", sy), ("sx", sx)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, words on {dev}")
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if words.dim() != 3:
+        raise ValueError(f"words must be (B, R8/8, C), got {tuple(words.shape)}")
+    B = words.shape[0]
+    if tuple(sy.shape) != (B,) or tuple(sx.shape) != (B,):
+        raise ValueError("sy and sx must be (B,)")
+    if S < 1:
+        raise ValueError("S must be positive")
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int32
+                              or tuple(stats.shape) != (3,)):
+        raise ValueError("stats must be an int32 (3,) tensor on the words' device")
 
 
 def walk(words, sy, sx, *, S: int, mode: str, stats=None):
@@ -112,24 +134,9 @@ def walk(words, sy, sx, *, S: int, mode: str, stats=None):
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
+    _check_walk(words, sy, sx, S, stats)
     dev = words.device
-    for name, a in (("words", words), ("sy", sy), ("sx", sx)):
-        if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, words on {dev}")
-        if a.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if words.dim() != 3:
-        raise ValueError(f"words must be (B, R8/8, C), got {tuple(words.shape)}")
     B, _, C = words.shape
-    if tuple(sy.shape) != (B,) or tuple(sx.shape) != (B,):
-        raise ValueError("sy and sx must be (B,)")
-    if S < 1:
-        raise ValueError("S must be positive")
-    if stats is not None and (stats.device != dev or stats.dtype != torch.int32
-                              or tuple(stats.shape) != (3,)):
-        raise ValueError("stats must be an int32 (3,) tensor on the words' device")
     if dev.type == "cpu":
         return walk_plain(words, sy, sx, S=S, mode=mode)
     if dev.type != "cuda":
@@ -153,6 +160,66 @@ def walk(words, sy, sx, *, S: int, mode: str, stats=None):
         _build.check(lib, err, "device_walk")
         launches.walk += 1
     return steps, n, ey, ex
+
+
+def walk_counts(words, sy, sx, q, t, alive, V: int, *, S: int, stats=None):
+    """The counting walk: :func:`walk` in local mode for ``S`` steps, then
+    each member's (target char, query char) pairs counted from its step
+    stream as :func:`~aligner_tpu_torch.ops.freq_count.count_pairs` counts
+    them, in one launch.  Returns the (B, V, V) int32 counts.
+
+    ``words``, ``sy``, ``sx`` and ``stats`` as for :func:`walk`; ``q``
+    (B, C) and ``t`` (B, R) int32 padded codes, which the caller must hold
+    in [0, V): the kernel indexes its shared-memory counts with them and
+    does not check them (a check would read them back to the host on every
+    call), so a code out of range corrupts other members' counts.
+    :func:`~aligner_tpu_torch.heuristic.heuristic_align_population` checks
+    its codes once, before its first launch.  ``alive`` (B,) bool, the
+    members whose seed pair counts.  CUDA tensors launch the counting walk (plan
+    :func:`walk_plan`; a V whose counts do not fit a block's shared memory
+    raises ``ValueError``); CPU tensors take :func:`walk_counts_plain`.
+    """
+    from .freq_count import check_codes
+
+    _check_walk(words, sy, sx, S, stats)
+    check_codes(words.device, words.shape[0], q, t, alive, V)
+    dev = words.device
+    if dev.type == "cpu":
+        return walk_counts_plain(words, sy, sx, q, t, alive, V, S=S)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    B, _, C = words.shape
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        counts = torch.empty((B, V, V), dtype=torch.int32, device=dev)
+        if B == 0:
+            return counts
+        steps = torch.empty((-(-S // 16), B), dtype=torch.int32, device=dev)
+        n, ey, ex = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+        p = walk_plan(B, max(C, 1), dev)
+        err = lib.device_walk_count_launch(
+            words.data_ptr(), words.shape[1], C, sy.data_ptr(), sx.data_ptr(), B, S,
+            steps.data_ptr(), n.data_ptr(), ey.data_ptr(), ex.data_ptr(),
+            q.data_ptr(), q.shape[1], t.data_ptr(), t.shape[1], alive.data_ptr(), V,
+            counts.data_ptr(), p.warps, p.blocks, p.span,
+            None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err == -2:
+            raise ValueError(f"the counts of {V} symbols, {p.warps} warps a block, do "
+                             f"not fit a block's shared memory")
+        _build.check(lib, err, "device_walk_count")
+        launches.walk_count += 1
+    return counts
+
+
+def walk_counts_plain(words, sy, sx, q, t, alive, V: int, *, S: int):
+    """Plain PyTorch version of the counting walk: :func:`walk_plain` in
+    local mode, then ``count_pairs_plain`` on its streams."""
+    from .freq_count import count_pairs_plain
+
+    steps, n, _, _ = walk_plain(words, sy, sx, S=S, mode="local")
+    return count_pairs_plain(steps, n, sy, sx, q, t, alive, V)
 
 
 def walk_plain(words, sy, sx, *, S: int, mode: str):

@@ -12,6 +12,12 @@ counted, alignment.rs:13-23), plus the seeded argmax pair ``t[sy - 1]``,
 ``q[sx - 1]`` of a member that is alive and has ``sy > 0`` and ``sx > 0``.
 So a member's counts equal ``Alignment.frequency_matrix()`` of its
 alignment, as integers.
+
+The population counts with the counting walk
+(:func:`~aligner_tpu_torch.ops.device_walk.walk_counts`), which runs this
+kernel's body (``csrc/count_core.cuh``) as the walk's epilogue, one launch
+for both; :func:`count_pairs` stays as its earlier build, and
+:func:`count_pairs_plain` is the plain version of both.
 """
 
 from __future__ import annotations
@@ -37,28 +43,42 @@ class _Launches:
 launches = _Launches()
 
 
-def _check(steps, n, sy, sx, q, t, alive, V) -> None:
-    dev = steps.device
-    for name, a in (("steps", steps), ("n", n), ("sy", sy), ("sx", sx), ("q", q),
-                    ("t", t), ("alive", alive)):
+def check_codes(dev, M: int, q, t, alive, V: int) -> None:
+    """The checks of a count's codes, its ``alive`` flags and V, for M
+    members on ``dev``."""
+    for name, a in (("q", q), ("t", t), ("alive", alive)):
         if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, steps on {dev}")
+            raise ValueError(f"{name} is on {a.device}, the stream on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         want = torch.bool if name == "alive" else torch.int32
         if a.dtype != want:
             raise TypeError(f"{name} must be {want}, got {a.dtype}")
-    if steps.dim() != 2:
-        raise ValueError(f"steps must be (ceil(S/16), M), got {tuple(steps.shape)}")
-    M = steps.shape[1]
-    for name, a in (("n", n), ("sy", sy), ("sx", sx), ("alive", alive)):
-        if tuple(a.shape) != (M,):
-            raise ValueError(f"{name} must be ({M},), got {tuple(a.shape)}")
+    if tuple(alive.shape) != (M,):
+        raise ValueError(f"alive must be ({M},), got {tuple(alive.shape)}")
     for name, a in (("q", q), ("t", t)):
         if a.dim() != 2 or a.shape[0] != M or a.shape[1] < 1:
             raise ValueError(f"{name} must be ({M}, L) with L >= 1, got {tuple(a.shape)}")
     if V < 1:
         raise ValueError(f"V must be positive, got {V}")
+
+
+def _check(steps, n, sy, sx, q, t, alive, V) -> None:
+    dev = steps.device
+    for name, a in (("steps", steps), ("n", n), ("sy", sy), ("sx", sx)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, steps on {dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name} must be {torch.int32}, got {a.dtype}")
+    if steps.dim() != 2:
+        raise ValueError(f"steps must be (ceil(S/16), M), got {tuple(steps.shape)}")
+    M = steps.shape[1]
+    for name, a in (("n", n), ("sy", sy), ("sx", sx)):
+        if tuple(a.shape) != (M,):
+            raise ValueError(f"{name} must be ({M},), got {tuple(a.shape)}")
+    check_codes(dev, M, q, t, alive, V)
 
 
 def count_pairs(steps, n, sy, sx, q, t, alive, V: int):

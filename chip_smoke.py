@@ -19,8 +19,10 @@ against the native C++ host engine or the frozen golden fixtures:
    on every block of ragged grids and the replay walk with a column base
    on every tile a walk crosses, real cells only, both walks on words whose
    paths run past the staged span and refill, the heuristic population's
-   frequency count on its first iteration and on ragged step streams, and
-   the batched float64 transform on the card against numpy's), and
+   frequency count on its first iteration and on ragged step streams, the
+   counting walk (K4 with the count as its epilogue) on that iteration and
+   on ragged words, and the batched float64 transform on the card against
+   numpy's), and
    each kernel's time beside its plain version's and its bound at the
    shapes the main path gives it, the batched fill's launch plan beside
    each of its rows (threads a block, rows of the column on chip, shared
@@ -36,9 +38,10 @@ against the native C++ host engine or the frozen golden fixtures:
    the column-block fill held and timed on the last forward block and the
    last replay tile of the 524,288 x 524,288 pair, and the column block's
    width and the forward block's rows swept at 262,144 x 262,144 and
-   524,288 x 524,288, and the frequency count at the population's shape
-   (queued, as the walks are) with one population iteration split by CUDA
-   events;
+   524,288 x 524,288, and the frequency count and the counting walk at the
+   population's shape (queued, as the walks are; walk + count and the
+   counting walk in turns) with one population iteration split by CUDA
+   events both ways;
 3. golden fixtures: ``batch_align`` on the three example FASTAs;
 4. ``calculate_p_value`` with 5,000 sequences on ``examples/protein.fasta``;
 5. ``aligner-search`` on a seeded 100,000-sequence protein database (local)
@@ -148,10 +151,11 @@ against the native C++ host engine or the frozen golden fixtures:
    boundaries and the trace records through the CPU), bit-equal to phase
    12; each rank prints its launch counts and walls;
 16. the kernels' launch counts of each path: the pair path (phases 3-6),
-   the population path (phase 7: the count once an iteration), the service
-   path (phase 8: the worker process's K2, K4 and count launches, which it
-   prints at exit, and calc's K1 launches; the count once an iteration of
-   each task), the PWM path (phase 9), the huge-pair path (phase 10), the
+   the population path (phase 7: the counting walk once an iteration, the
+   standalone count never), the service path (phase 8: the worker
+   process's K2, K4 and counting-walk launches, which it prints at exit,
+   and calc's K1 launches; the counting walk once an iteration of each
+   task, the standalone count never), the PWM path (phase 9), the huge-pair path (phase 10), the
    end-score path (phase 11), the column-blocked path (phase 12), the
    simple aligners' path (phase 13: the score plane once a pair, no walk
    kernel), the host walks' path (phase 13: the fills, no walk kernel) and
@@ -280,7 +284,8 @@ import atexit, json, runpy, sys
 from aligner_tpu_torch.ops import device_walk, dp_fill, freq_count
 atexit.register(lambda: print("launches " + json.dumps(dict(
     scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
-    walk=device_walk.launches.walk, freq_count=freq_count.launches.freq_count)),
+    walk=device_walk.launches.walk, walk_count=device_walk.launches.walk_count,
+    freq_count=freq_count.launches.freq_count)),
     flush=True))
 sys.argv[0] = "aligner_tpu_torch.service.worker"
 runpy.run_module("aligner_tpu_torch.service.worker", run_name="__main__", alter_sys=True)
@@ -293,6 +298,7 @@ REPLACES = {
     "band": "aligner_tpu/ops/wavefront.py:973",
     "block_cs": "aligner_tpu/ops/wavefront.py:754",
     "freq_count": "aligner_tpu/heuristic.py:207",
+    "walk_count": "aligner_tpu/heuristic.py:207, aligner_tpu/ops/device_walk.py:34",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, the float32 rate outside the tensor cores (128 lanes an SM, an FMA
@@ -1387,13 +1393,51 @@ def first_iteration(dev, at, dp_fill, device_walk, pop):
                 alive=torch.ones(M, dtype=torch.bool, device=dev))
 
 
+def counting_walk_cases(dev, dp_fill, device_walk, rng):
+    """The counting walk's ragged cases as (name, args without S, S): words
+    of the kernel fill from its argmax cells (per-problem f64 matrices, a
+    share of the members done, n = 0 from (0, 0), and a share stale, not
+    alive with a stream) and raw codes from random starts, some off the
+    plane; M not a multiple of a block's warps, S not a multiple of 16, V =
+    1, 24 and 55, a plane 16 columns wide (its ring smaller than its
+    counts), a thousand members."""
+    cases = []
+    for M, R, C, V, kind, done_frac, stale_frac in (
+            (POP_M, 344, 344, 24, "fill", 0.4, 0.1), (37, 45, 40, 24, "fill", 0.25, 0.2),
+            (9, 30, 21, 1, "fill", 0.2, 0.2), (13, 40, 48, 55, "fill", 0.2, 0.3),
+            (21, 64, 16, 24, "fill", 0.2, 0.2), (53, 48, 72, 24, "raw", 0.2, 0.2),
+            (1_000, 344, 344, 24, "raw", 0.1, 0.1)):
+        q, t = rng.integers(0, V, (M, C)), rng.integers(0, V, (M, R))
+        done = rng.random(M) < done_frac
+        alive = torch.as_tensor(~done & ~(rng.random(M) < stale_frac), device=dev)
+        if kind == "fill":
+            t[: M // 2, : min(R, C)] = q[: M // 2, : min(R, C)]
+            qd, ql, td, tl = tensors(dev, q, np.where(done, 0, C), t, np.where(done, 0, R))
+            mats = torch.as_tensor(rng.normal(0.0, 2.0, (M, V, V)) + 3.0 * np.eye(V),
+                                   device=dev)
+            r = dp_fill.fill(qd, ql, td, tl, mats, 5.0, 2.0, mode="local", with_dirs=True)
+            words, sy, sx = r.words, r.fy, r.fx
+        else:
+            R8 = -(-R // 8) * 8
+            codes = rng.choice([0, 1, 2, 3], size=(M, R8, C), p=[0.3, 0.3, 0.38, 0.02])
+            words = device_walk.pack_codes(codes, 8).to(dev)
+            sy, sx = rng.integers(1, R8 + 1, M), rng.integers(1, C + 1, M)
+            sy[:4], sx[:4] = [R8 + 3, R8 + 9, 20, -1], [30, C + 5, C + 17, 5]
+            sy[done], sx[done] = 0, 0
+            qd, td, sy, sx = tensors(dev, q, t, sy, sx)
+        S = words.shape[1] * 8 + C + 1
+        cases.append((f"M={M}, {R}x{C}, V={V}, {kind}", (words, sy, sx, qd, td, alive, V), S))
+    return cases
+
+
 def counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop) -> int:
     """The frequency count against its plain version, torch.equal, on the
     population's first iteration and on ragged cases (done members, walks
     of the full S, walks on the plane into a second round, M not a multiple
-    of a block's warps, V = 4, a thousand members); then the
-    batched transform on the card against numpy's on the population's
-    first-iteration counts, bit for bit."""
+    of a block's warps, V = 4, a thousand members); the counting walk
+    against its plain version on the population's first iteration and on
+    counting_walk_cases; then the batched transform on the card against
+    numpy's on the population's first-iteration counts, bit for bit."""
     from aligner_tpu_torch.matrices import transform_matrix_torch
 
     it = first_iteration(dev, at, dp_fill, device_walk, pop)
@@ -1411,6 +1455,18 @@ def counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop) -> int:
         check(torch.equal(freq_count.count_pairs(*args, V),
                           freq_count.count_pairs_plain(*args, V)),
               f"freq_count != plain (M={M}, {R}x{C}, V={V}, {kind}, done={done})")
+    r = it["r"]
+    walk_args = (r.words, r.fy, r.fx, it["q2"], it["t2"], it["alive"], POP_DIM)
+    S = it["q2"].shape[1] + it["t2"].shape[1] + 1
+    walked = device_walk.walk_counts(*walk_args, S=S)
+    check(torch.equal(walked, device_walk.walk_counts_plain(*walk_args, S=S))
+          and torch.equal(walked, counts),
+          "the counting walk != plain (or != walk + count) at the population's shape")
+    walk_cases = counting_walk_cases(dev, dp_fill, device_walk, rng)
+    for name, a, S in walk_cases:
+        check(torch.equal(device_walk.walk_counts(*a, S=S),
+                          device_walk.walk_counts_plain(*a, S=S)),
+              f"the counting walk != plain ({name})")
     h = pop[3]
     got = transform_matrix_torch(counts.double(), h.kd, h.r_squared,
                                  h.frequencies).cpu().numpy()
@@ -1423,87 +1479,141 @@ def counts_vs_plain(dev, at, dp_fill, device_walk, freq_count, pop) -> int:
             continue
         check(np.array_equal(got[m], want),
               f"transform_matrix_torch != numpy on member {m}'s first counts")
-    return 2 + len(cases)
+    return 3 + len(cases) + len(walk_cases)
 
 
-def population_count_row(dev, at, dp_fill, device_walk, freq_count, pop):
-    """The count kernel's time at the population's shape (queued behind a
-    busy kernel: a call is as short as its launch), its plain version's,
-    its bound from this run's walks; and one population iteration split by
-    CUDA events: fill, walk, count, transform with the state update, and
-    the host's read of ``done``."""
+def population_count_rows(dev, at, dp_fill, device_walk, freq_count, pop):
+    """The standalone count's row and the counting walk's at the
+    population's shape: each kernel's time queued behind a busy kernel (a
+    call is as short as its launch), its plain version's, its bound from
+    this run's walks; walk + count (the earlier build of the population's
+    path) and the counting walk timed in turns, earlier, counting,
+    counting, earlier; and one population iteration split by CUDA events
+    both ways, in turns: fill, walk, count, transform with the state
+    update, the host's read of ``done``; and fill, counting walk, transform,
+    read."""
     from aligner_tpu_torch.matrices import transform_matrix_torch
     from aligner_tpu_torch.ops.walk_probe import queued_ms
 
     it = first_iteration(dev, at, dp_fill, device_walk, pop)
     r = it["r"]
-    args = (it["steps"], it["n"], r.fy, r.fx, it["q2"], it["t2"], it["alive"])
+    q2, t2, alive = it["q2"], it["t2"], it["alive"]
+    S = q2.shape[1] + t2.shape[1] + 1
+    args = (it["steps"], it["n"], r.fy, r.fx, q2, t2, alive)
+    walk_args = (r.words, r.fy, r.fx, q2, t2, alive, POP_DIM)
+
+    def walk_then_count():
+        steps, n, _, _ = device_walk.walk(r.words, r.fy, r.fx, S=S, mode="local")
+        return freq_count.count_pairs(steps, n, r.fy, r.fx, q2, t2, alive, POP_DIM)
+
+    def counting_walk():
+        return device_walk.walk_counts(*walk_args, S=S)
+
     ms = queued_ms(lambda: freq_count.count_pairs(*args, POP_DIM), 20)
+    turns = []
+    for name, fn in (("walk + count", walk_then_count), ("counting walk", counting_walk),
+                     ("counting walk", counting_walk), ("walk + count", walk_then_count)):
+        turns.append((name, queued_ms(fn, 20)))
+    walk_ms = queued_ms(lambda: device_walk.walk(r.words, r.fy, r.fx, S=S, mode="local"), 20)
     got = freq_count.count_pairs(*args, POP_DIM)
+    got_w = counting_walk()
+    got_wc = walk_then_count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = freq_count.count_pairs_plain(*args, POP_DIM)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_w = device_walk.walk_counts_plain(*walk_args, S=S)
+    torch.cuda.synchronize()
+    plain_w_ms = (time.perf_counter() - t0) * 1e3
     check(torch.equal(got, want), "freq_count != plain in the timing phase")
+    check(torch.equal(got_w, want_w) and torch.equal(got_w, got) and torch.equal(got_wc, got),
+          "the counting walk != plain (or != walk + count) in the timing phase")
     n_steps = int(it["n"].sum())
     pairs = int(got.sum())
     words = int(((it["n"] + 15) // 16).sum())
-    nbytes_read = 4 * words + 8 * pairs + nbytes(it["n"], r.fy, r.fx, it["alive"])
-    row = dict(name="freq_count (heuristic population)", route="cuda",
-               source="aligner_tpu_torch/csrc/freq_count.cu",
+    count_ops = OPS_COUNT_STEP * n_steps
+    count_bytes = 4 * words + 8 * pairs + nbytes(it["n"], r.fy, r.fx, alive) + nbytes(got)
+    shape = f"{POP_M}x{it['steps'].shape[0] * 16} steps, V={POP_DIM}"
+    row = dict(name="freq_count (standalone count, off the population's path)",
+               route="cuda", source="aligner_tpu_torch/csrc/freq_count.cu",
                replaces=REPLACES["freq_count"], path=("population", "service"),
                counter="freq_count",
-               max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
-               shape=f"{POP_M}x{it['steps'].shape[0] * 16} steps, V={POP_DIM}",
+               max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms, shape=shape,
                plan=(f"one warp a member, blocks of 4 warps, {POP_DIM * POP_DIM * 4} B of "
                      f"counts a warp; {n_steps} steps, {pairs} pairs counted"),
-               **bound(OPS_COUNT_STEP * n_steps, nbytes_read + nbytes(got)))
-    # one iteration, split
+               **bound(count_ops, count_bytes))
+    wk = device_walk.walk(r.words, r.fy, r.fx, S=S, mode="local")
+    p = device_walk.walk_plan(POP_M, r.words.shape[2], dev)
+    ring = 4 * (8 * (p.span + 8) + 8)  # walk::ring_ints(WALK_DEPTH, span) ints
+    w_ms = [t for name, t in turns if name == "counting walk"]
+    # the counting walk's bound from its own traffic: a word read a step,
+    # the two codes of each pair counted, the starts and ``alive`` read, the
+    # counts written (its stream and end cells never leave the call)
+    row_w = dict(name="walk_count (counting walk: K4 with the count, heuristic population)",
+                 route="cuda", source="aligner_tpu_torch/csrc/walk_core.cuh",
+                 replaces=REPLACES["walk_count"], path=("population", "service"),
+                 counter="walk_count", max_abs_err=max_abs_err(got_w, want_w),
+                 ms=sum(w_ms) / len(w_ms), plain_ms=plain_w_ms, shape=shape,
+                 plan=(f"one warp a member, {p.blocks} blocks of {p.warps} warps, a ring "
+                       f"of {ring} B a warp, then {POP_DIM * POP_DIM * 4} B of counts in "
+                       f"its place; longest walk {int(wk[1].max())} steps"),
+                 **bound(OPS_WALK_STEP * n_steps + count_ops,
+                         4 * n_steps + 8 * pairs + nbytes(r.fy, r.fx, alive, got_w)))
+    print("  walk + count against the counting walk at the population's shape, queued, "
+          "in turns (ms): " + ", ".join(f"{name} {t!r}" for name, t in turns)
+          + f"; K4 alone {walk_ms!r}, the count alone {ms!r}", flush=True)
+    # one iteration, split, the two builds in turns
     h = pop[3]
     M = len(pop[2])
     max_f = torch.zeros(M, dtype=torch.float64, device=dev)
     done = torch.zeros(M, dtype=torch.bool, device=dev)
-    S = it["q2"].shape[1] + it["t2"].shape[1] + 1
     freqs = torch.as_tensor(h.frequencies, device=dev)
-    split = np.zeros(5)
+    splits = {False: np.zeros(5), True: np.zeros(4)}
     reps = 5
-    for rep in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for rep in range(2 * (reps + 1)):
+        fused = rep % 2 == 1
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6 if not fused else 5)]
         ev[0].record()
         ql = torch.where(done, 0, it["ql"])
         tl = torch.where(done, 0, it["tl"])
-        rr = dp_fill.fill(it["q2"], ql, it["t2"], tl, it["trans"], POP_DEL, POP_DEL,
-                          mode="local", with_dirs=True)
+        rr = dp_fill.fill(q2, ql, t2, tl, it["trans"], POP_DEL, POP_DEL, mode="local",
+                          with_dirs=True)
         ev[1].record()
-        steps, n, _, _ = device_walk.walk(rr.words, rr.fy, rr.fx, S=S, mode="local")
-        ev[2].record()
         alive = ~done
-        counts = freq_count.count_pairs(steps, n, rr.fy, rr.fx, it["q2"], it["t2"], alive,
-                                        POP_DIM)
-        ev[3].record()
+        if fused:
+            counts = device_walk.walk_counts(rr.words, rr.fy, rr.fx, q2, t2, alive, POP_DIM,
+                                             S=S)
+        else:
+            steps, n, _, _ = device_walk.walk(rr.words, rr.fy, rr.fx, S=S, mode="local")
+            ev[2].record()
+            counts = freq_count.count_pairs(steps, n, rr.fy, rr.fx, q2, t2, alive, POP_DIM)
+        ev[-3].record()
         newt = transform_matrix_torch(counts.double(), h.kd, h.r_squared, freqs)
         newly_dead = alive & ((rr.fy == 0) | (rr.fx == 0))
         improved = alive & ~newly_dead & (rr.fmax > max_f)
         trans = torch.where(improved[:, None, None], newt, it["trans"])
         after = done | (alive & ~improved)
-        ev[4].record()
+        ev[-2].record()
         bool(after.all())
-        ev[5].record()
+        ev[-1].record()
         torch.cuda.synchronize()
-        if rep:
-            split += [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        if rep >= 2:
+            splits[fused] += [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
     del trans
-    split /= reps
-    plan = dp_fill.launch_plan(M, it["t2"].shape[1], it["trans"])
+    a, b = splits[False] / reps, splits[True] / reps
+    plan = dp_fill.launch_plan(M, t2.shape[1], it["trans"])
     sms = dp_fill.card_limits(dev).sms
-    print(f"  one population iteration ({M} members, {it['t2'].shape[1]}x"
-          f"{it['q2'].shape[1]} padded, f64), CUDA events, mean of {reps}: fill "
-          f"{split[0]:.3f} ms, walk {split[1]:.3f} ms, count {split[2]:.3f} ms, transform "
-          f"and state {split[3]:.3f} ms, read of done {split[4]:.3f} ms; the fill "
-          f"occupies {M} threads ({plan.threads} a block, {-(-M // plan.threads)} "
-          f"block(s)) of a card of {sms} SMs", flush=True)
-    return row
+    print(f"  one population iteration ({M} members, {t2.shape[1]}x{q2.shape[1]} padded, "
+          f"f64), CUDA events, mean of {reps}, in turns: walk + count: fill {a[0]:.4f} ms, "
+          f"walk {a[1]:.4f} ms, count {a[2]:.4f} ms, transform and state {a[3]:.4f} ms, "
+          f"read of done {a[4]:.4f} ms, {a.sum():.4f} ms in all; the counting walk: fill "
+          f"{b[0]:.4f} ms, counting walk {b[1]:.4f} ms, transform and state {b[2]:.4f} ms, "
+          f"read of done {b[3]:.4f} ms, {b.sum():.4f} ms in all; the fill occupies {M} "
+          f"threads ({plan.threads} a block, {-(-M // plan.threads)} block(s)) of a card of "
+          f"{sms} SMs", flush=True)
+    return [row, row_w]
 
 
 def host_heuristic(at, host, q, t, matrix, h):
@@ -3800,8 +3910,8 @@ def main() -> int:
         rows += band_rows
         block_rows, k7_points = phase_block_timing(dev, at, wf, sp)
         rows += block_rows
-        rows.append(population_count_row(dev, at, dp_fill, device_walk, freq_count, pop))
-        print_rows(rows[-1:])
+        rows += population_count_rows(dev, at, dp_fill, device_walk, freq_count, pop)
+        print_rows(rows[-2:])
 
     def launch_counts():
         return dict(scores=dp_fill.launches.scores, dirs=dp_fill.launches.dirs,
@@ -3809,6 +3919,7 @@ def main() -> int:
                     pwm_scores=dp_fill.launches.pwm_scores,
                     pwm_dirs=dp_fill.launches.pwm_dirs, spilled=dp_fill.launches.spilled,
                     walk=device_walk.launches.walk,
+                    walk_count=device_walk.launches.walk_count,
                     freq_count=freq_count.launches.freq_count,
                     row_scan=wf.launches.row_scan,
                     row_scan_dirs=wf.launches.row_scan_dirs,
@@ -3902,8 +4013,8 @@ def main() -> int:
     with phase("launch counts"):
         for path, phases, keys in (
                 ("pair", "phases 3-6", ("scores", "dirs", "spilled", "walk")),
-                ("population", "phase 7", ("dirs", "walk", "freq_count")),
-                ("service", "phase 8", ("scores", "dirs", "walk", "freq_count")),
+                ("population", "phase 7", ("dirs", "walk", "walk_count")),
+                ("service", "phase 8", ("scores", "dirs", "walk", "walk_count")),
                 ("pwm", "phase 9", ("pwm_scores", "pwm_dirs", "walk")),
                 ("huge", "phase 10", ("row_scan", "row_scan_dirs", "replay_walk")),
                 ("end_score", "phase 11", ("band",)),
@@ -3935,12 +4046,14 @@ def main() -> int:
         for path in ("simple", "host_walk"):
             check(counts[path]["walk"] == 0 and counts[path]["replay_walk"] == 0,
                   f"the {path} path launched a walk kernel: the walks are the host's")
-        check(counts["population"]["freq_count"] == pop_iters,
-              f"the population ran {pop_iters} iterations but launched the count "
-              f"{counts['population']['freq_count']} times")
-        check(counts["service"]["freq_count"] == service_iters,
-              f"the service's populations ran {service_iters} iterations but launched "
-              f"the count {counts['service']['freq_count']} times")
+        # the population counts by the counting walk, once an iteration; the
+        # standalone count is off its path
+        for path, iters in (("population", pop_iters), ("service", service_iters)):
+            c = counts[path]
+            check(c["walk_count"] == iters and c["freq_count"] == 0,
+                  f"the {path} path ran {iters} population iterations but launched the "
+                  f"counting walk {c['walk_count']} times and the standalone count "
+                  f"{c['freq_count']} times")
 
     kernels = []
     for r in rows:

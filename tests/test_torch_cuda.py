@@ -6,8 +6,8 @@ the replay walk (also with a column base), the band fill (K6) with the
 end score built on it, and the column-block fill (K7) with the
 column-blocked pipeline built on it (its three block engines and the
 engine pick), and the heuristic population's
-frequency count with the float64 transform and the population built on
-them, and the fill's score plane with ``keep_planes`` and the simple
+frequency count and the counting walk with the float64 transform and the
+population built on them, and the fill's score plane with ``keep_planes`` and the simple
 aligners on it, and the host walks (``walk="host"``) against the device
 walks.
 
@@ -27,6 +27,8 @@ from aligner_tpu_torch.matrices import blosum62, transform_matrix, transform_mat
 from aligner_tpu_torch.ops import device_walk, dp_fill, freq_count, wavefront
 from aligner_tpu_torch.ops.scan_engine import fill_batch, fill_pwm_batch
 from test_torch_freq_count_host import CASES as COUNT_CASES
+from test_torch_walk_host import COUNT_CASES as WALK_COUNT_CASES
+from test_torch_walk_host import count_case as walk_count_case
 
 torch.set_num_threads(1)
 
@@ -1025,6 +1027,44 @@ def test_count_kernel_matches_plain(dev, case):
     assert torch.equal(got.cpu(), freq_count.count_pairs_plain(*args, V))
 
 
+@pytest.mark.parametrize("case", sorted(WALK_COUNT_CASES))
+def test_counting_walk_matches_plain(dev, case):
+    """The counting walk on the walk host test's cases (words of the plain
+    fill, the population's shape among them, done, stale and off-plane
+    members, V = 1, 24 and 55, a plane whose ring is smaller than its
+    counts), exactly, one launch a call; its stats are the walk's."""
+    args, _ = walk_count_case(case)
+    words, sy, sx, q, t, alive, V, S = args
+    on = [a.to(dev) for a in (words, sy, sx, q, t, alive)]
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    walk_stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = (device_walk.launches.walk_count, freq_count.launches.freq_count)
+    got = device_walk.walk_counts(*on, V, S=S, stats=stats)
+    torch.cuda.synchronize()
+    assert (device_walk.launches.walk_count, freq_count.launches.freq_count) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got.cpu(), device_walk.walk_counts_plain(*args[:-1], S=S))
+    device_walk.walk(*on[:3], S=S, mode="local", stats=walk_stats)
+    assert torch.equal(stats, walk_stats)
+
+
+def test_counting_walk_refuses_counts_that_do_not_fit(dev):
+    """V = 250: one warp's counts (250 KB) exceed a block's shared memory,
+    so the counting walk raises ValueError and launches nothing."""
+    rng = np.random.default_rng(9)
+    B, R8, C, V = 8, 16, 24, 250
+    words = device_walk.pack_codes(rng.integers(0, 3, (B, R8, C)), 8).to(dev)
+    sy = torch.full((B,), R8, dtype=torch.int32, device=dev)
+    sx = torch.full((B,), C, dtype=torch.int32, device=dev)
+    q = torch.as_tensor(rng.integers(0, V, (B, C)), dtype=torch.int32, device=dev)
+    t = torch.as_tensor(rng.integers(0, V, (B, R8)), dtype=torch.int32, device=dev)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    before = device_walk.launches.walk_count
+    with pytest.raises(ValueError):
+        device_walk.walk_counts(words, sy, sx, q, t, alive, V, S=R8 + C + 1)
+    assert device_walk.launches.walk_count == before
+
+
 @pytest.mark.parametrize("V", [24, 4])
 def test_transform_on_the_card_is_numpys(dev, V):
     """The batched float64 transform on the card equals numpy's member by
@@ -1048,8 +1088,8 @@ def test_transform_on_the_card_is_numpys(dev, V):
 
 def test_population_on_the_card_is_the_cpus(dev):
     """The population's loop on the kernels equals the loop on their plain
-    versions, member by member, and launches the fill, the walk and the
-    count once an iteration."""
+    versions, member by member, and launches the fill and the counting walk
+    once an iteration, and the standalone count never."""
     rng = np.random.default_rng(3)
     q = rng.integers(0, 24, 90).astype(np.int8)
     t = q.copy()
@@ -1059,9 +1099,13 @@ def test_population_on_the_card_is_the_cpus(dev):
     freqs /= freqs.sum()
     h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
     port.warmup_population(q, t, 16, 11.0, 11.0)
-    before = freq_count.launches.freq_count
+    before = (dp_fill.launches.dirs, device_walk.launches.walk,
+              device_walk.launches.walk_count, freq_count.launches.freq_count)
     got = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h)
-    assert freq_count.launches.freq_count > before
+    # the final batch_align fills and walks as many shards as it has
+    iters = (dp_fill.launches.dirs - before[0]) - (device_walk.launches.walk - before[1])
+    assert iters >= 1 and device_walk.launches.walk_count - before[2] == iters
+    assert freq_count.launches.freq_count == before[3]
     want = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h, device="cpu")
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
@@ -1083,12 +1127,15 @@ def test_population_refuses_codes_outside_the_matrices_before_a_launch(dev):
     mats = rng.integers(-1, 2, (4, 20, 20)).astype(np.float64)
     freqs = np.full(20, 0.05)
     h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
-    before = (dp_fill.launches.dirs, device_walk.launches.walk, freq_count.launches.freq_count)
+    def launches():
+        return (dp_fill.launches.dirs, device_walk.launches.walk,
+                device_walk.launches.walk_count, freq_count.launches.freq_count)
+
+    before = launches()
     with pytest.raises(port.ValidationError):
         port.heuristic_align_population(q, t, mats, 11.0, 11.0, h)
     torch.cuda.synchronize()
-    assert (dp_fill.launches.dirs, device_walk.launches.walk,
-            freq_count.launches.freq_count) == before
+    assert launches() == before
 
 
 # --------------------------------------------------------------------------

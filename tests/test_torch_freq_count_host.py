@@ -1,5 +1,6 @@
 """The population's frequency count kernel's own body
-(``csrc/freq_count.cu``) on the CPU: the kernel compiled with g++ beside
+(``csrc/freq_count.cu`` on ``csrc/count_core.cuh``, the body it shares
+with the counting walk) on the CPU: the kernel compiled with g++ beside
 ``tests/freq_count_host.cpp``, which runs every lane as a thread and
 emulates the warp shuffles and the shared-memory atomics
 (``tests/warp_host.h``), so that the rounds of 32 words, the warp scan of
@@ -32,7 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "aligner_tpu_torch", "csrc")
 
 
-# name -> [(text of csrc/freq_count.cu, its replacement)]: faults the cases
+# name -> [(text of csrc/count_core.cuh, its replacement)]: faults the cases
 # must catch
 MUTATIONS = {
     # the cursor from the inclusive scan, not the exclusive one
@@ -46,7 +47,7 @@ MUTATIONS = {
     # the target char of the row below the cursor's
     "row-off-by-one": [("tm[clip(cy - 1, R - 1)]", "tm[clip(cy, R - 1)]")],
     # the seed pair of a member that is not alive
-    "stale-seed": [("alive[m] && fy > 0", "fy > 0")],
+    "stale-seed": [("alive && sy > 0", "sy > 0")],
     # (query char, target char) for (target char, query char)
     "swapped-pair": [("&counts[tm[clip(cy - 1, R - 1)] * V + qm[clip(cx - 1, C - 1)]]",
                       "&counts[qm[clip(cx - 1, C - 1)] * V + tm[clip(cy - 1, R - 1)]]")],
@@ -54,9 +55,9 @@ MUTATIONS = {
 
 
 def mutated_source(name: str) -> str:
-    """``freq_count.cu`` with mutation ``name``'s replacements; each anchor
+    """``count_core.cuh`` with mutation ``name``'s replacements; each anchor
     must occur in it exactly once."""
-    with open(os.path.join(CSRC, "freq_count.cu")) as fh:
+    with open(os.path.join(CSRC, "count_core.cuh")) as fh:
         src = fh.read()
     for old, new in MUTATIONS[name]:
         assert src.count(old) == 1, f"{name}: anchor {old[:60]!r} occurs {src.count(old)} times"
@@ -65,8 +66,9 @@ def mutated_source(name: str) -> str:
 
 
 def build(out_dir, kernel_dir=CSRC) -> ctypes.CDLL:
-    """The host build of the kernel in ``kernel_dir/freq_count.cu`` (its
-    headers from ``csrc/``)."""
+    """The host build of the kernel in ``kernel_dir/freq_count.cu`` (the
+    body it includes from the same directory, the other headers from
+    ``csrc/``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -138,7 +140,8 @@ def test_count_kernel_equals_plain(host, case):
 def test_count_kernel_mutation_is_caught(tmp_path, name):
     """The kernel with one deliberate fault disagrees with the plain version
     on at least one of the cases."""
-    (tmp_path / "freq_count.cu").write_text(mutated_source(name))
+    shutil.copy(os.path.join(CSRC, "freq_count.cu"), tmp_path)
+    (tmp_path / "count_core.cuh").write_text(mutated_source(name))
     lib = build(tmp_path, tmp_path)
     for case in sorted(CASES):
         args, V = ragged_case(case)

@@ -202,7 +202,8 @@ def test_first_iteration_counts_are_the_frequency_matrices(seed):
     """One population iteration's fill, walk and count on the plain
     versions equal, as integers, ``frequency_matrix()`` of each member's
     alignment from the JAX package's batched alignment; done members (zero
-    length) count nothing."""
+    length) count nothing.  The counting walk's plain version
+    (``walk_counts_plain``, the population's path) gives the same counts."""
     rng = np.random.default_rng(seed)
     M, V = 10, 24
     q, t = homologous(rng, 52, 9)
@@ -223,6 +224,10 @@ def test_first_iteration_counts_are_the_frequency_matrices(seed):
     counts = freq_count.count_pairs(steps, n, r.fy, r.fx, i32(q2), i32(t2),
                                     torch.as_tensor(~done), V).numpy()
     assert counts.dtype == np.int32
+    walked = device_walk.walk_counts(r.words, r.fy, r.fx, i32(q2), i32(t2),
+                                     torch.as_tensor(~done), V,
+                                     S=q2.shape[1] + t2.shape[1] + 1)
+    assert walked.dtype == torch.int32 and np.array_equal(walked.numpy(), counts)
     for m in range(M):
         if done[m]:
             assert want[m] is None and not counts[m].any()
@@ -230,6 +235,46 @@ def test_first_iteration_counts_are_the_frequency_matrices(seed):
             fm = want[m].alignment.frequency_matrix()
             assert np.array_equal(counts[m], fm.astype(np.int32)), m
             assert np.array_equal(counts[m].astype(np.float64), fm)
+
+
+def test_population_loop_counts_by_the_counting_walk(monkeypatch):
+    """``_population_loop`` makes one ``walk_counts`` call an iteration (one
+    fill an iteration) and calls neither the walk nor the standalone count;
+    the population's results equal its members' ``heuristic_align``."""
+    from aligner_tpu_torch.ops import dp_fill
+
+    calls = {"fill": 0, "walk_counts": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def refused(*a, **kw):
+        raise AssertionError("the population called the walk or the count on its own")
+
+    loop = port_h._population_loop
+
+    def patched_loop(*a, **kw):
+        with monkeypatch.context() as mp:
+            mp.setattr(dp_fill, "fill", counted("fill", dp_fill.fill))
+            mp.setattr(device_walk, "walk_counts",
+                       counted("walk_counts", device_walk.walk_counts))
+            mp.setattr(device_walk, "walk", refused)
+            mp.setattr(freq_count, "count_pairs", refused)
+            loop(*a, **kw)
+
+    monkeypatch.setattr(port_h, "_population_loop", patched_loop)
+    rng = np.random.default_rng(5)
+    q, t = homologous(rng, 40, 6)
+    _, h = heuristics(rng, kd=0.0, r_squared=1e5)
+    mats = rng.integers(-1, 2, (6, 24, 24)).astype(np.float64) + 4 * np.eye(24)
+    got = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h, device="cpu")
+    assert calls["fill"] >= 2 and calls["walk_counts"] == calls["fill"]
+    for a, m in zip(got, mats):
+        b = port.heuristic_align(q, t, m, 11.0, 11.0, h, device="cpu")
+        assert a.alignment.f == b.alignment.f and np.array_equal(a.matrix, b.matrix)
 
 
 # --------------------------------------------------------------------------

@@ -12,9 +12,13 @@ and a cursor on an edge, a Beginning code inside, blocks walked one after
 another with a partial word carried over, words from the plain fills; for
 K4 the global borders at y = 0 and x = 0, local walks that stop at
 Beginning, starts off the plane (the index clip), B not a multiple of the
-warps and S not a multiple of 16.  Also the batched walk's launch plan,
-pure arithmetic (``plan_walk``), and the anchors of ``ops/walk_probe.py``'s
-variants in the core.  The card's own cp.async and memory are the card
+warps and S not a multiple of 16; for the counting walk (K4 with the
+population's count as its epilogue, ``csrc/count_core.cuh``) its counts
+against ``walk_counts_plain`` on words of the plain fill, done, stale and
+off-plane members, V = 1, 24 and 55 and a plane whose ring is smaller than
+its counts, and each of its ``COUNT_MUTATIONS`` caught.  Also the batched
+walk's launch plan, pure arithmetic (``plan_walk``), and the anchors of
+``ops/walk_probe.py``'s variants in the core.  The card's own cp.async and memory are the card
 tests' part (``tests/test_torch_cuda.py``)."""
 
 import ctypes
@@ -39,14 +43,15 @@ CSRC = os.path.join(os.path.dirname(HERE), "aligner_tpu_torch", "csrc")
 TOP, LEFT, DIAG, BEG = 0, 1, 2, 3
 
 
-@pytest.fixture(scope="module")
-def host(tmp_path_factory):
+def build(out_dir, kernel_dir=CSRC) -> ctypes.CDLL:
+    """The host build of the walks whose headers lie in ``kernel_dir`` (the
+    rest from ``csrc/``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    so = str(tmp_path_factory.mktemp("walk") / "walk_host.so")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-I", CSRC,
-                    "-o", so, os.path.join(HERE, "walk_host.cpp")],
+    so = str(out_dir / "walk_host.so")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-I",
+                    str(kernel_dir), "-I", CSRC, "-o", so, os.path.join(HERE, "walk_host.cpp")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -54,7 +59,15 @@ def host(tmp_path_factory):
     lib.replay_walk_host.restype = i
     lib.device_walk_host.argtypes = [p, i, i, p, p, i, i, i, p, p, p, p, i, i, i, p]
     lib.device_walk_host.restype = i
+    lib.device_walk_count_host.argtypes = [p, i, i, p, p, i, i, p, p, p, p, p, i, p, i, p, i,
+                                           p, i, i, i, p]
+    lib.device_walk_count_host.restype = i
     return lib
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("walk"))
 
 
 # --------------------------------------------------------------------------
@@ -322,6 +335,170 @@ def test_batched_walk_stops_at_the_step_count(host, span):
         (_, n, _, _), _ = same_walk(host, words, sy, sx, S, "global",
                                     plan=dw.plan_walk(B, C, sms=2, span=span))
         assert (n == S).all()
+
+
+# --------------------------------------------------------------------------
+# the counting walk: K4 with the population's count as its epilogue
+# --------------------------------------------------------------------------
+
+
+def host_walk_counts(lib, words, sy, sx, q, t, alive, V, S, plan):
+    B, word_rows, C = words.shape
+    steps = torch.zeros((-(-S // 16), B), dtype=torch.int32)
+    n, ey, ex = (torch.zeros(B, dtype=torch.int32) for _ in range(3))
+    counts = torch.full((B, V, V), -1, dtype=torch.int32)
+    err = lib.device_walk_count_host(
+        words.data_ptr(), word_rows, C, sy.data_ptr(), sx.data_ptr(), B, S, steps.data_ptr(),
+        n.data_ptr(), ey.data_ptr(), ex.data_ptr(), q.data_ptr(), q.shape[1], t.data_ptr(),
+        t.shape[1], alive.data_ptr(), V, counts.data_ptr(), plan.warps, plan.blocks,
+        plan.span, None)
+    return err, counts, (steps, n, ey, ex)
+
+
+# name -> (B, R, C, V, words, done share, stale share, sms, span): words of
+# the plain fill from the argmax cells (local, per-problem f64 matrices) or
+# raw codes from random starts, some off the plane; B not a multiple of the
+# warps, S = R + C + 1 not a multiple of 16; V = 1, 24, 55; a plane 16
+# columns wide, whose ring (200 ints) is smaller than its counts (576); the
+# population's shape (64 members of 344 x 344, one warp a block on 132 SMs)
+COUNT_CASES = {
+    "fill-v24": (37, 45, 40, 24, "fill", 0.25, 0.2, 2, None),
+    "fill-v1": (9, 30, 21, 1, "fill", 0.2, 0.2, 2, None),
+    "fill-v55": (13, 40, 48, 55, "fill", 0.2, 0.3, 2, None),
+    "fill-narrow": (21, 64, 16, 24, "fill", 0.2, 0.2, 64, None),
+    "raw-off-plane": (53, 48, 72, 24, "raw", 0.2, 0.2, 1, 32),
+    "raw-v55-s13": (11, 24, 40, 55, "raw", 0.0, 0.4, 1, 13),
+    "fill-population": (64, 344, 344, 24, "fill", 0.3, 0.1, 132, None),
+}
+
+
+def count_case(name):
+    """The counting walk's arguments (without the plan) for case ``name``,
+    as CPU tensors, and its plan."""
+    B, R, C, V, kind, done_frac, stale_frac, sms, span = COUNT_CASES[name]
+    rng = np.random.default_rng(sorted(COUNT_CASES).index(name) + 100)
+    q, t = rng.integers(0, V, (B, C)), rng.integers(0, V, (B, R))
+    done = rng.random(B) < done_frac
+    alive = ~done & ~(rng.random(B) < stale_frac)
+    if kind == "fill":
+        t[: B // 2, : min(R, C)] = q[: B // 2, : min(R, C)]  # homologous halves
+        ql = np.where(done, 0, C)
+        tl = np.where(done, 0, R)
+        mats = torch.as_tensor(rng.normal(0.0, 2.0, (B, V, V)) + 3.0 * np.eye(V))
+        qi, qli, ti, tli = _i32(q, ql, t, tl)
+        r = fill_batch(qi, qli, ti, tli, mats, 5.0, 2.0, mode="local", with_dirs=True)
+        words, sy, sx = r.words.contiguous(), r.fy.contiguous(), r.fx.contiguous()
+        R8 = words.shape[1] * 8
+    else:
+        R8 = -(-R // 8) * 8
+        codes = rng.choice([TOP, LEFT, DIAG, BEG], size=(B, R8, C), p=[0.3, 0.3, 0.38, 0.02])
+        words = dw.pack_codes(codes, 8)
+        sy = rng.integers(1, R8 + 1, B)
+        sx = rng.integers(1, C + 1, B)
+        sy[:4], sx[:4] = [R8 + 3, R8 + 9, 20, -1], [30, C + 5, C + 17, 5]
+        sy[done], sx[done] = 0, 0
+        sy, sx = _i32(sy, sx)
+    S = R8 + C + 1
+    qi, ti = _i32(q, t)
+    plan = dw.plan_walk(B, C, sms=sms, **({} if span is None else dict(span=span)))
+    return (words, sy, sx, qi, ti, torch.as_tensor(alive), V, S), plan
+
+
+def counts_agree(lib, args, plan) -> bool:
+    words, sy, sx, q, t, alive, V, S = args
+    err, got, walked = host_walk_counts(lib, words, sy, sx, q, t, alive, V, S, plan)
+    if err != 0:
+        return False
+    want = dw.walk_counts_plain(words, sy, sx, q, t, alive, V, S=S)
+    return torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(walked, dw.walk_plain(words, sy, sx, S=S,
+                                                                mode="local")))
+
+
+@pytest.mark.parametrize("case", sorted(COUNT_CASES))
+def test_counting_walk_equals_plain(host, case):
+    """The counting walk's counts equal ``walk_counts_plain`` (and its
+    stream, lengths and end cells the plain walk's); done members count
+    nothing, stale ones no seed pair."""
+    args, plan = count_case(case)
+    words, sy, sx, q, t, alive, V, S = args
+    err, got, _ = host_walk_counts(host, words, sy, sx, q, t, alive, V, S, plan)
+    assert err == 0
+    assert counts_agree(host, args, plan)
+    assert int(got.sum()) > 0
+    assert not got[(sy == 0) & (sx == 0)].any()
+    if case == "fill-narrow":
+        assert 8 * (plan.span + 8) + 8 < V * V  # walk::ring_ints(WALK_DEPTH, span)
+
+
+@pytest.mark.parametrize("bad", ["alive-int32", "q-rows", "t-device", "V-0", "meta"])
+def test_walk_counts_refusals(bad):
+    """``walk_counts`` refuses what its kernel does not take before any
+    launch, on any device, and a device that is neither the CPU nor a card."""
+    args, _ = count_case("fill-v1")
+    words, sy, sx, q, t, alive, V, S = args
+    if bad == "alive-int32":
+        alive = alive.to(torch.int32)
+    elif bad == "q-rows":
+        q = q[1:]
+    elif bad == "t-device":
+        t = t.to("meta")
+    elif bad == "V-0":
+        V = 0
+    else:
+        words, sy, sx, q, t, alive = (a.to("meta") for a in (words, sy, sx, q, t, alive))
+    with pytest.raises((ValueError, TypeError)):
+        dw.walk_counts(words, sy, sx, q, t, alive, V, S=S)
+
+
+# name -> (header, [(its text, the replacement)], the cases run or None
+# for all): faults of the count (csrc/count_core.cuh) and of the counting
+# walk around it (csrc/walk_core.cuh) that the counting walk's cases must
+# catch; a build that writes past its shared memory fails its launch (-3),
+# as the card's does
+COUNT_MUTATIONS = {
+    # the seed pair left out
+    "no-seed-pair": ("count_core.cuh", [
+        ("    if (lane == 0 && alive && sy > 0 && sx > 0)\n"
+         "        atomicAdd(&counts[tm[clip(sy - 1, R - 1)] * V + "
+         "qm[clip(sx - 1, C - 1)]], 1);\n", "")], None),
+    # TOP steps counted as pairs
+    "top-counted": ("count_core.cuh", [
+        ("            if (d == DIAG)\n", "            if (d == DIAG || d == TOP)\n")], None),
+    # a warp's shared memory sized for its ring alone, though V * V counts
+    # can be larger: the 16-column plane's (one warp a block) writes past
+    # its block's; with several warps a block the counts overwrite the next
+    # warp's ring, whose walk then stalls until the emulation's wait bound
+    "ring-only-smem": ("walk_core.cuh", [
+        ("    return ring_ints(WALK_DEPTH, span) > counts ? "
+         "ring_ints(WALK_DEPTH, span) : counts;\n", "    return ring_ints(WALK_DEPTH, span);\n")],
+        ("fill-narrow",)),
+    # the last partial word stored after the count has read the stream
+    "partial-word-late": ("walk_core.cuh", [
+        ("    if (lane == 0 && (n & 15) != 0) *st.wp = int(st.partial(~0u));\n", ""),
+        ("    if (lane == 0) {\n        n_out[b] = n;\n",
+         "    if (lane == 0 && (n & 15) != 0) *st.wp = int(st.partial(~0u));\n"
+         "    if (lane == 0) {\n        n_out[b] = n;\n")], None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COUNT_MUTATIONS))
+def test_counting_walk_mutation_is_caught(tmp_path, name):
+    """The counting walk built with one deliberate fault disagrees with the
+    plain version, or fails its launch, on at least one of the cases."""
+    header, edits, cases = COUNT_MUTATIONS[name]
+    for h in ("walk_core.cuh", "count_core.cuh"):
+        shutil.copy(os.path.join(CSRC, h), tmp_path)
+    src = (tmp_path / header).read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, f"{name}: anchor {old[:60]!r} occurs {src.count(old)} times"
+        src = src.replace(old, new)
+    (tmp_path / header).write_text(src)
+    lib = build(tmp_path, tmp_path)
+    for case in cases or sorted(COUNT_CASES):
+        if not counts_agree(lib, *count_case(case)):
+            return
+    pytest.fail(f"mutation {name} agrees with the plain version on every case")
 
 
 # --------------------------------------------------------------------------

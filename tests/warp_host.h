@@ -34,10 +34,23 @@ struct WarpCtx {
     std::barrier<> bar{32};
     int slot[32] = {};
 };
+// A block's shared memory, its `ints` followed by a guard of SMEM_GUARD
+// ints that no kernel may touch: a write past a launch's shared memory,
+// which the card reports as a fault, lands there and is seen after the
+// block ends (intact()).
+constexpr size_t SMEM_GUARD = 4096;
+constexpr int SMEM_SENTINEL = 0x5ead0bad;
 struct BlockCtx {
     std::barrier<> bar;
     std::vector<int> smem;
-    BlockCtx(int threads, size_t ints) : bar(threads), smem(ints) {}
+    size_t ints;
+    BlockCtx(int threads, size_t n) : bar(threads), smem(n + SMEM_GUARD), ints(n) {
+        std::fill(smem.begin() + n, smem.end(), SMEM_SENTINEL);
+    }
+    bool intact() const {
+        return std::all_of(smem.begin() + ints, smem.end(),
+                           [](int v) { return v == SMEM_SENTINEL; });
+    }
 };
 thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
 thread_local WarpCtx* warp_ctx;
@@ -136,9 +149,10 @@ inline void cp_async_wait() {
 }
 
 // Run body() as every lane of blocks first .. first + count - 1 of a grid
-// of `grid` blocks of `warps` warps, and wait for all of them.
+// of `grid` blocks of `warps` warps, and wait for all of them; false when a
+// block wrote past its shared memory.
 template <typename Body>
-void run_blocks(int warps, int first, int count, int grid, size_t smem_ints, Body body) {
+bool run_blocks(int warps, int first, int count, int grid, size_t smem_ints, Body body) {
     std::vector<std::unique_ptr<BlockCtx>> bl;
     std::vector<std::unique_ptr<WarpCtx>> wp;
     std::vector<std::thread> th;
@@ -161,17 +175,21 @@ void run_blocks(int warps, int first, int count, int grid, size_t smem_ints, Bod
         }
     }
     for (auto& t : th) t.join();
+    return std::all_of(bl.begin(), bl.end(), [](const auto& c) { return c->intact(); });
 }
 
 // Run body() as every lane of `blocks` blocks of `warps` warps, each block
 // with `smem_ints` ints of shared memory, and wait for all of them; `wave`
-// blocks at a time when given (blocks that never wait on one another).
+// blocks at a time when given (blocks that never wait on one another);
+// false when a block wrote past its shared memory.
 template <typename Body>
-void run_grid(int warps, int blocks, size_t smem_ints, Body body, int wave = 0) {
+bool run_grid(int warps, int blocks, size_t smem_ints, Body body, int wave = 0) {
+    bool ok = true;
     if (wave > 0 && wave < blocks) {
         for (int b0 = 0; b0 < blocks; b0 += wave)
-            run_blocks(warps, b0, min(wave, blocks - b0), blocks, smem_ints, body);
+            ok &= run_blocks(warps, b0, min(wave, blocks - b0), blocks, smem_ints, body);
     } else {
-        run_blocks(warps, 0, blocks, blocks, smem_ints, body);
+        ok = run_blocks(warps, 0, blocks, blocks, smem_ints, body);
     }
+    return ok;
 }
