@@ -63,6 +63,7 @@ import torch
 from .alphabet import DNA, Alphabet, Protein
 from .backend import dtype_for, integral_params, resolve_device
 from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
+from .observability import measure, span
 from .ops.scan_engine import FillResult
 from .result import Alignment, AlignmentResult, PWMAlignment
 from .traceback import traceback_global, traceback_local, traceback_pwm
@@ -193,14 +194,24 @@ def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
     parts = []
     for k, dev in enumerate(devices):
         part = slice(k * per, (k + 1) * per)
-        if batched:
-            dp = fill_cls.from_numpy(scoring[part], del_, ext, device=dev, dtype=dtype)
-        elif dev in shared:
-            dp = shared[dev]
-        else:
-            dp = shared[dev] = fill_cls.from_numpy(scoring, del_, ext, device=dev,
-                                                   dtype=dtype)
-        parts.append(dp(*(_dev_i32(a[part], dev) for a in rows), **call))
+        with span("fill.upload") as sp:
+            sent = []  # what goes to the device here, for the span's count
+            if batched:
+                dp = fill_cls.from_numpy(scoring[part], del_, ext, device=dev, dtype=dtype)
+                sent.append(dp)
+            elif dev in shared:
+                dp = shared[dev]
+            else:
+                dp = shared[dev] = fill_cls.from_numpy(scoring, del_, ext, device=dev,
+                                                       dtype=dtype)
+                sent.append(dp)
+            args = [_dev_i32(a[part], dev) for a in rows]
+            if sp:
+                scoring_bytes = sum(b.nbytes for d in sent for b in d.buffers())
+                sp.count(h2d_bytes=scoring_bytes + sum(a.nbytes for a in args),
+                         query_bytes=args[0].nbytes)
+        with span("fill.launch"):
+            parts.append(dp(*args, **call))
     return _assemble_sharded_fill(parts, B, per, device)
 
 
@@ -224,21 +235,23 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
     score plane) by :func:`_fill_sharded`; returns the
     FillResult with its tensors (and packed words when ``with_dirs``, the
     score plane's interior with ``with_plane``) left on the device."""
-    from .observability import measure
     from .ops.dp_fill import DPFill
 
     cells = int((np.asarray(ql, np.int64) * np.asarray(tl, np.int64)).sum())
-    vol = np.asarray(matrix).shape[-1]
-    for name, a in (("query", q), ("target", t)):
-        if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
-            raise ValidationError(
-                f"{name} codes must lie in the {vol}-symbol scoring alphabet"
-            )
     shards = [device] if with_plane or len(ql) < 2 else _auto_shard_devices(device)
-    with measure(_engine_name(device, shards, mode), cells, len(ql), device=shards):
-        return _fill_sharded(DPFill, matrix, [q, ql, t, tl], del_, ext, dtype, shards,
-                             device, mode=mode, track_argmax=track_argmax,
-                             with_dirs=with_dirs, with_scores_plane=with_plane)
+    with span("fill", cells=cells, shards=len(shards)):
+        with span("fill.check"):
+            vol = np.asarray(matrix).shape[-1]
+            for name, a in (("query", q), ("target", t)):
+                if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
+                    raise ValidationError(
+                        f"{name} codes must lie in the {vol}-symbol scoring alphabet"
+                    )
+        with measure(_engine_name(device, shards, mode), cells, len(ql), device=shards,
+                     sync_span="fill.sync"):
+            return _fill_sharded(DPFill, matrix, [q, ql, t, tl], del_, ext, dtype, shards,
+                                 device, mode=mode, track_argmax=track_argmax,
+                                 with_dirs=with_dirs, with_scores_plane=with_plane)
 
 
 def _pair_result(mode, walk_q, walk_t, q_b, t_b, ql_b, tl_b,
@@ -332,101 +345,107 @@ def batch_align(
     if mode not in ("local", "global"):
         raise ValidationError(f"mode must be local|global, got {mode!r}")
     _check_walk(walk)
-    qs = [_encode(s, alphabet) for s in queries]
-    ts = [_encode(s, alphabet) for s in targets]
-    if len(qs) != len(ts):
-        raise ValidationError("queries and targets must have the same length")
-    n_real = len(qs)
-    q, ql = pad_batch(qs)
-    t, tl = pad_batch(ts)
-    if skip is not None:
-        ql = np.where(np.asarray(skip, bool), 0, ql).astype(np.int32)
-        tl = np.where(np.asarray(skip, bool), 0, tl).astype(np.int32)
-    if pad_to is not None:
-        if len(qs) > pad_to:
-            raise ValidationError(
-                f"pad_to={pad_to} is smaller than the batch ({len(qs)})"
-            )
-        extra = pad_to - len(qs)
-        q = np.pad(q, ((0, extra), (0, 0)))
-        t = np.pad(t, ((0, extra), (0, 0)))
-        ql = np.pad(ql, (0, extra))
-        tl = np.pad(tl, (0, extra))
-        if matrix is not None and np.asarray(matrix).ndim == 3:
-            matrix = np.pad(
-                np.asarray(matrix), ((0, extra), (0, 0), (0, 0))
-            )
-    device = resolve_device(device)
-    dtype = dtype or dtype_for(device, matrix, del_, ext,
-                               lengths=(t.shape[1], q.shape[1]))
-    skip_mask = (
-        np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
-    )
-    if with_alignments:
-        # empty sequences cannot seed a traceback (the q[-1] seed char);
-        # reject before the batched fill, like the single-pair APIs do
-        if (((ql[:n_real] == 0) | (tl[:n_real] == 0)) & ~skip_mask).any():
-            raise ResultIsEmpty("empty sequence")
-    # global mode captures the end score H[tlen, qlen] inside the argmax
-    # bookkeeping, so tracking is forced there
-    res = _fill(q, ql, t, tl, matrix, del_, ext, mode, with_alignments,
-                device, dtype,
-                track_argmax=(track_argmax or with_alignments
-                              or mode == "global"))
-    if not with_alignments:
-        return BatchScores(
-            fmax=res.fmax.cpu().numpy()[:n_real], fy=res.fy.cpu().numpy()[:n_real],
-            fx=res.fx.cpu().numpy()[:n_real], end=res.end.cpu().numpy()[:n_real],
+    with span("batch", rows=len(queries), with_alignments=int(with_alignments)):
+        with span("batch.pad"):
+            qs = [_encode(s, alphabet) for s in queries]
+            ts = [_encode(s, alphabet) for s in targets]
+            if len(qs) != len(ts):
+                raise ValidationError("queries and targets must have the same length")
+            n_real = len(qs)
+            q, ql = pad_batch(qs)
+            t, tl = pad_batch(ts)
+            if skip is not None:
+                ql = np.where(np.asarray(skip, bool), 0, ql).astype(np.int32)
+                tl = np.where(np.asarray(skip, bool), 0, tl).astype(np.int32)
+            if pad_to is not None:
+                if len(qs) > pad_to:
+                    raise ValidationError(
+                        f"pad_to={pad_to} is smaller than the batch ({len(qs)})"
+                    )
+                extra = pad_to - len(qs)
+                q = np.pad(q, ((0, extra), (0, 0)))
+                t = np.pad(t, ((0, extra), (0, 0)))
+                ql = np.pad(ql, (0, extra))
+                tl = np.pad(tl, (0, extra))
+                if matrix is not None and np.asarray(matrix).ndim == 3:
+                    matrix = np.pad(
+                        np.asarray(matrix), ((0, extra), (0, 0), (0, 0))
+                    )
+        device = resolve_device(device)
+        dtype = dtype or dtype_for(device, matrix, del_, ext,
+                                   lengths=(t.shape[1], q.shape[1]))
+        skip_mask = (
+            np.zeros(n_real, bool) if skip is None else np.asarray(skip, bool)[:n_real]
         )
-    fmax_np = res.fmax.cpu().numpy()  # one transfer, not B scalars
-    if mode == "global":
-        sy_full = tl.astype(np.int32)
-        sx_full = ql.astype(np.int32)
-    else:
-        sy_full = res.fy.cpu().numpy().astype(np.int32)
-        sx_full = res.fx.cpu().numpy().astype(np.int32)
-        # a problem with no positive-scoring cell has no alignment (the
-        # reference would panic on its 0-index seed, simple/mod.rs:213-218):
-        # None for just that problem instead of failing the whole batch
-        skip_mask = skip_mask | (sy_full[:n_real] == 0) | (sx_full[:n_real] == 0)
-    if walk == "host":
-        return _walk_pairs_on_host(_host_words(res.words, n_real).numpy(), mode, qs, ts,
-                                   q, t, ql, tl, sy_full, sx_full, fmax_np, skip_mask,
-                                   alphabet)
-    from .ops.device_walk import decode_pair_batch, walk_batch
+        if with_alignments:
+            # empty sequences cannot seed a traceback (the q[-1] seed char);
+            # reject before the batched fill, like the single-pair APIs do
+            if (((ql[:n_real] == 0) | (tl[:n_real] == 0)) & ~skip_mask).any():
+                raise ResultIsEmpty("empty sequence")
+        # global mode captures the end score H[tlen, qlen] inside the argmax
+        # bookkeeping, so tracking is forced there
+        res = _fill(q, ql, t, tl, matrix, del_, ext, mode, with_alignments,
+                    device, dtype,
+                    track_argmax=(track_argmax or with_alignments
+                                  or mode == "global"))
+        with span("batch.read"):
+            if not with_alignments:
+                return BatchScores(
+                    fmax=res.fmax.cpu().numpy()[:n_real], fy=res.fy.cpu().numpy()[:n_real],
+                    fx=res.fx.cpu().numpy()[:n_real], end=res.end.cpu().numpy()[:n_real],
+                )
+            fmax_np = res.fmax.cpu().numpy()  # one transfer, not B scalars
+            if mode == "global":
+                sy_full = tl.astype(np.int32)
+                sx_full = ql.astype(np.int32)
+            else:
+                sy_full = res.fy.cpu().numpy().astype(np.int32)
+                sx_full = res.fx.cpu().numpy().astype(np.int32)
+                # a problem with no positive-scoring cell has no alignment (the
+                # reference would panic on its 0-index seed, simple/mod.rs:213-218):
+                # None for just that problem instead of failing the whole batch
+                skip_mask = skip_mask | (sy_full[:n_real] == 0) | (sx_full[:n_real] == 0)
+        with span("batch.walk"):
+            if walk == "host":
+                return _walk_pairs_on_host(_host_words(res.words, n_real).numpy(), mode,
+                                           qs, ts, q, t, ql, tl, sy_full, sx_full, fmax_np,
+                                           skip_mask, alphabet)
+            from .ops.device_walk import decode_pair_batch, walk_batch
 
-    steps, lens, ey, ex = walk_batch(
-        res.words, mode, sy_full, sx_full, t.shape[1], q.shape[1]
-    )
-    qa_ws, ta_ws = decode_pair_batch(steps, lens, sy_full, sx_full, q, t)
-    out = []
-    for b in range(n_real):
-        if skip_mask[b]:
-            out.append(None)
-            continue
-        out.append(_pair_result(
-            mode, qa_ws[b], ta_ws[b], qs[b], ts[b], int(ql[b]), int(tl[b]),
-            int(sy_full[b]), int(sx_full[b]), int(ey[b]), int(ex[b]),
-            float(fmax_np[b]), alphabet,
-        ))
-    return out
+            steps, lens, ey, ex = walk_batch(
+                res.words, mode, sy_full, sx_full, t.shape[1], q.shape[1]
+            )
+            qa_ws, ta_ws = decode_pair_batch(steps, lens, sy_full, sx_full, q, t)
+        out = []
+        for b in range(n_real):
+            if skip_mask[b]:
+                out.append(None)
+                continue
+            out.append(_pair_result(
+                mode, qa_ws[b], ta_ws[b], qs[b], ts[b], int(ql[b]), int(tl[b]),
+                int(sy_full[b]), int(sx_full[b]), int(ey[b]), int(ex[b]),
+                float(fmax_np[b]), alphabet,
+            ))
+        return out
 
 
 def _fill_pwm(q, ql, pwm, del_, ext, with_dirs, device, dtype, track_argmax=True):
     """One batched PWM fill on ``device``, sharded as :func:`_fill` shards
     (one shard for a batch of one); returns the FillResult with its tensors (and
     packed words when ``with_dirs``) left on the device."""
-    from .observability import measure
     from .ops.dp_fill import PWMFill
 
     width = np.asarray(pwm).shape[-1]
     cells = int(np.asarray(ql, np.int64).sum()) * int(width)
-    if q.size and (int(q.min()) < 0 or int(q.max()) >= 4):
-        raise ValidationError("query codes must lie in the 4-symbol DNA alphabet")
     shards = [device] if len(ql) < 2 else _auto_shard_devices(device)
-    with measure(_engine_name(device, shards, "pwm"), cells, len(ql), device=shards):
-        return _fill_sharded(PWMFill, pwm, [q, ql], del_, ext, dtype, shards, device,
-                             track_argmax=track_argmax, with_dirs=with_dirs)
+    with span("fill", cells=cells, shards=len(shards)):
+        with span("fill.check"):
+            if q.size and (int(q.min()) < 0 or int(q.max()) >= 4):
+                raise ValidationError("query codes must lie in the 4-symbol DNA alphabet")
+        with measure(_engine_name(device, shards, "pwm"), cells, len(ql), device=shards,
+                     sync_span="fill.sync"):
+            return _fill_sharded(PWMFill, pwm, [q, ql], del_, ext, dtype, shards, device,
+                                 track_argmax=track_argmax, with_dirs=with_dirs)
 
 
 def batch_align_pwm(

@@ -38,6 +38,7 @@ from .alphabet import DNA, Alphabet, Protein
 from .backend import resolve_device
 from .errors import MissingArgument, ResultIsEmpty, ValidationError, WrongMatrixSpecified
 from .matrices import transform_matrix, transform_matrix_torch
+from .observability import span
 from .result import AlignmentResult
 
 
@@ -121,32 +122,46 @@ class _Population:
 
 
 def _population_loop(q2, ql0, t2, tl0, state: _Population, del_, ext, kd, r_squared,
-                     freqs, max_iters: int) -> None:
+                     freqs, max_iters: int) -> int:
     """Run the population's iterations on ``q2``'s device until every
-    member is done or ``max_iters`` are spent.  A transform with no real
-    roots leaves NaN in ``state.trans``."""
+    member is done or ``max_iters`` are spent; returns the iterations run.
+    A transform with no real roots leaves NaN in ``state.trans``."""
     from .ops import device_walk, dp_fill
 
     V = state.trans.shape[-1]
     S = t2.shape[1] + q2.shape[1] + 1
+
+    def finished(it: int) -> bool:
+        if it >= max_iters:
+            return True
+        with span("population.done_read"):  # the host waits for the card here
+            return bool(state.done.all())
+
     it = 0
-    while it < max_iters and not bool(state.done.all()):
-        alive = ~state.done
-        ql = torch.where(state.done, 0, ql0)
-        tl = torch.where(state.done, 0, tl0)
-        r = dp_fill.fill(q2, ql, t2, tl, state.trans, del_, ext, mode="local",
-                         with_dirs=True)
-        counts = device_walk.walk_counts(r.words, r.fy, r.fx, q2, t2, alive, V, S=S)
-        newt = transform_matrix_torch(counts.to(torch.float64), kd, r_squared, freqs)
-        newly_dead = alive & ((r.fy == 0) | (r.fx == 0))
-        improved = alive & ~newly_dead & (r.fmax > state.max_f)
-        keep = improved[:, None, None]
-        state.prod = torch.where(keep, state.trans, state.prod)
-        state.trans = torch.where(keep, newt, state.trans)
-        state.max_f = torch.where(improved, r.fmax, state.max_f)
-        state.done = state.done | (alive & ~improved)
-        state.dead = state.dead | newly_dead
-        it += 1
+    stop = finished(it)
+    while not stop:
+        with span("population.iteration"):
+            alive = ~state.done
+            ql = torch.where(state.done, 0, ql0)
+            tl = torch.where(state.done, 0, tl0)
+            with span("population.fill"):
+                r = dp_fill.fill(q2, ql, t2, tl, state.trans, del_, ext, mode="local",
+                                 with_dirs=True)
+            with span("population.counting_walk"):
+                counts = device_walk.walk_counts(r.words, r.fy, r.fx, q2, t2, alive, V, S=S)
+            with span("population.transform"):
+                newt = transform_matrix_torch(counts.to(torch.float64), kd, r_squared, freqs)
+            newly_dead = alive & ((r.fy == 0) | (r.fx == 0))
+            improved = alive & ~newly_dead & (r.fmax > state.max_f)
+            keep = improved[:, None, None]
+            state.prod = torch.where(keep, state.trans, state.prod)
+            state.trans = torch.where(keep, newt, state.trans)
+            state.max_f = torch.where(improved, r.fmax, state.max_f)
+            state.done = state.done | (alive & ~improved)
+            state.dead = state.dead | newly_dead
+            it += 1
+            stop = finished(it)
+    return it
 
 
 def heuristic_align_population(
@@ -188,54 +203,63 @@ def heuristic_align_population(
     """
     if heuristics is None:
         raise MissingArgument("heuristic aligner requires Heuristics")
-    matrices = np.asarray(matrices, dtype=np.float64)
-    M = matrices.shape[0]
-    r_squared = _r_squared(heuristics, matrices.shape[1], matrices.shape[2])
-    transformed = np.stack([
-        transform_matrix(matrices[m], heuristics.kd, r_squared, heuristics.frequencies)
-        for m in range(M)
-    ])
-    if max_iters < 1:
-        raise ValidationError("max_iters must be >= 1")
-    device = resolve_device(device)
-    q = _encode(query, alphabet)
-    t = _encode(target, alphabet)
-    if len(q) == 0 or len(t) == 0:
-        raise ResultIsEmpty("empty sequence")
-    # the loop's kernels index the matrices and the counts with the codes
-    # unchecked: refuse codes outside them before any reaches the device
-    V = matrices.shape[-1]
-    for name, a in (("query", q), ("target", t)):
-        if int(a.min()) < 0 or int(a.max()) >= V:
-            raise ValidationError(f"{name} codes must lie in the {V}-symbol scoring alphabet")
+    with span("population", members=len(matrices)) as sp:
+        with span("population.start"):
+            matrices = np.asarray(matrices, dtype=np.float64)
+            M = matrices.shape[0]
+            r_squared = _r_squared(heuristics, matrices.shape[1], matrices.shape[2])
+            transformed = np.stack([
+                transform_matrix(matrices[m], heuristics.kd, r_squared,
+                                 heuristics.frequencies)
+                for m in range(M)
+            ])
+            if max_iters < 1:
+                raise ValidationError("max_iters must be >= 1")
+            device = resolve_device(device)
+            q = _encode(query, alphabet)
+            t = _encode(target, alphabet)
+            if len(q) == 0 or len(t) == 0:
+                raise ResultIsEmpty("empty sequence")
+            # the loop's kernels index the matrices and the counts with the codes
+            # unchecked: refuse codes outside them before any reaches the device
+            V = matrices.shape[-1]
+            for name, a in (("query", q), ("target", t)):
+                if int(a.min()) < 0 or int(a.max()) >= V:
+                    raise ValidationError(
+                        f"{name} codes must lie in the {V}-symbol scoring alphabet")
 
-    def on_dev(a, dtype=torch.int32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+            def on_dev(a, dtype=torch.int32):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    # the padding of batch_align's final launch (multiples of 8)
-    q2, ql0 = pad_batch([q] * M)
-    t2, tl0 = pad_batch([t] * M)
-    trans = on_dev(transformed, torch.float64)
-    state = _Population(trans, trans, torch.zeros(M, dtype=torch.float64, device=device),
-                        torch.zeros(M, dtype=torch.bool, device=device),
-                        torch.zeros(M, dtype=torch.bool, device=device))
-    _population_loop(on_dev(q2), on_dev(ql0), on_dev(t2), on_dev(tl0), state, del_, ext,
-                     heuristics.kd, r_squared,
-                     on_dev(heuristics.frequencies, torch.float64), max_iters)
-    final = state.trans.cpu().numpy()
-    if np.isnan(final).any():
-        raise WrongMatrixSpecified("no real roots for the scaling quadratic")
-    done = state.done.cpu().numpy()
-    dead = state.dead.cpu().numpy()
-    exhausted = ~done & ~dead
-    if exhausted.any():
-        final = np.where(exhausted[:, None, None], state.prod.cpu().numpy(), final)
-    batch = batch_align([q] * M, [t] * M, final, del_, ext, mode="local",
-                        alphabet=alphabet, device=device, with_alignments=True, skip=dead)
-    for m, res in enumerate(batch):
-        if res is not None:
-            res.matrix = final[m].copy()
-    return batch
+            # the padding of batch_align's final launch (multiples of 8)
+            q2, ql0 = pad_batch([q] * M)
+            t2, tl0 = pad_batch([t] * M)
+            trans = on_dev(transformed, torch.float64)
+            state = _Population(trans, trans,
+                                torch.zeros(M, dtype=torch.float64, device=device),
+                                torch.zeros(M, dtype=torch.bool, device=device),
+                                torch.zeros(M, dtype=torch.bool, device=device))
+            rows = (on_dev(q2), on_dev(ql0), on_dev(t2), on_dev(tl0))
+            freqs = on_dev(heuristics.frequencies, torch.float64)
+        iterations = _population_loop(*rows, state, del_, ext, heuristics.kd, r_squared,
+                                      freqs, max_iters)
+        sp.count(iterations=iterations)
+        with span("population.final"):
+            final = state.trans.cpu().numpy()
+            if np.isnan(final).any():
+                raise WrongMatrixSpecified("no real roots for the scaling quadratic")
+            done = state.done.cpu().numpy()
+            dead = state.dead.cpu().numpy()
+            exhausted = ~done & ~dead
+            if exhausted.any():
+                final = np.where(exhausted[:, None, None], state.prod.cpu().numpy(), final)
+            batch = batch_align([q] * M, [t] * M, final, del_, ext, mode="local",
+                                alphabet=alphabet, device=device, with_alignments=True,
+                                skip=dead)
+        for m, res in enumerate(batch):
+            if res is not None:
+                res.matrix = final[m].copy()
+        return batch
 
 
 def warmup_population(

@@ -1,26 +1,62 @@
-"""Tracing, profiling and throughput counters.
+"""Tracing, spans and throughput counters.
 
 * :class:`Counters` — process-wide cells/launches/seconds per engine,
   giving live GCUPS without external tooling;
 * :func:`measure` — records one launch; on CUDA it synchronises the
   device before it stops the clock, so the time covers the kernel and not
   only its enqueue;
-* :func:`profile_trace` — context manager around ``torch.profiler``
-  (writes a Chrome/Perfetto trace file);
+* :func:`span` — a named, nested range of the program's host work with
+  counts, recorded only while a ``torch.profiler`` session records (its
+  log: :func:`spans`, :func:`dropped_spans`, :func:`clear_spans`);
 * :func:`configure_logging` — ``ALIGNER_LOG``-controlled logging of the
   package's logger;
 * ``log`` — the package's logger (``aligner_tpu_torch``).
+
+The spans, nested as the program opens them (counts in brackets; a root
+span is one request, and its id is the request id):
+
+* ``search`` [records, query_len] (``search.search_database``):
+  ``search.encode``, ``search.buckets`` [buckets], one ``search.bucket``
+  [rows, width] per length bucket (its ``batch``), ``search.rank``,
+  ``search.alignments`` (the top hits' ``batch``);
+* ``batch`` [rows, with_alignments] (``align.batch_align``):
+  ``batch.pad``, ``fill``, ``batch.read`` (the results' copies to the
+  host), ``batch.walk``;
+* ``fill`` [cells, shards] (a batched fill): ``fill.check``, one
+  ``fill.upload`` [h2d_bytes, query_bytes] and one ``fill.launch`` per
+  shard, ``fill.sync`` (the wait for the card);
+* ``population`` [members, iterations] (``heuristic.heuristic_align_population``):
+  ``population.start``, ``population.done_read`` (the read of the members'
+  ``done`` flags, where the host waits for the card), one
+  ``population.iteration`` per iteration (``population.fill``,
+  ``population.counting_walk``, ``population.transform``,
+  ``population.done_read``), ``population.final`` (its ``batch``);
+* ``pvalue`` (``statistics.calculate_p_value``): ``pvalue.shuffle``
+  [shuffles], ``pvalue.fill`` (its ``batch``), ``pvalue.fit`` [rounds,
+  converged, repeat, maxiter] (``statistics.calculate_distribution_params``;
+  a root of its own when called alone).
+
+An operator records them with ``torch.profiler``::
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        search_database(...)
+    prof.export_chrome_trace("trace.json")  # the spans beside the kernels
+    observability.spans()  # the same spans with their ids and counts
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
+import itertools
 import logging
 import os
 import threading
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 import torch
 
@@ -99,31 +135,150 @@ counters = Counters()
 
 
 @contextlib.contextmanager
-def measure(engine: str, cells: int, problems: int, device=None):
+def measure(engine: str, cells: int, problems: int, device=None, sync_span: str | None = None):
     """Record a launch in the global counters.  With a CUDA ``device`` (or
     a list of devices: the shards of a fill) each card is synchronised
-    before the clock stops."""
+    before the clock stops, inside the span ``sync_span`` when one is
+    named."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        for d in dict.fromkeys(device if isinstance(device, (list, tuple)) else [device]):
-            if d is not None and torch.device(d).type == "cuda":
-                torch.cuda.synchronize(d)
+        with span(sync_span) if sync_span else _OFF:
+            for d in dict.fromkeys(device if isinstance(device, (list, tuple)) else [device]):
+                if d is not None and torch.device(d).type == "cuda":
+                    torch.cuda.synchronize(d)
         counters.record(engine, cells, problems, time.perf_counter() - t0)
 
 
-@contextlib.contextmanager
-def profile_trace(path: str):
-    """``torch.profiler`` trace of the block, CPU and (when present) CUDA
-    activity, exported as a Chrome trace (view at ui.perfetto.dev)."""
-    from torch.profiler import ProfilerActivity, profile
+class SpanRecord(NamedTuple):
+    """One closed span: ``start_ns``/``end_ns`` on ``time.time_ns()``'s
+    clock (the profiler's), its ``id``, its ``parent``'s (None for a root)
+    and its ``root``'s (the request id), and its counts."""
 
-    acts = [ProfilerActivity.CPU]
-    # chooses only what the profiler records, never where work runs: a
-    # missing card has already raised in backend.resolve_device
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(path)
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    root: int
+    counts: dict
+
+
+MAX_SPANS = 131_072
+
+_log: list[SpanRecord] = []
+_dropped = 0
+_log_lock = threading.Lock()
+_ids = itertools.count(1)
+_open: contextvars.ContextVar = contextvars.ContextVar("aligner_tpu_torch_span", default=None)
+_recording = torch._C._autograd._profiler_enabled
+# a function-scope range: the profiler lists it among the CPU ops as it
+# lists record_function's, but gives it no copy on the device's timeline
+# (record_function's user scope gets a "gpu_user_annotation" there, which
+# a reader of device time would count as work)
+_range = torch._C._profiler._RecordFunctionFast
+
+
+class _Off:
+    """What :func:`span` gives while no profiler records: a context that
+    does nothing and takes no counts."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self):
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "counts", "id", "parent", "root", "start_ns", "_token", "_range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name = name
+        self.counts = counts
+
+    def count(self, **counts) -> None:
+        """Add to the span's counts (a new key starts at 0)."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
+    def __enter__(self):
+        up = _open.get()
+        self.id = next(_ids)
+        self.parent = None if up is None else up.id
+        self.root = self.id if up is None else up.root
+        self._token = _open.set(self)
+        self._range = _range(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped
+        end_ns = time.time_ns()
+        self._range.__exit__(*exc)
+        _open.reset(self._token)
+        rec = SpanRecord(self.name, self.start_ns, end_ns, self.id, self.parent, self.root,
+                         self.counts)
+        with _log_lock:
+            if len(_log) < MAX_SPANS:
+                _log.append(rec)
+            else:
+                _dropped += 1
+        return False
+
+
+def span(name: str, **counts):
+    """A span of the program's host work named ``name``, with ``counts``
+    (numbers the host already holds: lengths, bytes, loop counters; a span
+    reads no device tensor and never synchronises).  Use as ``with
+    span(...) as sp:``; ``sp.count(key=n)`` adds counts while it is open.
+
+    Only while a ``torch.profiler`` session records does a span do
+    anything (checking costs tens of nanoseconds; there is no other
+    switch).  It then opens a profiler range of its name, so it lies on the
+    profiler's clock beside the device's kernels and copies (and in
+    ``export_chrome_trace``), and when it closes appends a
+    :class:`SpanRecord` to the process's span log: its start and end from
+    ``time.time_ns()`` (the profiler's clock), its id, its parent's (the
+    span open around it in this thread or task, through a
+    ``contextvars.ContextVar``), its root's (the request id) and its
+    counts.  The log holds at most :data:`MAX_SPANS` (131,072) records;
+    those past it are dropped and counted (:func:`dropped_spans`).  The
+    profiler records the thread that started it (and the threads it hands
+    its state to): in another thread a span does nothing."""
+    if not _recording():
+        return _OFF
+    return _Span(name, counts)
+
+
+def spans() -> list[SpanRecord]:
+    """The span log, in the order the spans closed (a child before its
+    parent)."""
+    with _log_lock:
+        return list(_log)
+
+
+def dropped_spans() -> int:
+    """Spans closed while the log was full since it was last emptied."""
+    return _dropped
+
+
+def clear_spans() -> None:
+    """Empty the span log and its count of dropped spans."""
+    global _dropped
+    with _log_lock:
+        _log.clear()
+        _dropped = 0

@@ -16,6 +16,7 @@ import numpy as np
 from .align import batch_align
 from .alphabet import Alphabet, Protein
 from .errors import ValidationError
+from .observability import span
 
 
 @dataclasses.dataclass
@@ -81,58 +82,68 @@ def search_database(
 
     if k <= 0:
         raise ValidationError("k must be positive")
-    q = _encode(query, alphabet)
-    db = [_encode(s, alphabet) for s in database]
-    if not db:
-        raise ValidationError("empty database")
-    names = list(names) if names is not None else [str(i) for i in range(len(db))]
-    if len(names) != len(db):
-        # fail BEFORE the launches, not at name lookup after all the
-        # alignment work is done
-        raise ValidationError(
-            f"names has {len(names)} entries for {len(db)} db sequences"
-        )
-    lengths = [len(s) for s in db]
-
-    scores = np.full(len(db), -np.inf)
-    for bucket in length_buckets(lengths, growth=bucket_growth):
-        targets = [db[i] for i in bucket]
-        res = batch_align(
-            [q] * len(bucket), targets, matrix, del_, ext,
-            mode=mode, alphabet=alphabet, device=device,
-        )
-        scores[bucket] = res.fmax if mode == "local" else res.end
-    # a zero-length record has NO alignment (the single-pair API raises
-    # ResultIsEmpty) — the batch fill reports its masked-out score as 0,
-    # which in global mode would outrank real sequences' negative gap
-    # scores; keep such records out of the ranking entirely
-    scores[np.asarray(lengths) == 0] = -np.inf
-
-    top = np.argsort(-scores, kind="stable")[:k]
-    hits = [
-        SearchHit(index=int(i), name=names[int(i)], score=float(scores[i]))
-        for i in top
-    ]
-    if with_alignments:
-        # only hits that CAN align get a traceback: empty targets and
-        # local hits with no positive-scoring cell have none (the batch
-        # returns None for the latter) — such hits keep score-only form
-        # instead of aborting the whole search
-        alignable = [
-            h for h in hits
-            if len(db[h.index]) > 0 and (mode != "local" or h.score > 0)
-        ]
-        if alignable and len(q) > 0:
-            results = batch_align(
-                [q] * len(alignable), [db[h.index] for h in alignable],
-                matrix, del_, ext,
-                mode=mode, alphabet=alphabet, device=device,
-                with_alignments=True,
+    with span("search", records=len(database)) as sp:
+        with span("search.encode"):
+            q = _encode(query, alphabet)
+            db = [_encode(s, alphabet) for s in database]
+        sp.count(query_len=len(q))
+        if not db:
+            raise ValidationError("empty database")
+        names = list(names) if names is not None else [str(i) for i in range(len(db))]
+        if len(names) != len(db):
+            # fail BEFORE the launches, not at name lookup after all the
+            # alignment work is done
+            raise ValidationError(
+                f"names has {len(names)} entries for {len(db)} db sequences"
             )
-            for h, r in zip(alignable, results):
-                if r is None:
-                    continue
-                h.coords = r.alignment.coords
-                h.query_aligned = r.alignment.query
-                h.target_aligned = r.alignment.target
-    return hits
+        with span("search.buckets") as bs:
+            lengths = [len(s) for s in db]
+            buckets = length_buckets(lengths, growth=bucket_growth)
+            bs.count(buckets=len(buckets))
+
+        scores = np.full(len(db), -np.inf)
+        for bucket in buckets:
+            # a bucket is sorted by length: its last record is its longest
+            with span("search.bucket", rows=len(bucket), width=lengths[bucket[-1]]):
+                targets = [db[i] for i in bucket]
+                res = batch_align(
+                    [q] * len(bucket), targets, matrix, del_, ext,
+                    mode=mode, alphabet=alphabet, device=device,
+                )
+                scores[bucket] = res.fmax if mode == "local" else res.end
+        with span("search.rank"):
+            # a zero-length record has NO alignment (the single-pair API raises
+            # ResultIsEmpty) — the batch fill reports its masked-out score as 0,
+            # which in global mode would outrank real sequences' negative gap
+            # scores; keep such records out of the ranking entirely
+            scores[np.asarray(lengths) == 0] = -np.inf
+
+            top = np.argsort(-scores, kind="stable")[:k]
+            hits = [
+                SearchHit(index=int(i), name=names[int(i)], score=float(scores[i]))
+                for i in top
+            ]
+        if with_alignments:
+            # only hits that CAN align get a traceback: empty targets and
+            # local hits with no positive-scoring cell have none (the batch
+            # returns None for the latter) — such hits keep score-only form
+            # instead of aborting the whole search
+            alignable = [
+                h for h in hits
+                if len(db[h.index]) > 0 and (mode != "local" or h.score > 0)
+            ]
+            if alignable and len(q) > 0:
+                with span("search.alignments"):
+                    results = batch_align(
+                        [q] * len(alignable), [db[h.index] for h in alignable],
+                        matrix, del_, ext,
+                        mode=mode, alphabet=alphabet, device=device,
+                        with_alignments=True,
+                    )
+                for h, r in zip(alignable, results):
+                    if r is None:
+                        continue
+                    h.coords = r.alignment.coords
+                    h.query_aligned = r.alignment.query
+                    h.target_aligned = r.alignment.target
+        return hits

@@ -37,6 +37,7 @@ import numpy as np
 from .align import batch_align
 from .alphabet import Alphabet, Protein
 from .errors import ValidationError
+from .observability import span
 
 MAXITER = 10000
 THREADS = 10
@@ -205,87 +206,99 @@ def _estimate_h(qlen, tl, scores, k, lam, old_h):
     return _estimate_h_loop(log_kqt, kexp, tl, qlen, old_h, MAXITER)
 
 
+def _fit_ended(sp, rounds: int, how: str) -> None:
+    """The fit span's counts: the outer rounds run, and 1 for how the fit
+    ended (``converged``, ``repeat`` or ``maxiter``), 0 for the others."""
+    sp.count(rounds=rounds, **{k: int(k == how) for k in ("converged", "repeat", "maxiter")})
+
+
 def calculate_distribution_params(
     query_length: int, target_lengths: np.ndarray, scores: np.ndarray
 ) -> DistributionParams:
-    """ML fit of (k, λ, h) (statistics/mod.rs:36-123)."""
-    tl = np.asarray(target_lengths, dtype=np.float64)
-    scores = np.asarray(scores, dtype=np.float64)
-    if len(scores) != len(tl):
-        raise ValidationError("scores and target_lengths length mismatch")
+    """ML fit of (k, λ, h) (statistics/mod.rs:36-123), in the span
+    ``pvalue.fit`` (:func:`~aligner_tpu_torch.observability.span`), which
+    counts the outer rounds run and how the fit ended."""
+    with span("pvalue.fit") as sp:
+        tl = np.asarray(target_lengths, dtype=np.float64)
+        scores = np.asarray(scores, dtype=np.float64)
+        if len(scores) != len(tl):
+            raise ValidationError("scores and target_lengths length mismatch")
 
-    var = float(((scores - scores.mean()) ** 2).mean())  # central_moment(2)
-    if not np.isfinite(var):
-        raise ValidationError("degenerate score distribution")
-    with np.errstate(all="ignore"):
-        lam0 = float(np.float64(1.0) / np.float64(var))  # inf when var == 0, like Rust
-    h = 1.0
-    qlen = float(query_length)
-    n = float(len(tl))
-
-    with np.errstate(all="ignore"):
-        nn = qlen * tl
-        k0 = float(np.float64(n) / (nn * np.exp(-lam0 * scores)).sum())
-        log_likelihood = float(
-            n * np.log(lam0 * k0)
-            + (np.log(nn) - lam0 * scores - k0 * nn * np.exp(-lam0 * scores)).sum()
-        )
-
-    active_tl = tl.copy()
-    active_scores = scores.copy()
-
-    # Exact early-exit for stationary non-convergence: the loop body is
-    # a pure function of (h, log_likelihood, active set) — the k/λ
-    # estimate restarts from the constant (k0, lam0) every iteration
-    # (the shadowing quirk) and tl/scores never change.  If one
-    # iteration reproduces its own input state BIT FOR BIT, every later
-    # iteration must repeat it too, so the loop provably runs to
-    # MAXITER and returns (k0, lam0, h) — which we can do immediately.
-    # This is the common regime on real score sets (the fit walks into
-    # h = NaN, the outlier filter empties the active set, and the state
-    # freezes; measured 6/8 real-shuffle seeds burn all 10001
-    # iterations this way).  Bit-identical by construction and pinned
-    # by test_statistics_pinned against the full-loop interpreter.
-    def _state_sig(k, lam, h, ll, keep):
-        return (
-            np.float64(k).tobytes(), np.float64(lam).tobytes(),
-            np.float64(h).tobytes(), np.float64(ll).tobytes(),
-            keep.tobytes(),
-        )
-
-    prev_sig = None
-    for _ in range(MAXITER + 1):
-        # NOTE: restarts from (k0, lam0) each outer iteration — the Rust
-        # `let (k, lambda)` shadows the outer immutable bindings.
-        k, lam = _estimate_k_and_lambda(qlen, active_tl, active_scores, k0, lam0, h)
-        h = _estimate_h(qlen, active_tl, active_scores, k, lam, h)
+        var = float(((scores - scores.mean()) ** 2).mean())  # central_moment(2)
+        if not np.isfinite(var):
+            raise ValidationError("degenerate score distribution")
+        with np.errstate(all="ignore"):
+            lam0 = float(np.float64(1.0) / np.float64(var))  # inf when var == 0, like Rust
+        h = 1.0
+        qlen = float(query_length)
+        n = float(len(tl))
 
         with np.errstate(all="ignore"):
-            nn = _nn_edge(k, h, qlen, tl)
-            ll_new = float(
-                n * np.log10(lam * k)
-                + (
-                    np.log10(nn)
-                    - lam * scores
-                    - k * nn * np.exp(-lam * scores)
-                ).sum()
+            nn = qlen * tl
+            k0 = float(np.float64(n) / (nn * np.exp(-lam0 * scores)).sum())
+            log_likelihood = float(
+                n * np.log(lam0 * k0)
+                + (np.log(nn) - lam0 * scores - k0 * nn * np.exp(-lam0 * scores)).sum()
             )
-        with np.errstate(all="ignore"):
-            rel = np.float64(abs(ll_new - log_likelihood)) / np.float64(log_likelihood)
-        if rel < THRESHOLD_GLOBAL:
-            return DistributionParams(k, lam, h)
-        log_likelihood = ll_new
 
-        with np.errstate(all="ignore"):
-            keep = n * (1.0 - np.exp(-k * nn * np.exp(-lam * scores))) >= 1.0
-        sig = _state_sig(k, lam, h, ll_new, keep)
-        if sig == prev_sig:
-            return DistributionParams(k0, lam0, h)  # provably exhausts
-        prev_sig = sig
-        active_tl = tl[keep]
-        active_scores = scores[keep]
+        active_tl = tl.copy()
+        active_scores = scores.copy()
 
-    return DistributionParams(k0, lam0, h)
+        # Exact early-exit for stationary non-convergence: the loop body is
+        # a pure function of (h, log_likelihood, active set) — the k/λ
+        # estimate restarts from the constant (k0, lam0) every iteration
+        # (the shadowing quirk) and tl/scores never change.  If one
+        # iteration reproduces its own input state BIT FOR BIT, every later
+        # iteration must repeat it too, so the loop provably runs to
+        # MAXITER and returns (k0, lam0, h) — which we can do immediately.
+        # This is the common regime on real score sets (the fit walks into
+        # h = NaN, the outlier filter empties the active set, and the state
+        # freezes; measured 6/8 real-shuffle seeds burn all 10001
+        # iterations this way).  Bit-identical by construction and pinned
+        # by test_statistics_pinned against the full-loop interpreter.
+        def _state_sig(k, lam, h, ll, keep):
+            return (
+                np.float64(k).tobytes(), np.float64(lam).tobytes(),
+                np.float64(h).tobytes(), np.float64(ll).tobytes(),
+                keep.tobytes(),
+            )
+
+        prev_sig = None
+        for rounds in range(1, MAXITER + 2):
+            # NOTE: restarts from (k0, lam0) each outer iteration — the Rust
+            # `let (k, lambda)` shadows the outer immutable bindings.
+            k, lam = _estimate_k_and_lambda(qlen, active_tl, active_scores, k0, lam0, h)
+            h = _estimate_h(qlen, active_tl, active_scores, k, lam, h)
+
+            with np.errstate(all="ignore"):
+                nn = _nn_edge(k, h, qlen, tl)
+                ll_new = float(
+                    n * np.log10(lam * k)
+                    + (
+                        np.log10(nn)
+                        - lam * scores
+                        - k * nn * np.exp(-lam * scores)
+                    ).sum()
+                )
+            with np.errstate(all="ignore"):
+                rel = np.float64(abs(ll_new - log_likelihood)) / np.float64(log_likelihood)
+            if rel < THRESHOLD_GLOBAL:
+                _fit_ended(sp, rounds, "converged")
+                return DistributionParams(k, lam, h)
+            log_likelihood = ll_new
+
+            with np.errstate(all="ignore"):
+                keep = n * (1.0 - np.exp(-k * nn * np.exp(-lam * scores))) >= 1.0
+            sig = _state_sig(k, lam, h, ll_new, keep)
+            if sig == prev_sig:
+                _fit_ended(sp, rounds, "repeat")
+                return DistributionParams(k0, lam0, h)  # provably exhausts
+            prev_sig = sig
+            active_tl = tl[keep]
+            active_scores = scores[keep]
+
+        _fit_ended(sp, MAXITER + 1, "maxiter")
+        return DistributionParams(k0, lam0, h)
 
 
 def shuffle_and_randomize_sequence(seq: np.ndarray, rng: np.random.Generator):
@@ -343,14 +356,17 @@ def calculate_p_value(
     # mod.rs:263-266) telescopes to exactly n - 1 shuffles for every n
     total = n_sequences - 1
 
-    shuffles = [shuffle_and_randomize_sequence(t, rng) for _ in range(total)]
-    res = batch_align(
-        [q] * total, shuffles, matrix, del_, ins,
-        mode="local", alphabet=alphabet, device=device,
-        track_argmax=False,  # only f is consumed — skip argmax bookkeeping
-    )
-    scores = np.concatenate([[initial_score], np.asarray(res.fmax, np.float64)])
-    lengths = np.concatenate([[len(t)], [len(s) for s in shuffles]])
+    with span("pvalue"):
+        with span("pvalue.shuffle", shuffles=total):
+            shuffles = [shuffle_and_randomize_sequence(t, rng) for _ in range(total)]
+        with span("pvalue.fill"):
+            res = batch_align(
+                [q] * total, shuffles, matrix, del_, ins,
+                mode="local", alphabet=alphabet, device=device,
+                track_argmax=False,  # only f is consumed — skip argmax bookkeeping
+            )
+        scores = np.concatenate([[initial_score], np.asarray(res.fmax, np.float64)])
+        lengths = np.concatenate([[len(t)], [len(s) for s in shuffles]])
 
-    params = calculate_distribution_params(len(q), lengths, scores)
-    return params.get_p_value(len(q), len(t), initial_score)
+        params = calculate_distribution_params(len(q), lengths, scores)
+        return params.get_p_value(len(q), len(t), initial_score)

@@ -1288,11 +1288,12 @@ def phase_search(at, native, host, cli_search, query, tmp):
 def phase_trace(cli_search, argv, tmp):
     """The local search once more under ``torch.profiler``: device time by
     kernel and the device's idle share of the CLI's wall time."""
-    from aligner_tpu_torch.observability import profile_trace
+    from torch.profiler import ProfilerActivity, profile
 
-    with profile_trace(os.path.join(tmp, "search_trace.json")) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         hits, wall = run_cli(cli_search.main, argv)
         torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(tmp, "search_trace.json"))
     check(len(hits) == 10, "traced search: expected 10 hits")
     # device-side events only: a CPU op's self device time repeats the
     # copies and kernels it launched

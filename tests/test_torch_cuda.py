@@ -1428,3 +1428,29 @@ def test_column_blocked_pipeline_across_two_gloo_ranks_on_the_card(dev, tmp_path
     one = wavefront_runs(2, CARD_PAIR, device=dev)
     assert ranks[0]["wavefront"] == ranks[1]["wavefront"] == one
     assert "cuda/wavefront-sp-handoff" in ranks[1]["wavefront_counters"]
+
+
+def test_spans_leave_no_copy_on_the_device_timeline(dev):
+    """The program's spans are recorded under a profiler that traces the
+    card, and none of them has a copy among the device's events (a copy
+    would read as device work to whoever sums device time), while a
+    user-scope ``record_function`` does get one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aligner_tpu_torch import observability
+
+    rng = np.random.default_rng(21)
+    db = [rng.integers(0, 20, int(n)).astype(np.int8) for n in rng.integers(30, 300, 300)]
+    q = rng.integers(0, 20, 120).astype(np.int8)
+    port.search_database(q, db, blosum62(), 11.0, 2.0, k=3, device=dev)
+    observability.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("user-scope"):
+            port.search_database(q, db, blosum62(), 11.0, 2.0, k=3, device=dev)
+            torch.cuda.synchronize()
+    names = {s.name for s in observability.spans()}
+    observability.clear_spans()
+    assert {"search", "batch", "fill", "fill.upload", "fill.launch"} <= names
+    on_card = {e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA}
+    assert "user-scope" in on_card and not names & on_card

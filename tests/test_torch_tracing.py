@@ -1,0 +1,300 @@
+"""The port's spans (``aligner_tpu_torch.observability.span``) on its three
+entries, ``search_database``, ``heuristic_align_population`` and
+``calculate_p_value``, on the CPU: nothing is recorded without a profiler;
+under ``torch.profiler`` each call is one request with the documented
+tree, its counts are the host's own numbers (bytes handed to the fill,
+iterations, the fit's rounds and end), each span lies on the profiler's
+clock, and the results are the same with tracing on and off."""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import aligner_tpu_torch as port
+from aligner_tpu_torch import heuristic, observability, statistics
+from aligner_tpu_torch.ops import dp_fill
+from aligner_tpu_torch.search import search_database
+
+torch.set_num_threads(1)
+
+# each span's parent, by name, on these entries (None: a root)
+TREE = {
+    "search": None, "search.encode": "search", "search.buckets": "search",
+    "search.bucket": "search", "search.rank": "search", "search.alignments": "search",
+    "batch": ("search.bucket", "search.alignments", "population.final", "pvalue.fill"),
+    "batch.pad": "batch", "batch.read": "batch", "batch.walk": "batch",
+    "fill": "batch", "fill.check": "fill", "fill.upload": "fill", "fill.launch": "fill",
+    "fill.sync": "fill",
+    "population": None, "population.start": "population",
+    "population.done_read": ("population", "population.iteration"),
+    "population.iteration": "population", "population.fill": "population.iteration",
+    "population.counting_walk": "population.iteration",
+    "population.transform": "population.iteration", "population.final": "population",
+    "pvalue": None, "pvalue.shuffle": "pvalue", "pvalue.fill": "pvalue", "pvalue.fit": "pvalue",
+}
+
+
+def _search():
+    rng = np.random.default_rng(3)
+    db = [rng.integers(0, 20, int(n)).astype(np.int8) for n in rng.integers(8, 60, 40)]
+    q = rng.integers(0, 20, 30).astype(np.int8)
+    db[5] = q.copy()
+    hits = search_database(q, db, port.blosum62(), 11.0, 2.0, k=4, device="cpu")
+    return [(h.index, h.score, h.coords, None if h.query_aligned is None
+             else h.query_aligned.tolist(), None if h.target_aligned is None
+             else h.target_aligned.tolist()) for h in hits]
+
+
+def _population():
+    rng = np.random.default_rng(5)
+    q = rng.integers(0, 24, 40).astype(np.int8)
+    t = q.copy()
+    t[rng.integers(1, 40, 6)] = rng.integers(0, 24, 6)
+    freqs = rng.random(24)
+    h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs / freqs.sum())
+    mats = rng.integers(-1, 2, (5, 24, 24)).astype(np.float64) + 4 * np.eye(24)
+    out = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h, device="cpu")
+    return [None if r is None else (r.alignment.f, r.alignment.coords,
+                                    r.alignment.query.tolist(), r.alignment.target.tolist(),
+                                    r.matrix.tolist()) for r in out]
+
+
+def _pvalue():
+    rng = np.random.default_rng(7)
+    q = rng.integers(0, 20, 40).astype(np.int8)
+    t = q.copy()
+    t[rng.integers(0, 40, 8)] = rng.integers(0, 20, 8)
+    p = statistics.calculate_p_value(q, t, 120.0, 11.0, 11.0, port.blosum62(),
+                                     rng=np.random.default_rng(11), device="cpu",
+                                     n_sequences=40)
+    return np.float64(p).tobytes()
+
+
+ENTRIES = {"search": _search, "population": _population, "pvalue": _pvalue}
+
+
+def _traced(fn):
+    """``fn()`` under a CPU profiler: its result, the span log, and the
+    profiler's events."""
+    observability.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    log = observability.spans()
+    observability.clear_spans()
+    return out, log, list(prof.profiler.kineto_results.events())
+
+
+@pytest.fixture(autouse=True)
+def _empty_log():
+    observability.clear_spans()
+    yield
+    observability.clear_spans()
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_no_profiler_records_nothing_and_opens_no_range(entry, monkeypatch):
+    opened = []
+    monkeypatch.setattr(observability, "_range", lambda name: opened.append(name))
+    ENTRIES[entry]()
+    assert opened == []
+    assert observability.spans() == [] and observability.dropped_spans() == 0
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_one_request_one_root_and_the_tree(entry):
+    _, log, _ = _traced(ENTRIES[entry])
+    roots = [s for s in log if s.parent is None]
+    assert [r.name for r in roots] == [entry]
+    root = roots[0]
+    by_id = {s.id: s for s in log}
+    assert len(by_id) == len(log)
+    for s in log:
+        assert s.root == root.id, s
+        assert s.start_ns <= s.end_ns
+        want = TREE[s.name]
+        if want is None:
+            continue
+        parent = by_id[s.parent]
+        assert parent.name in (want if isinstance(want, tuple) else (want,)), (s.name, parent.name)
+        assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
+    names = Counter(s.name for s in log)
+    expect = {
+        "search": {"search", "search.encode", "search.buckets", "search.bucket", "search.rank",
+                   "search.alignments", "batch", "batch.pad", "batch.read", "batch.walk",
+                   "fill", "fill.check", "fill.upload", "fill.launch", "fill.sync"},
+        "population": {"population", "population.start", "population.done_read",
+                       "population.iteration", "population.fill", "population.counting_walk",
+                       "population.transform", "population.final", "batch", "batch.pad",
+                       "batch.read", "batch.walk", "fill", "fill.check", "fill.upload",
+                       "fill.launch", "fill.sync"},
+        "pvalue": {"pvalue", "pvalue.shuffle", "pvalue.fill", "pvalue.fit", "batch",
+                   "batch.pad", "batch.read", "fill", "fill.check", "fill.upload",
+                   "fill.launch", "fill.sync"},
+    }[entry]
+    assert set(names) == expect
+    assert names["fill"] == names["batch"] == names["fill.upload"] == names["fill.launch"]
+    if entry == "search":
+        buckets = [s for s in log if s.name == "search.buckets"][0].counts["buckets"]
+        assert names["search.bucket"] == buckets >= 2
+        assert root.counts == {"records": 40, "query_len": 30}
+        rows = sum(s.counts["rows"] for s in log if s.name == "search.bucket")
+        assert rows == 40
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_upload_bytes_are_the_arrays_handed_to_the_fill(entry, monkeypatch):
+    handed = []
+    orig = dp_fill.fill
+
+    def counting(q, qlen, t, tlen, matrix, *a, **kw):
+        handed.append((sum(x.nbytes for x in (q, qlen, t, tlen, matrix)), q.nbytes))
+        return orig(q, qlen, t, tlen, matrix, *a, **kw)
+
+    monkeypatch.setattr(dp_fill, "fill", counting)
+    if entry == "population":
+        # the loop's fills take the state already on the device (its uploads
+        # are population.start's); the final alignments' fill is handed its
+        # arrays
+        monkeypatch.setattr(heuristic, "_population_loop",
+                            _uncounted(heuristic._population_loop, handed))
+    _, log, _ = _traced(ENTRIES[entry])
+    uploads = [(s.counts["h2d_bytes"], s.counts["query_bytes"])
+               for s in sorted(log, key=lambda s: s.start_ns) if s.name == "fill.upload"]
+    assert uploads and uploads == handed
+
+
+def _uncounted(loop, handed):
+    """``loop`` with what its fills were handed taken out of ``handed``."""
+    def f(*a, **kw):
+        n = len(handed)
+        out = loop(*a, **kw)
+        del handed[n:]
+        return out
+    return f
+
+
+def test_population_iterations_are_its_fills(monkeypatch):
+    calls = {"fill": 0}
+    orig = dp_fill.fill
+
+    def counting(*a, **kw):
+        calls["fill"] += 1
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(dp_fill, "fill", counting)
+    _, log, _ = _traced(_population)
+    root = [s for s in log if s.parent is None][0]
+    # one fill an iteration, and one more for the final alignments
+    assert root.counts["iterations"] == calls["fill"] - 1 >= 2
+    assert root.counts["members"] == 5
+    assert sum(s.name == "population.iteration" for s in log) == root.counts["iterations"]
+    # the first read of the done flags precedes the loop; then one an iteration
+    # but the last, which spends max_iters or finds every member done
+    assert sum(s.name == "population.done_read" for s in log) == root.counts["iterations"] + 1
+
+
+def _fit_counts(qlen, tl, scores):
+    observability.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        p = statistics.calculate_distribution_params(qlen, tl, scores)
+    (fit,) = [s for s in observability.spans() if s.name == "pvalue.fit"]
+    assert fit.parent is None and fit.root == fit.id  # a root when called alone
+    return p, fit.counts
+
+
+def test_fit_counts_a_converging_fit():
+    # tests/test_torch_statistics_pinned.py::test_fixture_converged_fit
+    rng = np.random.default_rng(2026)
+    n, qlen = 200, 400
+    tl = 400 - rng.integers(0, 7, n)
+    scores = np.round(rng.gumbel(loc=42, scale=9, size=n), 0)
+    p, counts = _fit_counts(qlen, tl, scores)
+    assert float(p.k).hex() == "0x1.59756076b55ebp-11"
+    assert counts == {"rounds": 1, "converged": 1, "repeat": 0, "maxiter": 0}
+
+
+def test_fit_counts_a_repeating_fit(monkeypatch):
+    # tests/test_torch_statistics_pinned.py::test_stationary_shortcut_equals_exhausted_loop
+    monkeypatch.setattr(statistics, "MAXITER", 400)
+    rng = np.random.default_rng(70)
+    tl = 400 - rng.integers(0, 7, 400)
+    scores = np.round(rng.gumbel(loc=110.5, scale=3.7, size=400), 0)
+    rounds = {"n": 0}
+    orig = statistics._estimate_k_and_lambda
+
+    def counting(*a):
+        rounds["n"] += 1
+        return orig(*a)
+
+    monkeypatch.setattr(statistics, "_estimate_k_and_lambda", counting)
+    _, counts = _fit_counts(400, tl, scores)
+    assert counts == {"rounds": rounds["n"], "converged": 0, "repeat": 1, "maxiter": 0}
+    assert 2 <= rounds["n"] < 50
+
+
+def test_fit_counts_a_fit_that_spends_maxiter(monkeypatch):
+    # tests/test_torch_statistics_pinned.py::test_fixture_truncated_restart_return
+    monkeypatch.setattr(statistics, "MAXITER", 2)
+    rng = np.random.default_rng(1)
+    n = int(rng.integers(20, 120))
+    qlen = int(rng.integers(30, 300))
+    tl = rng.integers(30, 300, n)
+    scores = np.round(rng.gumbel(loc=rng.uniform(5, 50), scale=rng.uniform(1, 12), size=n), 0)
+    p, counts = _fit_counts(qlen, tl, scores)
+    assert float(p.h).hex() == "0x1.a8abc7fb6b724p-2"
+    assert counts == {"rounds": 3, "converged": 0, "repeat": 0, "maxiter": 1}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_spans_lie_on_the_profilers_clock(entry):
+    _, log, events = _traced(ENTRIES[entry])
+    names = {s.name for s in log}
+    ranges = {}
+    for e in events:
+        if e.name() in names:
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+    for name in names:
+        mine = sorted((s.start_ns, s.end_ns) for s in log if s.name == name)
+        theirs = sorted(ranges.get(name, []))
+        assert len(mine) == len(theirs), name
+        for (a0, a1), (b0, b1) in zip(mine, theirs):
+            assert abs(a0 - b0) < 1_000_000 and abs(a1 - b1) < 1_000_000, name
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_results_are_the_same_traced_and_not(entry):
+    plain = ENTRIES[entry]()
+    traced, log, _ = _traced(ENTRIES[entry])
+    assert log and traced == plain
+
+
+def test_the_log_is_bounded_and_counts_what_it_drops(monkeypatch):
+    monkeypatch.setattr(observability, "MAX_SPANS", 3)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(5):
+            with observability.span("x", i=i) as sp:
+                sp.count(i=1, extra=2)
+    assert [s.counts for s in observability.spans()] == [
+        {"i": 1, "extra": 2}, {"i": 2, "extra": 2}, {"i": 3, "extra": 2}]
+    assert observability.dropped_spans() == 2
+    observability.clear_spans()
+    assert observability.spans() == [] and observability.dropped_spans() == 0
+
+
+def test_a_span_closes_when_its_block_raises():
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError):
+            with observability.span("outer"):
+                with observability.span("inner", n=1):
+                    raise ValueError("refused")
+        with observability.span("next"):
+            pass
+    inner, outer, nxt = observability.spans()
+    assert (inner.name, outer.name, nxt.name) == ("inner", "outer", "next")
+    assert inner.parent == outer.id and inner.root == outer.id and inner.counts == {"n": 1}
+    assert outer.parent is None and nxt.parent is None and nxt.root == nxt.id
