@@ -143,9 +143,19 @@ def _dev_i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
 
+def _shared_row(a) -> bool:
+    """``a`` (B, C) is one row that every problem reads: a batch axis of
+    stride 0 (``np.broadcast_to``), as :func:`batch_align` builds for a
+    batch of one query."""
+    return a.ndim == 2 and len(a) > 0 and a.strides[0] == 0
+
+
 def _pad_batch_rows(arrs, B: int, Bp: int):
-    """Right-pad the batch axis of each array with zeros to Bp rows."""
-    return [a if len(a) == Bp else np.pad(a, [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1))
+    """Right-pad the batch axis of each array with zeros to Bp rows (a
+    :func:`_shared_row` is broadcast to Bp rows instead)."""
+    return [a if len(a) == Bp
+            else np.broadcast_to(a[0], (Bp, a.shape[1])) if _shared_row(a)
+            else np.pad(a, [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1))
             for a in arrs]
 
 
@@ -178,7 +188,9 @@ def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
     ``rows`` (q, ql, t, tl), or :class:`~aligner_tpu_torch.ops.dp_fill.PWMFill`
     with ``rows`` (q, ql); ``scoring``: a shared (V, V) matrix or (4, W)
     PWM, which goes to each device once, or per-problem (B, ...) ones,
-    which split with the batch; ``call``: the fill's keyword arguments.
+    which split with the batch; a :func:`_shared_row` of ``rows`` also goes
+    to each device once, as one (C,) row that every shard expands over its
+    problems; ``call``: the fill's keyword arguments.
     B is padded with zero-length problems to a multiple of the shard count
     and split into contiguous shards.  Every shard is launched before any
     is read; the result is :func:`_assemble_sharded_fill`'s, on ``device``."""
@@ -191,6 +203,7 @@ def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
     if batched:
         (scoring,) = _pad_batch_rows([scoring], B, per * n)
     shared = {}
+    shared_rows = {}  # (device, index in rows): a shared row on that device
     parts = []
     for k, dev in enumerate(devices):
         part = slice(k * per, (k + 1) * per)
@@ -205,11 +218,21 @@ def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
                 dp = shared[dev] = fill_cls.from_numpy(scoring, del_, ext, device=dev,
                                                        dtype=dtype)
                 sent.append(dp)
-            args = [_dev_i32(a[part], dev) for a in rows]
+            args, row_bytes = [], []  # each row's tensor, and the bytes it sent here
+            for i, a in enumerate(rows):
+                if not _shared_row(a):
+                    args.append(_dev_i32(a[part], dev))
+                    row_bytes.append(args[-1].nbytes)
+                    continue
+                new = (dev, i) not in shared_rows
+                if new:
+                    # a[0] is a read-only view: its copy is one row
+                    shared_rows[dev, i] = _dev_i32(a[0].copy(), dev)
+                args.append(shared_rows[dev, i].expand(per, -1))
+                row_bytes.append(shared_rows[dev, i].nbytes if new else 0)
             if sp:
                 scoring_bytes = sum(b.nbytes for d in sent for b in d.buffers())
-                sp.count(h2d_bytes=scoring_bytes + sum(a.nbytes for a in args),
-                         query_bytes=args[0].nbytes)
+                sp.count(h2d_bytes=scoring_bytes + sum(row_bytes), query_bytes=row_bytes[0])
         with span("fill.launch"):
             parts.append(dp(*args, **call))
     return _assemble_sharded_fill(parts, B, per, device)
@@ -242,7 +265,7 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
     with span("fill", cells=cells, shards=len(shards)):
         with span("fill.check"):
             vol = np.asarray(matrix).shape[-1]
-            for name, a in (("query", q), ("target", t)):
+            for name, a in (("query", q[:1] if _shared_row(q) else q), ("target", t)):
                 if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
                     raise ValidationError(
                         f"{name} codes must lie in the {vol}-symbol scoring alphabet"
@@ -341,18 +364,31 @@ def batch_align(
     kernel on the card); ``"host"`` brings the direction planes to the host
     and walks them there (:func:`_walk_pairs_on_host`), with the same
     results.
+
+    When every entry of ``queries`` is the same object (``[q] * n``, as the
+    search and the p-value build their batches), the query is encoded,
+    padded and checked once and goes to each device once, as one row that
+    every problem of the launch reads; the results are the same bits as
+    for a batch of equal but distinct queries.
     """
     if mode not in ("local", "global"):
         raise ValidationError(f"mode must be local|global, got {mode!r}")
     _check_walk(walk)
-    with span("batch", rows=len(queries), with_alignments=int(with_alignments)):
+    one_query = len(queries) > 0 and all(s is queries[0] for s in queries)
+    with span("batch", rows=len(queries), with_alignments=int(with_alignments),
+              shared_query_rows=len(queries) if one_query else 0):
         with span("batch.pad"):
-            qs = [_encode(s, alphabet) for s in queries]
+            qs = ([_encode(queries[0], alphabet)] * len(queries) if one_query
+                  else [_encode(s, alphabet) for s in queries])
             ts = [_encode(s, alphabet) for s in targets]
             if len(qs) != len(ts):
                 raise ValidationError("queries and targets must have the same length")
             n_real = len(qs)
-            q, ql = pad_batch(qs)
+            if one_query:
+                row, ql = pad_batch(qs[:1])
+                q, ql = np.broadcast_to(row[0], (n_real, row.shape[1])), np.repeat(ql, n_real)
+            else:
+                q, ql = pad_batch(qs)
             t, tl = pad_batch(ts)
             if skip is not None:
                 ql = np.where(np.asarray(skip, bool), 0, ql).astype(np.int32)
@@ -363,7 +399,7 @@ def batch_align(
                         f"pad_to={pad_to} is smaller than the batch ({len(qs)})"
                     )
                 extra = pad_to - len(qs)
-                q = np.pad(q, ((0, extra), (0, 0)))
+                (q,) = _pad_batch_rows([q], n_real, pad_to)
                 t = np.pad(t, ((0, extra), (0, 0)))
                 ql = np.pad(ql, (0, extra))
                 tl = np.pad(tl, (0, extra))

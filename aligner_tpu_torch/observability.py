@@ -19,12 +19,14 @@ span is one request, and its id is the request id):
   ``search.encode``, ``search.buckets`` [buckets], one ``search.bucket``
   [rows, width] per length bucket (its ``batch``), ``search.rank``,
   ``search.alignments`` (the top hits' ``batch``);
-* ``batch`` [rows, with_alignments] (``align.batch_align``):
-  ``batch.pad``, ``fill``, ``batch.read`` (the results' copies to the
-  host), ``batch.walk``;
+* ``batch`` [rows, with_alignments, shared_query_rows] (``align.batch_align``;
+  ``shared_query_rows``: the rows that read one shared query row, 0 unless
+  every problem has the same query object): ``batch.pad``, ``fill``,
+  ``batch.read`` (the results' copies to the host), ``batch.walk``;
 * ``fill`` [cells, shards] (a batched fill): ``fill.check``, one
   ``fill.upload`` [h2d_bytes, query_bytes] and one ``fill.launch`` per
-  shard, ``fill.sync`` (the wait for the card);
+  shard (a shared query row is counted where it is sent, once a device),
+  ``fill.sync`` (the wait for the card);
 * ``population`` [members, iterations] (``heuristic.heuristic_align_population``):
   ``population.start``, ``population.done_read`` (the read of the members'
   ``done`` flags, where the host waits for the card), one

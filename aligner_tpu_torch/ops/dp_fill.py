@@ -176,8 +176,16 @@ def _check_codes(V: int, *named) -> None:
                 raise ValueError(f"{name} codes must lie in [0, {V})")
 
 
+def _query_row(q):
+    """The codes ``q`` holds: its one row when its batch axis has stride 0
+    (a query every problem reads, ``expand``ed from a (C,) row), else
+    ``q``."""
+    return q[0] if q.dim() == 2 and len(q) > 0 and q.stride(0) == 0 else q
+
+
 def _check(q, qlen, t, tlen, matrix) -> None:
-    _check_tensors(q.device, (("q", q), ("qlen", qlen), ("t", t), ("tlen", tlen)),
+    row = _query_row(q)
+    _check_tensors(q.device, (("q", row), ("qlen", qlen), ("t", t), ("tlen", tlen)),
                    matrix)
     if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0]:
         raise ValueError(f"q (B, C) and t (B, R) expected, got {tuple(q.shape)}, "
@@ -191,7 +199,7 @@ def _check(q, qlen, t, tlen, matrix) -> None:
                              f"{tuple(matrix.shape)}")
     elif matrix.dim() != 2 or matrix.shape[0] != matrix.shape[1]:
         raise ValueError(f"matrix must be (V, V), got {tuple(matrix.shape)}")
-    _check_codes(matrix.shape[-1], ("q", q), ("t", t))
+    _check_codes(matrix.shape[-1], ("q", row), ("t", t))
 
 
 def _check_pwm(q, qlen, pwm) -> None:
@@ -218,8 +226,10 @@ def fill(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
 
     ``q`` (B, C) and ``t`` (B, R) int32 codes, ``qlen``/``tlen`` (B,)
     int32, ``matrix`` (V, V) or (B, V, V) float32/float64, all contiguous
-    on one device.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version.  Global mode always tracks the argmax.  With
+    on one device; ``q`` may also be one contiguous (C,) row expanded over
+    the batch (stride 0), a query that every problem reads.  CUDA tensors
+    launch the kernel; CPU tensors take the plain version.  Global mode
+    always tracks the argmax.  With
     ``with_dirs``, ``with_scores_plane`` also returns the score plane's
     interior (``FillResult.plane``, (B, C, R8)) and tracks the argmax.
     """
@@ -281,7 +291,8 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs,
     with torch.cuda.device(dev):
         plan = launch_plan(B, R8, matrix)
         S = plan.rows_on_chip
-        # (R8, B) and (C, B): a warp's 32 problems read 32 neighbouring words
+        # (R8, B) and (C, B): a warp's 32 problems read 32 neighbouring words;
+        # a query row expanded over the batch is broadcast into (C, B) here
         tT = t.T if R == R8 and t.T.is_contiguous() else None
         if tT is None:
             tT = torch.zeros((R8, B), dtype=torch.int32, device=dev)

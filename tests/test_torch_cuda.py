@@ -158,6 +158,61 @@ def test_fill_kernel_around_the_rows_on_chip(dev, dtype, kind, dirs, where):
     _equal(got, want)
 
 
+@pytest.mark.parametrize("dirs", [False, True], ids=["scores", "dirs"])
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("rows", ["short", "spilled"])
+def test_fill_kernel_reads_a_broadcast_query_as_its_replicated_rows(dev, rows, dtype,
+                                                                    mode, dirs):
+    """A query row expanded over the batch (stride 0), as a search bucket
+    hands it, gives the launch of the replicated rows bit for bit: a batch
+    of 300 (not a multiple of 32), columns that fit on chip and columns
+    with rows off chip."""
+    B, C = 300, 45
+    rng = np.random.default_rng(22)
+    m = torch.as_tensor(np.array(blosum62()), dtype=dtype, device=dev)
+    R8 = 40 if rows == "short" else _rows_on_chip_at_most(m, B) + 15
+    row = torch.as_tensor(rng.integers(0, V, C), dtype=torch.int32, device=dev)
+    ql = torch.full((B,), C, dtype=torch.int32, device=dev)
+    ql[::13] = 0  # a skipped problem reads the row too
+    t = torch.as_tensor(rng.integers(0, V, (B, R8)), dtype=torch.int32, device=dev)
+    tl = torch.as_tensor(np.clip(R8 - rng.integers(0, 30, B), 0, R8), dtype=torch.int32,
+                         device=dev)
+    spilled = dp_fill.launches.spilled
+    kw = dict(mode=mode, with_dirs=dirs)
+    got = dp_fill.fill(row.expand(B, -1), ql, t, tl, m, 11.0, 2.0, **kw)
+    want = dp_fill.fill(row.repeat(B, 1), ql, t, tl, m, 11.0, 2.0, **kw)
+    torch.cuda.synchronize()
+    assert dp_fill.launches.spilled == spilled + 2 * (rows == "spilled")
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_batch_align_with_one_query_object_on_the_card(dev, mode):
+    """``batch_align`` of ``[q] * n`` (the query sent once, read by every
+    problem) against the same batch of distinct copies, on the card."""
+    rng = np.random.default_rng(23)
+    q = rng.integers(0, V, 333).astype(np.int8)
+    ts = [rng.integers(0, V, int(n)).astype(np.int8) for n in rng.integers(1, 500, 1000)]
+    ts[17] = q.copy()
+    for kw in ({}, {"with_alignments": True, "skip": np.arange(1000) % 9 == 4}):
+        got = port.batch_align([q] * 1000, ts, blosum62(), 11.0, 2.0, mode=mode,
+                               device=dev, **kw)
+        want = port.batch_align([q.copy() for _ in ts], ts, blosum62(), 11.0, 2.0,
+                                mode=mode, device=dev, **kw)
+        if not kw:
+            for f in ("fmax", "fy", "fx", "end"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), f
+            continue
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.alignment.f == b.alignment.f
+                assert a.alignment.coords == b.alignment.coords
+                assert np.array_equal(a.alignment.query, b.alignment.query)
+                assert np.array_equal(a.alignment.target, b.alignment.target)
+
+
 def test_fill_kernel_refuses_more_shared_memory_than_the_card_has(dev, monkeypatch):
     """A plan that asks for more shared memory than a block may have is
     refused at launch and raises; it never runs with less."""

@@ -152,7 +152,9 @@ def test_upload_bytes_are_the_arrays_handed_to_the_fill(entry, monkeypatch):
     orig = dp_fill.fill
 
     def counting(q, qlen, t, tlen, matrix, *a, **kw):
-        handed.append((sum(x.nbytes for x in (q, qlen, t, tlen, matrix)), q.nbytes))
+        # a query every problem reads (stride 0) was sent as its one row
+        qb = q[0].nbytes if q.stride(0) == 0 else q.nbytes
+        handed.append((qb + sum(x.nbytes for x in (qlen, t, tlen, matrix)), qb))
         return orig(q, qlen, t, tlen, matrix, *a, **kw)
 
     monkeypatch.setattr(dp_fill, "fill", counting)
@@ -166,6 +168,55 @@ def test_upload_bytes_are_the_arrays_handed_to_the_fill(entry, monkeypatch):
     uploads = [(s.counts["h2d_bytes"], s.counts["query_bytes"])
                for s in sorted(log, key=lambda s: s.start_ns) if s.name == "fill.upload"]
     assert uploads and uploads == handed
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_a_bucket_sends_its_query_once_a_device(shards, monkeypatch):
+    """Under ``search.bucket`` the query is one padded row a device:
+    ``query_bytes`` counts it once, ``batch`` counts the rows it served, and
+    the spans the benchmark reads keep their names."""
+    monkeypatch.setattr(port.align, "_shard_devices", lambda device: [device] * shards)
+    monkeypatch.delenv("ALIGNER_AUTO_SHARD", raising=False)
+    _, log, _ = _traced(_search)
+    by_id = {s.id: s for s in log}
+
+    def under(s, name):
+        while s.parent is not None:
+            s = by_id[s.parent]
+            if s.name == name:
+                return s
+        return None
+
+    buckets = [s for s in log if s.name == "search.bucket"]
+    assert len(buckets) >= 2
+    for b in buckets:
+        (batch,) = [s for s in log if s.name == "batch" and s.parent == b.id]
+        assert batch.counts["shared_query_rows"] == batch.counts["rows"] == b.counts["rows"]
+        inside = Counter(s.name for s in log if under(s, "search.bucket") is b)
+        assert inside["batch.pad"] == inside["fill.check"] == inside["fill.sync"] == 1
+        uploads = [s for s in log if s.name == "fill.upload" and under(s, "search.bucket") is b]
+        # query_len 30: one row of 32 int32 codes, sent with the first shard
+        # (the shards share the one device), as the float64 matrix is
+        assert [u.counts["query_bytes"] for u in uploads] == [32 * 4] + [0] * (shards - 1)
+        rows = -(-b.counts["rows"] // shards) * shards
+        width = -(-b.counts["width"] // 8) * 8
+        assert sum(u.counts["h2d_bytes"] for u in uploads) == (
+            32 * 4 + rows * (4 + 4 * width + 4) + 24 * 24 * 8)
+
+
+def test_distinct_queries_are_sent_row_by_row():
+    rng = np.random.default_rng(8)
+    queries = [rng.integers(0, 20, 30).astype(np.int8) for _ in range(2)] * 5
+    targets = [rng.integers(0, 20, 20).astype(np.int8) for _ in range(10)]
+
+    def run():
+        return port.batch_align(queries, targets, port.blosum62(), 11.0, 2.0, device="cpu")
+
+    _, log, _ = _traced(run)
+    (batch,) = [s for s in log if s.name == "batch"]
+    assert batch.counts["rows"] == 10 and batch.counts["shared_query_rows"] == 0
+    (upload,) = [s for s in log if s.name == "fill.upload"]
+    assert upload.counts["query_bytes"] == 10 * 32 * 4
 
 
 def _uncounted(loop, handed):
