@@ -63,7 +63,7 @@ import torch
 from .alphabet import DNA, Alphabet, Protein
 from .backend import dtype_for, integral_params, resolve_device
 from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
-from .observability import measure, span
+from .observability import PAIR_ENGINES, count, measure, span
 from .ops.scan_engine import FillResult
 from .result import Alignment, AlignmentResult, PWMAlignment
 from .traceback import traceback_global, traceback_local, traceback_pwm
@@ -753,22 +753,28 @@ def align_global(
                            several=mesh is not None):
         from .parallel.wavefront_sp import sharded_global_align
 
-        _, qa, ta, coords = sharded_global_align(mesh, q, t, matrix_np, del_, ext,
-                                                 device=on, walk=walk)
+        with span("pair", cells=cells, aligned=1):
+            _, qa, ta, coords = sharded_global_align(mesh, q, t, matrix_np, del_, ext,
+                                                     device=on, walk=walk)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)) and (
             backend == "wavefront" or not keep_planes):
-        if huge:
-            _, qa, ta, coords = wf.align_single_global_chunked(
-                q, t, matrix_np, del_, ext, device=device, walk=walk)
-        elif keep_planes or walk == "host":
-            _, dirs = wf.fill_single_global(q, t, matrix_np, del_, ext, device=device)
-            qa, ta, coords = traceback_global(dirs, q, t)
-            return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet),
-                                   directions=dirs if keep_planes else None)
-        else:
-            _, qa, ta, coords = wf.align_single_global_direct(q, t, matrix_np, del_, ext,
-                                                              device=device)
+        with span("pair", cells=cells, aligned=1):
+            if huge:
+                _, qa, ta, coords = wf.align_single_global_chunked(
+                    q, t, matrix_np, del_, ext, device=device, walk=walk)
+            elif keep_planes or walk == "host":
+                count(row_blocks=1, col_blocks=1, engine=PAIR_ENGINES.index("row_scan"))
+                with span("pair.forward", launches=1):
+                    _, dirs = wf.fill_single_global(q, t, matrix_np, del_, ext, device=device)
+                with span("pair.walk") as sp:
+                    qa, ta, coords = traceback_global(dirs, q, t)
+                    sp.count(steps=len(qa) - 1)
+                return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet),
+                                       directions=dirs if keep_planes else None)
+            else:
+                _, qa, ta, coords = wf.align_single_global_direct(q, t, matrix_np, del_,
+                                                                  ext, device=device)
         return AlignmentResult(Alignment(qa, ta, coords, 0.0, alphabet))
     if backend == "wavefront":
         raise ValidationError(
@@ -847,9 +853,11 @@ def global_end_score(
                            several=mesh is not None):
         from .parallel.wavefront_sp import sharded_global_end_score
 
-        return sharded_global_end_score(mesh, q, t, matrix_np, del_, ext, device=on)
+        with span("pair", cells=cells, aligned=0):
+            return sharded_global_end_score(mesh, q, t, matrix_np, del_, ext, device=on)
     if wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
-        return wf.end_score_single_global_diag(q, t, matrix_np, del_, ext, device=device)
+        with span("pair", cells=cells, aligned=0):
+            return wf.end_score_single_global_diag(q, t, matrix_np, del_, ext, device=device)
     if backend == "diag":
         raise ValidationError(
             "diag backend requires an integral matrix/penalties, "

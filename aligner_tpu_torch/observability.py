@@ -36,7 +36,21 @@ span is one request, and its id is the request id):
 * ``pvalue`` (``statistics.calculate_p_value``): ``pvalue.shuffle``
   [shuffles], ``pvalue.fill`` (its ``batch``), ``pvalue.fit`` [rounds,
   converged, repeat, maxiter] (``statistics.calculate_distribution_params``;
-  a root of its own when called alone).
+  a root of its own when called alone);
+* ``pair`` [cells, aligned, row_blocks, col_blocks, engine] (one
+  ``align.align_global`` or ``align.global_end_score`` call that takes the
+  column-blocked pipeline or a single-plane wavefront route; ``aligned`` 1
+  for an alignment, 0 for an end score; ``row_blocks`` and ``col_blocks``
+  the forward fill's blocks, 1 and 1 on a single plane; ``engine`` the
+  index of the fill in :data:`PAIR_ENGINES`): ``pair.forward`` [launches]
+  (the forward fill's launches and the wait for them; on the pipeline its
+  ``pair.gather``, the trace records gathered to the walking device),
+  ``pair.replay`` [tiles, cells] (the replay tiles with directions, and the
+  cells they refill) with one ``pair.walk`` [steps] per tile (the replay
+  walk's launch and the read of its cursor), ``pair.decode`` (the step
+  stream brought to the host and turned into strings and coordinates).
+  The direct single-plane alignment fills with directions and walks in its
+  ``pair.forward``.
 
 An operator records them with ``torch.profiler``::
 
@@ -264,6 +278,21 @@ def span(name: str, **counts):
     if not _recording():
         return _OFF
     return _Span(name, counts)
+
+
+def count(**counts) -> None:
+    """Add ``counts`` to the innermost open span of this thread or task
+    (nothing while none is open, and so while no profiler records): the
+    counts that a callee learns for its caller's span."""
+    up = _open.get()
+    if up is not None:
+        up.count(**counts)
+
+
+# the fills of a ``pair`` span's ``engine`` count, by index: the pipeline's
+# three block engines (K7, K6, K7 with an int32 table), then the single
+# plane's row scan (K5) and its band fill (K6)
+PAIR_ENGINES = ("pallas", "band", "lax", "row_scan", "diag")
 
 
 def spans() -> list[SpanRecord]:

@@ -828,18 +828,29 @@ def align_single_global_direct(q, t, matrix, del_: float, ext: float, *,
     host decode of the step stream.  For pairs of up to
     :data:`DIRECT_PLANE_CELLS` cells.  Returns
     ``(end_score, qa, ta, coords)``."""
-    from ..observability import measure
+    from ..observability import measure, span
 
     _check_tr(tr)
     pp = _prep(q, t, matrix, del_, ext, device)
+    _count_plane(1)
     C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
     t_dev = torch.as_tensor(_pad_rows(pp["t"], tr), device=dev)
     state, steps = new_walk(R_real, C_real, t_dev.numel() + pp["C_pad"] + 1, dev)
-    with measure(f"{dev.type}/wavefront", R_real * C_real, 1, device=dev):
+    with span("pair.forward", launches=2), measure(f"{dev.type}/wavefront", R_real * C_real,
+                                                    1, device=dev):
         end, words, _ = _scan(pp, t_dev, None, 0, with_dirs=True, tr=tr)
         replay_walk(words, state, steps, row_base=0)
-    qa, ta, coords = _assemble(pp, state, steps)
+    with span("pair.decode"):
+        qa, ta, coords = _assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords
+
+
+def _count_plane(row_blocks: int, engine: str = "row_scan") -> None:
+    """A single plane's forward blocks and engine, on the caller's ``pair``
+    span."""
+    from ..observability import PAIR_ENGINES, count
+
+    count(row_blocks=row_blocks, col_blocks=1, engine=PAIR_ENGINES.index(engine))
 
 
 def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
@@ -847,7 +858,7 @@ def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
     fill with checkpoints, then the block loop.  Returns the end score
     tensor, the checkpoint rows, the finished cursor and step stream (all
     on the device) and a record of what the call did."""
-    from ..observability import counters, measure
+    from ..observability import counters, measure, span
 
     C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
     # clamp the block to the (tr-aligned) target length so wide-short
@@ -857,7 +868,8 @@ def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
 
     # --- forward: scores only, one checkpoint row every TB rows ---
     t0 = time.perf_counter()
-    with measure(f"{dev.type}/wavefront", R_real * C_real, 1, device=dev):
+    with span("pair.forward", launches=1), measure(f"{dev.type}/wavefront",
+                                                    R_real * C_real, 1, device=dev):
         # the forward fill in the forward strip height, unless a tile was asked for
         end, _, ckpts = _scan(pp, t_dev, None, 0, with_dirs=False, ckpt_every=TB,
                               tr=None if tr == TILE_ROWS else tr)
@@ -866,23 +878,29 @@ def _chunked_walk(pp, tb_rows: int, tr: int, sync_each_block: bool):
 
     # --- backward: replay a block with directions, walk it, go up ---
     state, steps = new_walk(R_real, C_real, t_dev.numel() + pp["C_pad"] + 1, dev)
-    blocks = 0
+    blocks, n = 0, 0
     words = None
-    for j in range((R_real - 1) // TB, -1, -1):
-        del words  # one block's words at a time
-        # ckpts[k] = H[(k+1)*TB]: block j starts from checkpoint j - 1
-        _, words, _ = _scan(pp, t_dev[j * TB : (j + 1) * TB],
-                            ckpts[j - 1] if j else None, j * TB, with_dirs=True, tr=tr)
-        replay_walk(words, state, steps, row_base=j * TB)
-        blocks += 1
-        if sync_each_block:
-            cy, cx, _ = (int(v) for v in state.cpu())
+    with span("pair.replay") as replay:
+        for j in range((R_real - 1) // TB, -1, -1):
+            del words  # one block's words at a time
+            # ckpts[k] = H[(k+1)*TB]: block j starts from checkpoint j - 1
+            _, words, _ = _scan(pp, t_dev[j * TB : (j + 1) * TB],
+                                ckpts[j - 1] if j else None, j * TB, with_dirs=True, tr=tr)
+            with span("pair.walk") as walk:
+                replay_walk(words, state, steps, row_base=j * TB)
+                if sync_each_block:
+                    n0 = n
+                    cy, cx, n = (int(v) for v in state.cpu())
+                    walk.count(steps=n - n0)
+            blocks += 1
+            if sync_each_block:
+                syncs += 1
+                if cy == 0 or cx == 0:
+                    break
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
             syncs += 1
-            if cy == 0 or cx == 0:
-                break
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        syncs += 1
+        replay.count(tiles=blocks, cells=blocks * TB * C_real)
     t2 = time.perf_counter()
     counters.record(f"{dev.type}/wavefront-replay", blocks * TB * C_real, 1, t2 - t1)
     info = dict(blocks=blocks, n_blocks=t_dev.numel() // TB, tb_rows=TB, syncs=syncs,
@@ -897,27 +915,32 @@ def _chunked_walk_host(pp, tb_rows: int, tr: int):
     directions on the row-scan fill, its words brought to the host and
     walked there by :func:`walk_block_host`.  No walk kernel is launched.
     Returns the end score tensor and the walk's codes and last cell."""
-    from ..observability import counters, measure
+    from ..observability import counters, measure, span
 
     C_real, R_real, dev = pp["C_real"], pp["R_real"], pp["device"]
     TB = min(tb_rows, _cdiv(R_real, tr) * tr)
     t_dev = torch.as_tensor(_pad_rows(pp["t"], TB), device=dev)
-    with measure(f"{dev.type}/wavefront", R_real * C_real, 1, device=dev):
+    with span("pair.forward", launches=1), measure(f"{dev.type}/wavefront",
+                                                    R_real * C_real, 1, device=dev):
         end, _, ckpts = _scan(pp, t_dev, None, 0, with_dirs=False, ckpt_every=TB,
                               tr=None if tr == TILE_ROWS else tr)
     t1 = time.perf_counter()
     cy, cx, codes, blocks = R_real, C_real, [], 0
-    for j in range((R_real - 1) // TB, -1, -1):
-        _, words, _ = _scan(pp, t_dev[j * TB : (j + 1) * TB],
-                            ckpts[j - 1] if j else None, j * TB, with_dirs=True, tr=tr)
-        w = words.cpu().numpy()  # one block's words at a time
-        del words
-        c, y, cx = walk_block_host(w, cy - j * TB, cx)
-        codes += c
-        cy = j * TB + y
-        blocks += 1
-        if cy == 0 or cx == 0:
-            break
+    with span("pair.replay") as replay:
+        for j in range((R_real - 1) // TB, -1, -1):
+            _, words, _ = _scan(pp, t_dev[j * TB : (j + 1) * TB],
+                                ckpts[j - 1] if j else None, j * TB, with_dirs=True, tr=tr)
+            with span("pair.walk") as walk:
+                w = words.cpu().numpy()  # one block's words at a time
+                del words
+                c, y, cx = walk_block_host(w, cy - j * TB, cx)
+                walk.count(steps=len(c))
+            codes += c
+            cy = j * TB + y
+            blocks += 1
+            if cy == 0 or cx == 0:
+                break
+        replay.count(tiles=blocks, cells=blocks * TB * C_real)
     counters.record(f"{dev.type}/wavefront-replay", blocks * TB * C_real, 1,
                     time.perf_counter() - t1)
     return end, cy, cx, codes
@@ -958,13 +981,18 @@ def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
         raise ValueError("tb_rows must be a positive multiple of tr")
     if walk not in ("device", "host"):
         raise ValueError(f"walk must be device or host, got {walk!r}")
+    from ..observability import span
+
     pp = _prep(q, t, matrix, del_, ext, device)
+    _count_plane(1)
     if walk == "host":
         end, cy, cx, codes = _chunked_walk_host(pp, tb_rows, tr)
-        qa, ta, coords = _assemble_codes(pp, cy, cx, codes)
+        with span("pair.decode"):
+            qa, ta, coords = _assemble_codes(pp, cy, cx, codes)
     else:
         end, _, state, steps, _ = _chunked_walk(pp, tb_rows, tr, sync_each_block)
-        qa, ta, coords = _assemble(pp, state, steps)
+        with span("pair.decode"):
+            qa, ta, coords = _assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords
 
 
@@ -1349,12 +1377,15 @@ def end_score_single_global_diag(q, t, matrix, del_: float, ext: float, *,
     of every band are built on the device and nothing comes back between
     bands: the call waits for the device once, for the end score.
     """
-    from ..observability import counters
+    from ..observability import counters, span
 
     pp = _prep(q, t, matrix, del_, ext, device)
     t0 = time.perf_counter()
-    end, _ = _band_end_score(pp, tb, td, BAND_ROWS_PER_LANE)
-    score = float(end.item())  # the call's one wait for the device
+    with span("pair.forward") as forward:
+        end, info = _band_end_score(pp, tb, td, BAND_ROWS_PER_LANE)
+        forward.count(launches=info["bands"])
+        score = float(end.item())  # the call's one wait for the device
+    _count_plane(info["bands"], "diag")
     counters.record(f"{pp['device'].type}/wavefront-band", pp["R_real"] * pp["C_real"],
                     1, time.perf_counter() - t0)
     return score

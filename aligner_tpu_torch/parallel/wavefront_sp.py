@@ -95,7 +95,7 @@ import torch
 
 from ..backend import integral_params, resolve_device
 from ..errors import ValidationError
-from ..observability import log
+from ..observability import PAIR_ENGINES, count, log, span
 from ..ops import wavefront as wf
 from .mesh import Mesh, _collective_device, data_slots
 
@@ -570,7 +570,8 @@ def _forward(pp, with_trace: bool, trace=None, block=None, **block_kw):
     end = _reduce_end(pp, end)
     if not with_trace:
         return end
-    return (end, *_gather(pp, recs))
+    with span("pair.gather"):
+        return (end, *_gather(pp, recs))
 
 
 def _reduce_end(pp, end):
@@ -698,12 +699,24 @@ def sharded_global_end_score(mesh_or_n_blocks, q, t, matrix, del_: float, ext: f
 
     pp = _prep_sharded(mesh_or_n_blocks, q, t, matrix, del_, ext, tr, None, engine, device,
                        axis)
+    _count_blocks(pp)
     t0 = time.perf_counter()
-    score = float(_forward(pp, with_trace=False).item())  # the call's one wait
+    with span("pair.forward", launches=_launches(pp)):
+        score = float(_forward(pp, with_trace=False).item())  # the call's one wait
     counters.record(f"{pp['device'].type}/wavefront-sp", pp["R_real"] * pp["C_real"], 1,
                     time.perf_counter() - t0)
     _record_handoffs(pp)
     return score
+
+
+def _count_blocks(pp) -> None:
+    """The pair's blocks and engine, on the caller's ``pair`` span."""
+    count(row_blocks=pp["J"], col_blocks=pp["n"], engine=PAIR_ENGINES.index(pp["engine"]))
+
+
+def _launches(pp) -> int:
+    """The forward fill's launches in this process: one a block a row block."""
+    return pp["J"] * sum(len(blocks) for _, blocks in pp["layout"].slots)
 
 
 def _record_handoffs(pp) -> None:
@@ -737,8 +750,9 @@ def _forward_traced(pp):
 
     t0 = time.perf_counter()
     devices = [pp["device"], *(d for d, _ in pp["layout"].slots)]
-    with measure(f"{pp['device'].type}/wavefront-sp", pp["R_real"] * pp["C_real"], 1,
-                 device=devices):
+    with span("pair.forward", launches=_launches(pp)), measure(
+            f"{pp['device'].type}/wavefront-sp", pp["R_real"] * pp["C_real"], 1,
+            device=devices):
         out = _forward(pp, with_trace=True)
     _record_handoffs(pp)
     return (*out, time.perf_counter() - t0)
@@ -762,18 +776,23 @@ def _sharded_walk(pp):
     t1 = time.perf_counter()
     syncs = 1
     state, steps = wf.new_walk(R_real, C_real, pp["R_pad"] + pp["C_pad"] + 1, dev)
-    cy, cx, tiles = R_real, C_real, 0
+    cy, cx, n, tiles = R_real, C_real, 0, 0
     words = None
-    while cy > 0 and cx > 0:
-        del words  # one tile's words at a time
-        j, d = (cy - 1) // TB, (cx - 1) // Cb
-        h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
-        words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
-                       with_dirs=True)[3]
-        wf.replay_walk(words, state, steps, row_base=j * TB, col_base=d * Cb)
-        cy, cx, _ = (int(v) for v in state.cpu())  # the tile's one wait for the device
-        syncs += 1
-        tiles += 1
+    with span("pair.replay") as replay:
+        while cy > 0 and cx > 0:
+            del words  # one tile's words at a time
+            j, d = (cy - 1) // TB, (cx - 1) // Cb
+            h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
+            words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
+                           with_dirs=True)[3]
+            with span("pair.walk") as walk:
+                wf.replay_walk(words, state, steps, row_base=j * TB, col_base=d * Cb)
+                n0 = n
+                cy, cx, n = (int(v) for v in state.cpu())  # the tile's one wait
+                walk.count(steps=n - n0)
+            syncs += 1
+            tiles += 1
+        replay.count(tiles=tiles, cells=tiles * TB * Cb)
     t2 = time.perf_counter()
     counters.record(f"{dev.type}/wavefront-sp-replay", tiles * TB * Cb, 1, t2 - t1)
     info = dict(engine=pp["engine"], tiles=tiles, tr=pp["tr"], tb_rows=TB,
@@ -796,17 +815,21 @@ def _sharded_walk_host(pp):
     end, lb_hist, ckpts, _ = _forward_traced(pp)
     t1 = time.perf_counter()
     cy, cx, codes, tiles = pp["R_real"], pp["C_real"], [], 0
-    while cy > 0 and cx > 0:
-        j, d = (cy - 1) // TB, (cx - 1) // Cb
-        h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
-        words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
-                       with_dirs=True)[3]
-        w = words.cpu().numpy()  # one tile's words at a time
-        del words
-        c, y, x = wf.walk_block_host(w, cy - j * TB, cx - d * Cb)
-        codes += c
-        cy, cx = j * TB + y, d * Cb + x
-        tiles += 1
+    with span("pair.replay") as replay:
+        while cy > 0 and cx > 0:
+            j, d = (cy - 1) // TB, (cx - 1) // Cb
+            h0, lb = _tile_inputs(pp, lb_hist, ckpts, j, d)
+            words = _block(pp, d, pp["t_dev"][j * TB:(j + 1) * TB], h0, lb, j * TB,
+                           with_dirs=True)[3]
+            with span("pair.walk") as walk:
+                w = words.cpu().numpy()  # one tile's words at a time
+                del words
+                c, y, x = wf.walk_block_host(w, cy - j * TB, cx - d * Cb)
+                walk.count(steps=len(c))
+            codes += c
+            cy, cx = j * TB + y, d * Cb + x
+            tiles += 1
+        replay.count(tiles=tiles, cells=tiles * TB * Cb)
     counters.record(f"{dev.type}/wavefront-sp-replay", tiles * TB * Cb, 1,
                     time.perf_counter() - t1)
     return end, cy, cx, codes
@@ -843,10 +866,13 @@ def sharded_global_align(mesh_or_n_blocks, q, t, matrix, del_: float, ext: float
         raise ValueError(f"walk must be device or host, got {walk!r}")
     pp = _prep_sharded(mesh_or_n_blocks, q, t, matrix, del_, ext, tr, tb_rows, engine,
                        device, axis)
+    _count_blocks(pp)
     if walk == "host":
         end, cy, cx, codes = _sharded_walk_host(pp)
-        qa, ta, coords = wf._assemble_codes(pp, cy, cx, codes)
+        with span("pair.decode"):
+            qa, ta, coords = wf._assemble_codes(pp, cy, cx, codes)
     else:
         end, _, _, state, steps, _ = _sharded_walk(pp)
-        qa, ta, coords = wf._assemble(pp, state, steps)
+        with span("pair.decode"):
+            qa, ta, coords = wf._assemble(pp, state, steps)
     return float(end.item()), qa, ta, coords

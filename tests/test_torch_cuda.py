@@ -1509,3 +1509,47 @@ def test_spans_leave_no_copy_on_the_device_timeline(dev):
     on_card = {e.name() for e in prof.profiler.kineto_results.events()
                if e.device_type() == torch.autograd.DeviceType.CUDA}
     assert "user-scope" in on_card and not names & on_card
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["align", "score"])
+def test_pair_spans_leave_no_copy_on_the_device_timeline(dev, aligned, monkeypatch):
+    """A DNA pair on the column-blocked pipeline (three column blocks of
+    4,096, replay tiles of 1,024 rows) records its ``pair`` spans under a
+    profiler that traces the card, and none of them has a copy among the
+    device's events, while the pipeline's kernels do run there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aligner_tpu_torch import observability
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    monkeypatch.setenv("ALIGNER_AUTO_SHARD", "0")
+    monkeypatch.setattr(sp, "CB_COLS", 4096)
+    monkeypatch.setitem(sp.sharded_global_align.__kwdefaults__, "tb_rows", 1024)
+    rng = np.random.default_rng(22)
+    q = rng.integers(0, 4, 12000).astype(np.int8)
+    t = q.copy()
+    sub = rng.random(len(t)) < 0.05
+    t[sub] = rng.integers(0, 4, int(sub.sum()))
+    dna = np.where(np.eye(4, dtype=bool), 1.0, -3.0)
+
+    def call():
+        if aligned:
+            return port.align_global(q, t, dna, 5.0, 2.0, alphabet=port.DNA,
+                                     backend="wavefront_sp", device=dev)
+        return port.global_end_score(q, t, dna, 5.0, 2.0, alphabet=port.DNA,
+                                     backend="wavefront_sp", device=dev)
+
+    call()
+    observability.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {s.name for s in observability.spans()}
+    observability.clear_spans()
+    want = ({"pair", "pair.forward", "pair.gather", "pair.replay", "pair.walk", "pair.decode"}
+            if aligned else {"pair", "pair.forward"})
+    assert names == want
+    on_card = {e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA}
+    assert any("fill_strips_kernel" in n or "band_walk_kernel" in n for n in on_card)
+    assert not names & on_card

@@ -349,3 +349,124 @@ def test_a_span_closes_when_its_block_raises():
     assert (inner.name, outer.name, nxt.name) == ("inner", "outer", "next")
     assert inner.parent == outer.id and inner.root == outer.id and inner.counts == {"n": 1}
     assert outer.parent is None and nxt.parent is None and nxt.root == nxt.id
+
+
+# ---------------------------------------------------------------------------
+# the pair: align_global and global_end_score on a wavefront route
+# ---------------------------------------------------------------------------
+
+PAIR_TREE = {"pair": None, "pair.forward": "pair", "pair.gather": "pair.forward",
+             "pair.replay": "pair", "pair.walk": "pair.replay", "pair.decode": "pair"}
+DNA = np.where(np.eye(4, dtype=bool), 1.0, -3.0)
+PAIR_LEN = 600  # three column blocks of 256 on the pipeline
+ENGINE = {name: i for i, name in enumerate(observability.PAIR_ENGINES)}
+# route -> (backend, aligned, the spans, the root's blocks and engine); the
+# pipeline's alignment runs one row block of 640 rows (its forward block,
+# whole replay tiles of 64), its end score one of 608 (the padded target)
+PAIR_ROUTES = {
+    "pipeline-align": ("wavefront_sp", 1, {"pair", "pair.forward", "pair.gather", "pair.replay",
+                                           "pair.walk", "pair.decode"}, (1, 3, "pallas")),
+    "pipeline-score": ("wavefront_sp", 0, {"pair", "pair.forward"}, (1, 3, "pallas")),
+    "plane-align": (None, 1, {"pair", "pair.forward", "pair.decode"}, (1, 1, "row_scan")),
+    "chunked-align": ("chunked", 1, {"pair", "pair.forward", "pair.replay", "pair.walk",
+                                     "pair.decode"}, (1, 1, "row_scan")),
+    "plane-score": (None, 0, {"pair", "pair.forward"}, (1, 1, "diag")),
+}
+
+
+def _pair_inputs():
+    """A query and a homolog of it: 15 % substituted, 9 bases deleted and 9
+    appended."""
+    rng = np.random.default_rng(13)
+    q = rng.integers(0, 4, PAIR_LEN).astype(np.int8)
+    t = q.copy()
+    sub = rng.random(PAIR_LEN) < 0.15
+    t[sub] = rng.integers(0, 4, int(sub.sum()))
+    t = np.delete(t, rng.choice(PAIR_LEN, 9, replace=False))
+    return q, np.concatenate([t, rng.integers(0, 4, 9).astype(np.int8)])
+
+
+@pytest.fixture
+def pair_call(request, monkeypatch):
+    """The route's call, its blocks cut small: the pipeline's column block to
+    256 columns and its replay tile to 64 rows, the chunked route's tile to
+    128 rows (its direct plane budget 0)."""
+    from aligner_tpu_torch.ops import wavefront as wf
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    backend, aligned, _, _ = PAIR_ROUTES[request.param]
+    monkeypatch.setenv("ALIGNER_AUTO_SHARD", "0")
+    monkeypatch.setattr(sp, "CB_COLS", 256)
+    monkeypatch.setitem(sp.sharded_global_align.__kwdefaults__, "tb_rows", 64)
+    if backend == "chunked":
+        backend = None
+        monkeypatch.setattr(wf, "DIRECT_PLANE_CELLS", 0)
+        monkeypatch.setitem(wf.align_single_global_chunked.__kwdefaults__, "tb_rows", 128)
+    q, t = _pair_inputs()
+
+    def call():
+        if aligned:
+            a = port.align_global(q, t, DNA, 5.0, 2.0, alphabet=port.DNA, backend=backend,
+                                  device="cpu").alignment
+            return a.query.tolist(), a.target.tolist(), a.coords
+        return port.global_end_score(q, t, DNA, 5.0, 2.0, alphabet=port.DNA, backend=backend,
+                                     device="cpu")
+    return call
+
+
+@pytest.mark.parametrize("pair_call", sorted(PAIR_ROUTES), indirect=True)
+def test_a_pair_records_nothing_without_a_profiler(pair_call, monkeypatch):
+    opened = []
+    monkeypatch.setattr(observability, "_range", lambda name: opened.append(name))
+    pair_call()
+    assert opened == []
+    assert observability.spans() == [] and observability.dropped_spans() == 0
+
+
+@pytest.mark.parametrize("pair_call", sorted(PAIR_ROUTES), indirect=True)
+def test_a_pair_is_one_root_with_its_tree_and_counts(pair_call, request):
+    from aligner_tpu_torch.ops import wavefront as wf
+
+    route = request.node.callspec.params["pair_call"]
+    _, aligned, names, (row_blocks, col_blocks, engine) = PAIR_ROUTES[route]
+    out, log, _ = _traced(pair_call)
+    assert out == pair_call()
+    roots = [s for s in log if s.parent is None]
+    assert [r.name for r in roots] == ["pair"]
+    root, by_id = roots[0], {s.id: s for s in log}
+    for s in log:
+        assert s.root == root.id and s.start_ns <= s.end_ns
+        if s.parent is not None:
+            parent = by_id[s.parent]
+            assert parent.name == PAIR_TREE[s.name], (s.name, parent.name)
+            assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
+    assert {s.name for s in log} == names
+    q, t = _pair_inputs()
+    assert root.counts == {"cells": len(q) * len(t), "aligned": aligned,
+                           "row_blocks": row_blocks, "col_blocks": col_blocks,
+                           "engine": ENGINE[engine]}
+    forward = [s for s in log if s.name == "pair.forward"]
+    assert len(forward) == 1
+    launches = {"pipeline": row_blocks * col_blocks, "row_scan": 1 + (route == "plane-align"),
+                "diag": row_blocks}
+    assert forward[0].counts == {"launches": launches[engine if engine != "pallas"
+                                                      else "pipeline"]}
+    if "pair.replay" in names:
+        (replay,) = [s for s in log if s.name == "pair.replay"]
+        walks = [s for s in log if s.name == "pair.walk"]
+        tile = (64 * 256) if route.startswith("pipeline") else 128 * len(q)
+        assert replay.counts == {"tiles": len(walks), "cells": len(walks) * tile}
+        assert len(walks) >= 2
+        _, steps = wf.alignment_steps(np.array(out[0]), np.array(out[1]))
+        assert sum(w.counts["steps"] for w in walks) == steps
+
+
+@pytest.mark.parametrize("pair_call", ["pipeline-align", "plane-score"], indirect=True)
+def test_a_pairs_spans_lie_on_the_profilers_clock(pair_call):
+    _, log, events = _traced(pair_call)
+    for name in {s.name for s in log}:
+        mine = sorted((s.start_ns, s.end_ns) for s in log if s.name == name)
+        theirs = sorted((e.start_ns(), e.end_ns()) for e in events if e.name() == name)
+        assert len(mine) == len(theirs), name
+        for (a0, a1), (b0, b1) in zip(mine, theirs):
+            assert abs(a0 - b0) < 1_000_000 and abs(a1 - b1) < 1_000_000, name
