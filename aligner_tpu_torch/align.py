@@ -49,12 +49,19 @@ problem's fill is independent of the others', so the results are
 bit-identical to one card's.  ``ALIGNER_AUTO_SHARD=0`` keeps every fill on
 the one device; so does a device with an index (``"cuda:1"``), a batch of
 one and a fill with its score plane.
+
+:func:`batch_align` launches its fill and waits for it.  The search's
+length buckets take :class:`ScorePass` instead: the same padding, checks,
+uploads and launches, each bucket on a stream of its own, and one wait for
+all of them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 from typing import Sequence
 
 import numpy as np
@@ -63,7 +70,7 @@ import torch
 from .alphabet import DNA, Alphabet, Protein
 from .backend import dtype_for, integral_params, resolve_device
 from .errors import MatrixShapeError, ResultIsEmpty, UnnecessaryArgument, ValidationError
-from .observability import PAIR_ENGINES, count, measure, span
+from .observability import PAIR_ENGINES, count, counters, measure, span, synchronize
 from .ops.scan_engine import FillResult
 from .result import Alignment, AlignmentResult, PWMAlignment
 from .traceback import traceback_global, traceback_local, traceback_pwm
@@ -179,21 +186,52 @@ def _assemble_sharded_fill(parts, B: int, per: int, device) -> FillResult:
     return FillResult(cat("fmax"), cat("fy"), cat("fx"), cat("end"), words)
 
 
-def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
-                  **call) -> FillResult:
-    """A batched fill split over ``devices`` (one shard each, a device may
-    repeat; one device is one launch of the whole batch).
+class _Sent:
+    """What a run of fills sends to each device once, by (device, key): a
+    shared scoring state, a shared query row.  On a card each upload is
+    followed by an event on the stream it went on, and a fill that reads it
+    later waits for that event first (on another stream, as the batches of
+    :class:`ScorePass` are, it would otherwise not)."""
+
+    def __init__(self):
+        self._sent = {}
+
+    def get(self, dev: torch.device, key, make):
+        """``(obj, new)``: what went to ``dev`` under ``key``, made by
+        ``make()`` on the device's current stream the first time (``new``
+        true then)."""
+        hit = self._sent.get((dev, key))
+        if hit is not None:
+            obj, event = hit
+            if event is not None:
+                torch.cuda.current_stream(dev).wait_event(event)
+            return obj, False
+        obj, event = make(), None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        self._sent[dev, key] = obj, event
+        return obj, True
+
+
+def _launch_shards(fill_cls, scoring, rows, del_, ext, dtype, devices, sent: _Sent,
+                   streams=None, **call) -> list[FillResult]:
+    """Upload and launch a batched fill split over ``devices`` (one shard
+    each, a device may repeat; one device is one launch of the whole
+    batch), and return the shards' FillResults unread, ``-(-B // n)`` rows
+    each.
 
     ``fill_cls``: :class:`~aligner_tpu_torch.ops.dp_fill.DPFill` with
     ``rows`` (q, ql, t, tl), or :class:`~aligner_tpu_torch.ops.dp_fill.PWMFill`
     with ``rows`` (q, ql); ``scoring``: a shared (V, V) matrix or (4, W)
-    PWM, which goes to each device once, or per-problem (B, ...) ones,
-    which split with the batch; a :func:`_shared_row` of ``rows`` also goes
-    to each device once, as one (C,) row that every shard expands over its
-    problems; ``call``: the fill's keyword arguments.
+    PWM, which goes to each device once in ``sent``, or per-problem
+    (B, ...) ones, which split with the batch; a :func:`_shared_row` of
+    ``rows`` also goes to each device once in ``sent``, as one (C,) row
+    that every shard expands over its problems; ``streams``: the CUDA
+    stream each shard uploads and launches on (else each device's current
+    stream); ``call``: the fill's keyword arguments.
     B is padded with zero-length problems to a multiple of the shard count
-    and split into contiguous shards.  Every shard is launched before any
-    is read; the result is :func:`_assemble_sharded_fill`'s, on ``device``."""
+    and split into contiguous shards."""
     B = len(rows[1])
     n = len(devices)
     per = -(-B // n)
@@ -202,40 +240,42 @@ def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
     rows = _pad_batch_rows(rows, B, per * n)
     if batched:
         (scoring,) = _pad_batch_rows([scoring], B, per * n)
-    shared = {}
-    shared_rows = {}  # (device, index in rows): a shared row on that device
     parts = []
     for k, dev in enumerate(devices):
         part = slice(k * per, (k + 1) * per)
-        with span("fill.upload") as sp:
-            sent = []  # what goes to the device here, for the span's count
-            if batched:
-                dp = fill_cls.from_numpy(scoring[part], del_, ext, device=dev, dtype=dtype)
-                sent.append(dp)
-            elif dev in shared:
-                dp = shared[dev]
-            else:
-                dp = shared[dev] = fill_cls.from_numpy(scoring, del_, ext, device=dev,
-                                                       dtype=dtype)
-                sent.append(dp)
-            args, row_bytes = [], []  # each row's tensor, and the bytes it sent here
-            for i, a in enumerate(rows):
-                if not _shared_row(a):
-                    args.append(_dev_i32(a[part], dev))
-                    row_bytes.append(args[-1].nbytes)
-                    continue
-                new = (dev, i) not in shared_rows
-                if new:
+        with torch.cuda.stream(streams[k]) if streams else contextlib.nullcontext():
+            with span("fill.upload") as sp:
+                if batched:
+                    dp, new = fill_cls.from_numpy(scoring[part], del_, ext, device=dev,
+                                                  dtype=dtype), True
+                else:
+                    dp, new = sent.get(dev, ("scoring", dtype), lambda: fill_cls.from_numpy(
+                        scoring, del_, ext, device=dev, dtype=dtype))
+                scoring_bytes = sum(b.nbytes for b in dp.buffers()) if new else 0
+                args, row_bytes = [], []  # each row's tensor, and the bytes it sent here
+                for i, a in enumerate(rows):
+                    if not _shared_row(a):
+                        args.append(_dev_i32(a[part], dev))
+                        row_bytes.append(args[-1].nbytes)
+                        continue
                     # a[0] is a read-only view: its copy is one row
-                    shared_rows[dev, i] = _dev_i32(a[0].copy(), dev)
-                args.append(shared_rows[dev, i].expand(per, -1))
-                row_bytes.append(shared_rows[dev, i].nbytes if new else 0)
-            if sp:
-                scoring_bytes = sum(b.nbytes for d in sent for b in d.buffers())
+                    row, new = sent.get(dev, ("row", i), lambda: _dev_i32(a[0].copy(), dev))
+                    args.append(row.expand(per, -1))
+                    row_bytes.append(row.nbytes if new else 0)
                 sp.count(h2d_bytes=scoring_bytes + sum(row_bytes), query_bytes=row_bytes[0])
-        with span("fill.launch"):
-            parts.append(dp(*args, **call))
-    return _assemble_sharded_fill(parts, B, per, device)
+            with span("fill.launch"):
+                parts.append(dp(*args, **call))
+    return parts
+
+
+def _fill_sharded(fill_cls, scoring, rows, del_, ext, dtype, devices, device,
+                  **call) -> FillResult:
+    """A batched fill split over ``devices`` by :func:`_launch_shards`:
+    every shard is launched before any is read; the result is
+    :func:`_assemble_sharded_fill`'s, on ``device``."""
+    parts = _launch_shards(fill_cls, scoring, rows, del_, ext, dtype, devices, _Sent(),
+                           **call)
+    return _assemble_sharded_fill(parts, len(rows[1]), len(parts[0].fmax), device)
 
 
 def _host_words(words, n: int) -> torch.Tensor:
@@ -251,6 +291,21 @@ def _host_words(words, n: int) -> torch.Tensor:
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
+def _cells(ql, tl) -> int:
+    return int((np.asarray(ql, np.int64) * np.asarray(tl, np.int64)).sum())
+
+
+def _check_pair_codes(q, t, matrix) -> None:
+    """Refuse query or target codes outside the scoring matrix's alphabet
+    (a :func:`_shared_row` query is checked once)."""
+    vol = np.asarray(matrix).shape[-1]
+    for name, a in (("query", q[:1] if _shared_row(q) else q), ("target", t)):
+        if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
+            raise ValidationError(
+                f"{name} codes must lie in the {vol}-symbol scoring alphabet"
+            )
+
+
 def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
           track_argmax=True, with_plane=False):
     """One batched fill on ``device``, sharded over
@@ -260,16 +315,11 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
     score plane's interior with ``with_plane``) left on the device."""
     from .ops.dp_fill import DPFill
 
-    cells = int((np.asarray(ql, np.int64) * np.asarray(tl, np.int64)).sum())
+    cells = _cells(ql, tl)
     shards = [device] if with_plane or len(ql) < 2 else _auto_shard_devices(device)
     with span("fill", cells=cells, shards=len(shards)):
         with span("fill.check"):
-            vol = np.asarray(matrix).shape[-1]
-            for name, a in (("query", q[:1] if _shared_row(q) else q), ("target", t)):
-                if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
-                    raise ValidationError(
-                        f"{name} codes must lie in the {vol}-symbol scoring alphabet"
-                    )
+            _check_pair_codes(q, t, matrix)
         with measure(_engine_name(device, shards, mode), cells, len(ql), device=shards,
                      sync_span="fill.sync"):
             return _fill_sharded(DPFill, matrix, [q, ql, t, tl], del_, ext, dtype, shards,
@@ -330,6 +380,25 @@ def _walk_pairs_on_host(words, mode, qs, ts, q, t, ql, tl, sy, sx, fmax, skip_ma
     return out
 
 
+def _pad_pairs(queries, targets, alphabet, one_query: bool):
+    """The codes of a batch, ``qs`` and ``ts``, and their padded (B, C) and
+    (B, R) int32 arrays with lengths, ``q, ql, t, tl``.  With ``one_query``
+    (every query the same object) the query is encoded and padded once and
+    ``q`` is its row broadcast over the batch (stride 0)."""
+    qs = ([_encode(queries[0], alphabet)] * len(queries) if one_query
+          else [_encode(s, alphabet) for s in queries])
+    ts = [_encode(s, alphabet) for s in targets]
+    if len(qs) != len(ts):
+        raise ValidationError("queries and targets must have the same length")
+    if one_query:
+        row, ql = pad_batch(qs[:1])
+        q, ql = np.broadcast_to(row[0], (len(qs), row.shape[1])), np.repeat(ql, len(qs))
+    else:
+        q, ql = pad_batch(qs)
+    t, tl = pad_batch(ts)
+    return qs, ts, q, ql, t, tl
+
+
 def batch_align(
     queries: Sequence,
     targets: Sequence,
@@ -378,18 +447,8 @@ def batch_align(
     with span("batch", rows=len(queries), with_alignments=int(with_alignments),
               shared_query_rows=len(queries) if one_query else 0):
         with span("batch.pad"):
-            qs = ([_encode(queries[0], alphabet)] * len(queries) if one_query
-                  else [_encode(s, alphabet) for s in queries])
-            ts = [_encode(s, alphabet) for s in targets]
-            if len(qs) != len(ts):
-                raise ValidationError("queries and targets must have the same length")
+            qs, ts, q, ql, t, tl = _pad_pairs(queries, targets, alphabet, one_query)
             n_real = len(qs)
-            if one_query:
-                row, ql = pad_batch(qs[:1])
-                q, ql = np.broadcast_to(row[0], (n_real, row.shape[1])), np.repeat(ql, n_real)
-            else:
-                q, ql = pad_batch(qs)
-            t, tl = pad_batch(ts)
             if skip is not None:
                 ql = np.where(np.asarray(skip, bool), 0, ql).astype(np.int32)
                 tl = np.where(np.asarray(skip, bool), 0, tl).astype(np.int32)
@@ -462,6 +521,132 @@ def batch_align(
                 int(sy_full[b]), int(sx_full[b]), int(ey[b]), int(ex[b]),
                 float(fmax_np[b]), alphabet,
             ))
+        return out
+
+
+# the streams a card lends a ScorePass: PyTorch's pool holds 32 a card (and
+# priority), taken once and used again by every later pass
+STREAMS_PER_CARD = 32
+_STREAMS: dict[int, list] = {}
+
+
+def _card(d: torch.device) -> torch.device:
+    """``d``, with the current card's index where it is ``"cuda"`` without
+    one."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _pass_stream(card: torch.device, i: int):
+    """The stream of a :class:`ScorePass`'s ``i``-th batch on ``card``: its
+    pool's stream ``i`` (past the pool's last, batch ``i`` shares a stream
+    with, and so waits for, batch ``i - len(pool)``)."""
+    pool = _STREAMS.get(card.index)
+    if pool is None:
+        made = (torch.cuda.Stream(card) for _ in range(STREAMS_PER_CARD))
+        pool = _STREAMS[card.index] = list({s.cuda_stream: s for s in made}.values())
+    return pool[i % len(pool)]
+
+
+class ScorePass:
+    """The scores-only fills of one query against many batches of targets
+    (the search's length buckets) as one pass over the cards.
+
+    :meth:`enqueue` pads, checks, uploads and launches a batch as
+    :func:`batch_align` of ``[query] * n`` against it does without
+    alignments, but on a CUDA stream of its own (the ``i``-th batch on
+    stream ``i`` of a pool taken once a card) and without waiting for the
+    card: no batch waits for another's launch.  The query's shared row and
+    the scoring state go to each card once a pass; a batch on another
+    stream waits for their upload's event.  :meth:`read` then waits for the
+    cards once and reads every batch's scores, bit for bit what
+    :func:`batch_align` returns.  On the CPU the batches run in turn on the
+    plain fill as they are enqueued.
+
+    Each batch is a ``batch`` span with ``batch.pad`` and ``fill``
+    (``fill.check``, ``fill.upload``, ``fill.launch``), as in
+    :func:`batch_align`; the wait and the reads are one ``batch`` span
+    [batches] of ``fill.sync`` and ``batch.read``; the pass is one launch
+    of the counters, from its first upload to the wait.  Use it as a
+    context manager: leaving it without :meth:`read` waits for the cards,
+    so that nothing still running reads a tensor that has gone."""
+
+    def __init__(self, query, matrix, del_: float, ext: float, *, mode: str = "local",
+                 alphabet: type[Alphabet] = Protein, device=None):
+        if mode not in ("local", "global"):
+            raise ValidationError(f"mode must be local|global, got {mode!r}")
+        self.query = _encode(query, alphabet)
+        self.matrix, self.del_, self.ext = matrix, del_, ext
+        self.mode, self.alphabet = mode, alphabet
+        self.device = resolve_device(device)
+        self.shards = [_card(d) for d in _auto_shard_devices(self.device)]
+        self.in_flight = 0  # the batches enqueued
+        self.streams: set = set()  # the streams they were enqueued on
+        self._sent = _Sent()
+        self._batches: list = []  # (rows, the shards' FillResults, the shards) unread
+        self._cells = 0
+        self._t0 = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._batches:
+            synchronize(self._cards())
+        return False
+
+    def _cards(self) -> list:
+        return list(dict.fromkeys(d for _, _, shards in self._batches for d in shards))
+
+    def enqueue(self, targets: Sequence) -> None:
+        """Launch the fills of the query against ``targets`` (one or more)."""
+        from .ops.dp_fill import DPFill
+
+        n = len(targets)
+        with span("batch", rows=n, with_alignments=0, shared_query_rows=n):
+            with span("batch.pad"):
+                _, _, q, ql, t, tl = _pad_pairs([self.query] * n, targets, self.alphabet,
+                                                True)
+            dtype = dtype_for(self.device, self.matrix, self.del_, self.ext,
+                              lengths=(t.shape[1], q.shape[1]))
+            shards = self.shards if n > 1 else [_card(self.device)]
+            cells = _cells(ql, tl)
+            with span("fill", cells=cells, shards=len(shards)):
+                with span("fill.check"):
+                    _check_pair_codes(q, t, self.matrix)
+                if self._t0 is None:
+                    self._t0 = time.perf_counter()
+                streams = None
+                if self.device.type == "cuda":
+                    streams = [_pass_stream(d, self.in_flight) for d in shards]
+                    self.streams.update(streams)
+                parts = _launch_shards(DPFill, self.matrix, [q, ql, t, tl], self.del_,
+                                       self.ext, dtype, shards, self._sent, streams,
+                                       mode=self.mode, track_argmax=True, with_dirs=False,
+                                       with_scores_plane=False)
+        self._batches.append((n, parts, shards))
+        self.in_flight += 1
+        self._cells += cells
+
+    def read(self) -> list[BatchScores]:
+        """Wait for the cards, once, and return every batch's scores in the
+        order the batches were enqueued."""
+        out = []
+        with span("batch", batches=len(self._batches)):
+            synchronize(self._cards(), "fill.sync")
+            if self._batches:
+                counters.record(_engine_name(self.device, self.shards, self.mode),
+                                self._cells, sum(n for n, _, _ in self._batches),
+                                time.perf_counter() - self._t0)
+            with span("batch.read"):
+                for n, parts, _ in self._batches:
+                    res = _assemble_sharded_fill(parts, n, len(parts[0].fmax), self.device)
+                    out.append(BatchScores(
+                        fmax=res.fmax.cpu().numpy()[:n], fy=res.fy.cpu().numpy()[:n],
+                        fx=res.fx.cpu().numpy()[:n], end=res.end.cpu().numpy()[:n],
+                    ))
+        self._batches = []
         return out
 
 

@@ -15,17 +15,23 @@
 The spans, nested as the program opens them (counts in brackets; a root
 span is one request, and its id is the request id):
 
-* ``search`` [records, query_len] (``search.search_database``):
+* ``search`` [records, query_len, in_flight, streams] (``search.search_database``;
+  ``in_flight``: the buckets' fills enqueued before the score pass's one
+  wait, ``streams``: the CUDA streams they went on, 0 on the CPU):
   ``search.encode``, ``search.buckets`` [buckets], one ``search.bucket``
-  [rows, width] per length bucket (its ``batch``), ``search.rank``,
-  ``search.alignments`` (the top hits' ``batch``);
-* ``batch`` [rows, with_alignments, shared_query_rows] (``align.batch_align``;
-  ``shared_query_rows``: the rows that read one shared query row, 0 unless
-  every problem has the same query object): ``batch.pad``, ``fill``,
-  ``batch.read`` (the results' copies to the host), ``batch.walk``;
+  [rows, width] per length bucket, tallest first (its ``batch``, without
+  ``batch.read`` and ``fill.sync``), the score pass's one ``batch``
+  [batches] (its ``fill.sync``, the one wait, and ``batch.read``),
+  ``search.rank``, ``search.alignments`` (the top hits' ``batch``);
+* ``batch`` [rows, with_alignments, shared_query_rows] (``align.batch_align``,
+  and a batch of ``align.ScorePass``; ``shared_query_rows``: the rows that
+  read one shared query row, 0 unless every problem has the same query
+  object): ``batch.pad``, ``fill``, ``batch.read`` (the results' copies to
+  the host), ``batch.walk``;
 * ``fill`` [cells, shards] (a batched fill): ``fill.check``, one
   ``fill.upload`` [h2d_bytes, query_bytes] and one ``fill.launch`` per
-  shard (a shared query row is counted where it is sent, once a device),
+  shard (a shared query row and the scoring state are counted where they
+  are sent, once a device a call, once a device a score pass),
   ``fill.sync`` (the wait for the card);
 * ``population`` [members, iterations] (``heuristic.heuristic_align_population``):
   ``population.start``, ``population.done_read`` (the read of the members'
@@ -150,20 +156,26 @@ class Counters:
 counters = Counters()
 
 
+def synchronize(device, sync_span: str | None = None) -> None:
+    """Wait for a CUDA ``device`` (or for each card of a list of devices:
+    the shards of a fill), inside the span ``sync_span`` when one is
+    named."""
+    with span(sync_span) if sync_span else _OFF:
+        for d in dict.fromkeys(device if isinstance(device, (list, tuple)) else [device]):
+            if d is not None and torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
+
+
 @contextlib.contextmanager
 def measure(engine: str, cells: int, problems: int, device=None, sync_span: str | None = None):
     """Record a launch in the global counters.  With a CUDA ``device`` (or
     a list of devices: the shards of a fill) each card is synchronised
-    before the clock stops, inside the span ``sync_span`` when one is
-    named."""
+    (:func:`synchronize`) before the clock stops."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        with span(sync_span) if sync_span else _OFF:
-            for d in dict.fromkeys(device if isinstance(device, (list, tuple)) else [device]):
-                if d is not None and torch.device(d).type == "cuda":
-                    torch.cuda.synchronize(d)
+        synchronize(device, sync_span)
         counters.record(engine, cells, problems, time.perf_counter() - t0)
 
 

@@ -3,7 +3,10 @@
 The database shards into length buckets (padding waste is bounded by the
 bucket growth factor), every bucket runs as one scores-only batched
 launch, and only the top-k hits pay for a full (direction words + walk)
-pass.  Counterpart of ``aligner_tpu.search``.
+pass.  The buckets' launches are one :class:`~aligner_tpu_torch.align.ScorePass`:
+enqueued tallest first, each on a stream of its own, all in flight at
+once, and one wait for the card before their scores are read.
+Counterpart of ``aligner_tpu.search``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .align import batch_align
+from .align import ScorePass, batch_align
 from .alphabet import Alphabet, Protein
 from .errors import ValidationError
 from .observability import span
@@ -75,8 +78,9 @@ def search_database(
 ) -> list[SearchHit]:
     """Align ``query`` against every database sequence; return top-k hits.
 
-    Scores for the whole database come from bucketed scores-only launches;
-    alignments (traceback) are computed only for the k winners.
+    Scores for the whole database come from bucketed scores-only launches,
+    one score pass; alignments (traceback) are computed only for the k
+    winners.
     """
     from .align import _encode
 
@@ -101,16 +105,20 @@ def search_database(
             buckets = length_buckets(lengths, growth=bucket_growth)
             bs.count(buckets=len(buckets))
 
+        # a bucket is sorted by length: its last record is its longest.  The
+        # tallest goes first: its launch runs longest, and the host prepares
+        # the other buckets while it does
+        order = sorted(buckets, key=lambda b: lengths[b[-1]], reverse=True)
+        with ScorePass(q, matrix, del_, ext, mode=mode, alphabet=alphabet,
+                       device=device) as fills:
+            for bucket in order:
+                with span("search.bucket", rows=len(bucket), width=lengths[bucket[-1]]):
+                    fills.enqueue([db[i] for i in bucket])
+            results = fills.read()
+        sp.count(in_flight=fills.in_flight, streams=len(fills.streams))
         scores = np.full(len(db), -np.inf)
-        for bucket in buckets:
-            # a bucket is sorted by length: its last record is its longest
-            with span("search.bucket", rows=len(bucket), width=lengths[bucket[-1]]):
-                targets = [db[i] for i in bucket]
-                res = batch_align(
-                    [q] * len(bucket), targets, matrix, del_, ext,
-                    mode=mode, alphabet=alphabet, device=device,
-                )
-                scores[bucket] = res.fmax if mode == "local" else res.end
+        for bucket, res in zip(order, results):
+            scores[bucket] = res.fmax if mode == "local" else res.end
         with span("search.rank"):
             # a zero-length record has NO alignment (the single-pair API raises
             # ResultIsEmpty) — the batch fill reports its masked-out score as 0,

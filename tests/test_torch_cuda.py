@@ -1485,6 +1485,50 @@ def test_column_blocked_pipeline_across_two_gloo_ranks_on_the_card(dev, tmp_path
     assert "cuda/wavefront-sp-handoff" in ranks[1]["wavefront_counters"]
 
 
+def test_score_pass_overlaps_the_buckets_and_waits_once(dev, monkeypatch):
+    """The search's score pass on the card: the tallest bucket's fill
+    (6 records of 2,400 rows) still runs when the next bucket's starts, on
+    the profiler's device timeline; the host synchronises the card once for
+    the pass, which the counters record as one launch; and every bucket's
+    scores equal its own ``batch_align``'s, bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aligner_tpu_torch import align, observability
+    from aligner_tpu_torch.search import length_buckets
+
+    rng = np.random.default_rng(25)
+    q = rng.integers(0, 20, 1200).astype(np.int8)
+    lens = [2400] * 6 + list(rng.integers(200, 260, 400)) + list(rng.integers(20, 40, 400))
+    db = [rng.integers(0, 20, int(n)).astype(np.int8) for n in lens]
+    order = sorted(length_buckets(lens), key=lambda b: lens[b[-1]], reverse=True)
+    assert len(order) >= 3
+    want = [port.batch_align([q] * len(b), [db[i] for i in b], blosum62(), 11.0, 2.0,
+                             device=dev) for b in order]
+    syncs = []
+    real = torch.cuda.synchronize
+    before = observability.counters.snapshot().get("cuda/local")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda device=None: (syncs.append(device), real(device))[1])
+        with align.ScorePass(q, blosum62(), 11.0, 2.0, device=dev) as fills:
+            for b in order:
+                fills.enqueue([db[i] for i in b])
+            got = fills.read()
+        monkeypatch.undo()
+    after = observability.counters.snapshot()["cuda/local"]
+    assert len(syncs) == 1
+    assert after.launches - (before.launches if before else 0) == 1
+    assert fills.in_flight == len(fills.streams) == len(order)
+    for res, w in zip(got, want):
+        for f in ("fmax", "fy", "fx", "end"):
+            assert np.array_equal(getattr(res, f), getattr(w, f)), f
+    k1 = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and "dp_fill_kernel" in e.name())
+    assert len(k1) == len(order)
+    assert k1[1][0] < k1[0][1]  # the second launch starts before the tallest ends
+
+
 def test_spans_leave_no_copy_on_the_device_timeline(dev):
     """The program's spans are recorded under a profiler that traces the
     card, and none of them has a copy among the device's events (a copy

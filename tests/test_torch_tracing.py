@@ -26,10 +26,11 @@ torch.set_num_threads(1)
 TREE = {
     "search": None, "search.encode": "search", "search.buckets": "search",
     "search.bucket": "search", "search.rank": "search", "search.alignments": "search",
-    "batch": ("search.bucket", "search.alignments", "population.final", "pvalue.fill"),
+    "batch": ("search.bucket", "search.alignments", "population.final", "pvalue.fill",
+              "search"),
     "batch.pad": "batch", "batch.read": "batch", "batch.walk": "batch",
     "fill": "batch", "fill.check": "fill", "fill.upload": "fill", "fill.launch": "fill",
-    "fill.sync": "fill",
+    "fill.sync": ("fill", "batch"),
     "population": None, "population.start": "population",
     "population.done_read": ("population", "population.iteration"),
     "population.iteration": "population", "population.fill": "population.iteration",
@@ -137,24 +138,53 @@ def test_one_request_one_root_and_the_tree(entry):
                    "fill.launch", "fill.sync"},
     }[entry]
     assert set(names) == expect
-    assert names["fill"] == names["batch"] == names["fill.upload"] == names["fill.launch"]
-    if entry == "search":
-        buckets = [s for s in log if s.name == "search.buckets"][0].counts["buckets"]
-        assert names["search.bucket"] == buckets >= 2
-        assert root.counts == {"records": 40, "query_len": 30}
-        rows = sum(s.counts["rows"] for s in log if s.name == "search.bucket")
-        assert rows == 40
+    assert names["fill"] == names["fill.upload"] == names["fill.launch"]
+    # a batch under the search itself is the score pass's one wait and read
+    joins = [s for s in log if s.name == "batch" and by_id[s.parent].name == "search"]
+    syncs = [s for s in log if s.name == "fill.sync"]
+    if entry != "search":
+        assert joins == [] and names["batch"] == names["fill"]
+        assert all(by_id[s.parent].name == "fill" for s in syncs)
+        return
+    buckets = [s for s in log if s.name == "search.buckets"][0].counts["buckets"]
+    assert names["search.bucket"] == buckets >= 2
+    assert root.counts == {"records": 40, "query_len": 30, "in_flight": buckets,
+                           "streams": 0}
+    rows = sum(s.counts["rows"] for s in log if s.name == "search.bucket")
+    assert rows == 40
+    # each bucket's batch and fill, the join, and the top hits' batch and fill
+    (join,) = joins
+    assert join.counts == {"batches": buckets}
+    assert names["batch"] == names["fill"] + 1 == buckets + 2
+    # one wait for the score pass (under the join), one for the top hits' fill
+    assert [by_id[s.parent].name for s in sorted(syncs, key=lambda s: s.start_ns)] == [
+        "batch", "fill"]
+    assert Counter(s.name for s in log if s.parent == join.id) == {"fill.sync": 1,
+                                                                   "batch.read": 1}
+    # every bucket is launched before the wait
+    assert all(s.end_ns <= join.start_ns for s in log if s.name == "search.bucket")
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_upload_bytes_are_the_arrays_handed_to_the_fill(entry, monkeypatch):
+    """Each fill's upload counts the arrays it hands the fill that no
+    earlier fill was handed: the search's score pass sends the matrix and
+    the query's row once, with its first bucket."""
     handed = []
+    seen = []  # the storages handed so far, kept alive so none is reused
     orig = dp_fill.fill
 
-    def counting(q, qlen, t, tlen, matrix, *a, **kw):
+    def first(x):
+        ptr = x.untyped_storage().data_ptr()
+        if any(ptr == s.data_ptr() for s in seen):
+            return 0
+        seen.append(x.untyped_storage())
         # a query every problem reads (stride 0) was sent as its one row
-        qb = q[0].nbytes if q.stride(0) == 0 else q.nbytes
-        handed.append((qb + sum(x.nbytes for x in (qlen, t, tlen, matrix)), qb))
+        return x[0].nbytes if x.stride(0) == 0 else x.nbytes
+
+    def counting(q, qlen, t, tlen, matrix, *a, **kw):
+        qb = first(q)
+        handed.append((qb + sum(first(x) for x in (qlen, t, tlen, matrix)), qb))
         return orig(q, qlen, t, tlen, matrix, *a, **kw)
 
     monkeypatch.setattr(dp_fill, "fill", counting)
@@ -172,9 +202,12 @@ def test_upload_bytes_are_the_arrays_handed_to_the_fill(entry, monkeypatch):
 
 @pytest.mark.parametrize("shards", [1, 3])
 def test_a_bucket_sends_its_query_once_a_device(shards, monkeypatch):
-    """Under ``search.bucket`` the query is one padded row a device:
-    ``query_bytes`` counts it once, ``batch`` counts the rows it served, and
-    the spans the benchmark reads keep their names."""
+    """Under ``search.bucket`` the query is one padded row a device, sent
+    once a score pass: ``query_bytes`` counts it once, with the first
+    bucket enqueued (the tallest), as the matrix; ``batch`` counts the rows
+    it served; no bucket waits (the pass's one ``fill.sync`` is under the
+    join's ``batch``), and the spans the benchmark reads keep their
+    names."""
     monkeypatch.setattr(port.align, "_shard_devices", lambda device: [device] * shards)
     monkeypatch.delenv("ALIGNER_AUTO_SHARD", raising=False)
     _, log, _ = _traced(_search)
@@ -187,21 +220,31 @@ def test_a_bucket_sends_its_query_once_a_device(shards, monkeypatch):
                 return s
         return None
 
-    buckets = [s for s in log if s.name == "search.bucket"]
+    buckets = sorted((s for s in log if s.name == "search.bucket"), key=lambda s: s.start_ns)
     assert len(buckets) >= 2
-    for b in buckets:
+    widths = [b.counts["width"] for b in buckets]
+    assert widths == sorted(widths, reverse=True)  # the tallest first
+    for k, b in enumerate(buckets):
         (batch,) = [s for s in log if s.name == "batch" and s.parent == b.id]
         assert batch.counts["shared_query_rows"] == batch.counts["rows"] == b.counts["rows"]
         inside = Counter(s.name for s in log if under(s, "search.bucket") is b)
-        assert inside["batch.pad"] == inside["fill.check"] == inside["fill.sync"] == 1
+        assert inside["batch.pad"] == inside["fill.check"] == 1 and inside["fill.sync"] == 0
         uploads = [s for s in log if s.name == "fill.upload" and under(s, "search.bucket") is b]
-        # query_len 30: one row of 32 int32 codes, sent with the first shard
-        # (the shards share the one device), as the float64 matrix is
-        assert [u.counts["query_bytes"] for u in uploads] == [32 * 4] + [0] * (shards - 1)
+        assert len(uploads) == shards
+        # query_len 30: one row of 32 int32 codes, sent with the first
+        # bucket's first shard (the shards share the one device), as the
+        # float64 matrix is
+        sent_once = 32 * 4 if k == 0 else 0
+        assert [u.counts["query_bytes"] for u in uploads] == [sent_once] + [0] * (shards - 1)
         rows = -(-b.counts["rows"] // shards) * shards
         width = -(-b.counts["width"] // 8) * 8
         assert sum(u.counts["h2d_bytes"] for u in uploads) == (
-            32 * 4 + rows * (4 + 4 * width + 4) + 24 * 24 * 8)
+            rows * (4 + 4 * width + 4) + (32 * 4 + 24 * 24 * 8 if k == 0 else 0))
+    (join,) = [s for s in log if s.name == "batch" and by_id[s.parent].name == "search"]
+    # the pass's one wait, and the top hits' fill's own
+    (score_sync,) = [s for s in log if s.name == "fill.sync" and s.parent == join.id]
+    (other,) = [s for s in log if s.name == "fill.sync" and s is not score_sync]
+    assert under(other, "search.alignments") is not None
 
 
 def test_distinct_queries_are_sent_row_by_row():
