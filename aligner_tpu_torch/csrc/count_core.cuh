@@ -1,7 +1,7 @@
-// The body of the heuristic population's frequency count, shared by its two
-// kernels: the standalone count (freq_count.cu) and the counting walk, K4's
-// walker core with the count as its epilogue (walk_core.cuh,
-// device_walk_kernel<false, VEC, true>).
+// The body of the heuristic population's frequency count, the epilogue of
+// the counting walk: K4's walker core with the count after the walk
+// (walk_core.cuh, device_walk_kernel<false, VEC, true>).  Its plain version
+// is ops/device_walk.py:count_pairs_plain.
 //
 // What it computes: one member's walk left a stream of n two-bit codes, 16
 // a word, word w at steps[w * stride], taken from the start cell (y, x):

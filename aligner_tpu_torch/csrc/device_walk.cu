@@ -19,8 +19,8 @@
 //
 // The counting walk (device_walk_count_launch) is the same kernel with the
 // population's frequency count as its epilogue (walk_core.cuh, COUNT); it
-// also replaces the step unpack and frequency scatter-add of
-// aligner_tpu/heuristic.py:207-242, which freq_count.cu launched on its own.
+// is the counterpart of the step unpack and frequency scatter-add of
+// aligner_tpu/heuristic.py:207-242.
 #include "walk_core.cuh"
 
 namespace {

@@ -409,10 +409,9 @@ replay_walk_kernel(const int* __restrict__ words, long long C_pad, int row_base,
 // With COUNT (local mode only), the counting walk: the count of
 // count_core.cuh as the walk's epilogue, on the stream its warp has just
 // written, the member's (V, V) counts in the warp's shared memory where its
-// ring was (walk_warp_ints(span, V) ints a warp), written to count.out.  It
-// replaces the standalone count (freq_count.cu) on the heuristic
-// population's path: one launch an iteration instead of two, the stream
-// read back by the warp that has just written it.
+// ring was (walk_warp_ints(span, V) ints a warp), written to count.out: on
+// the heuristic population's path one launch an iteration for the walk and
+// the count, the stream read back by the warp that has just written it.
 template <bool GLOBAL, int VEC, bool COUNT>
 __global__ void __launch_bounds__(256)
 device_walk_kernel(const int* __restrict__ words, int word_rows, int C,

@@ -9,10 +9,8 @@ the heuristic population's count as its epilogue, the population's path);
 ``csrc/wavefront_band.cu``, ``csrc/wavefront_block.cu``) is one huge global
 pair: the row-scan fill and the walk over its replayed blocks, the band
 fill of its end score, and the column-block fill of the column-blocked
-pipeline, each with its plain version; ``freq_count`` (CUDA,
-``csrc/freq_count.cu``) is that count on its own, from the walks' step
-streams, with its plain version.  Kernels are built with ``nvcc`` at first
-use (``_build``), never at import.
+pipeline, each with its plain version.  Kernels are built with ``nvcc`` at
+first use (``_build``), never at import.
 """
 
 from .scan_engine import FillResult, fill_batch

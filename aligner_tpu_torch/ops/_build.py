@@ -165,13 +165,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32, i32, i32, p, p,  # warps a block, blocks, span, stats, stream
     ]
     lib.device_walk_count_launch.restype = i32
-    lib.freq_count_launch.argtypes = [
-        p, i32, p, p, p,  # steps, words, n, sy, sx
-        p, i32, p, i32,  # q, C, t, R
-        p, i32, i32,  # alive, M, V
-        p, p,  # counts, stream
-    ]
-    lib.freq_count_launch.restype = i32
     lib.wavefront_row_scan_launch.argtypes = [
         p, p, p, i32, p,  # q, t, matrix, V, h0
         p, p,  # hand (zeroed tagged row), sync (zeroed ticket)

@@ -165,8 +165,8 @@ def walk(words, sy, sx, *, S: int, mode: str, stats=None):
 def walk_counts(words, sy, sx, q, t, alive, V: int, *, S: int, stats=None):
     """The counting walk: :func:`walk` in local mode for ``S`` steps, then
     each member's (target char, query char) pairs counted from its step
-    stream as :func:`~aligner_tpu_torch.ops.freq_count.count_pairs` counts
-    them, in one launch.  Returns the (B, V, V) int32 counts.
+    stream as :func:`count_pairs_plain` counts them, in one launch.  Returns
+    the (B, V, V) int32 counts.
 
     ``words``, ``sy``, ``sx`` and ``stats`` as for :func:`walk`; ``q``
     (B, C) and ``t`` (B, R) int32 padded codes, which the caller must hold
@@ -179,10 +179,8 @@ def walk_counts(words, sy, sx, q, t, alive, V: int, *, S: int, stats=None):
     :func:`walk_plan`; a V whose counts do not fit a block's shared memory
     raises ``ValueError``); CPU tensors take :func:`walk_counts_plain`.
     """
-    from .freq_count import check_codes
-
     _check_walk(words, sy, sx, S, stats)
-    check_codes(words.device, words.shape[0], q, t, alive, V)
+    _check_codes(words.device, words.shape[0], q, t, alive, V)
     dev = words.device
     if dev.type == "cpu":
         return walk_counts_plain(words, sy, sx, q, t, alive, V, S=S)
@@ -215,11 +213,72 @@ def walk_counts(words, sy, sx, q, t, alive, V: int, *, S: int, stats=None):
 
 def walk_counts_plain(words, sy, sx, q, t, alive, V: int, *, S: int):
     """Plain PyTorch version of the counting walk: :func:`walk_plain` in
-    local mode, then ``count_pairs_plain`` on its streams."""
-    from .freq_count import count_pairs_plain
-
+    local mode, then :func:`count_pairs_plain` on its streams."""
     steps, n, _, _ = walk_plain(words, sy, sx, S=S, mode="local")
     return count_pairs_plain(steps, n, sy, sx, q, t, alive, V)
+
+
+def _check_codes(dev, M: int, q, t, alive, V: int) -> None:
+    """The checks of a count's codes, its ``alive`` flags and V, for M
+    members on ``dev``."""
+    for name, a in (("q", q), ("t", t), ("alive", alive)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, the stream on {dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.bool if name == "alive" else torch.int32
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {a.dtype}")
+    if tuple(alive.shape) != (M,):
+        raise ValueError(f"alive must be ({M},), got {tuple(alive.shape)}")
+    for name, a in (("q", q), ("t", t)):
+        if a.dim() != 2 or a.shape[0] != M or a.shape[1] < 1:
+            raise ValueError(f"{name} must be ({M}, L) with L >= 1, got {tuple(a.shape)}")
+    if V < 1:
+        raise ValueError(f"V must be positive, got {V}")
+
+
+def count_pairs_plain(steps, n, sy, sx, q, t, alive, V: int):
+    """(M, V, V) int32 counts of (target char, query char) pairs of M
+    walks: the heuristic population's frequency count, the counting walk's
+    epilogue (``csrc/count_core.cuh``), as plain PyTorch.
+
+    Counterpart of the step unpack and frequency scatter-add inside the JAX
+    package's fused population loop (``aligner_tpu/heuristic.py:207-242``).
+    ``steps``: (ceil(S/16), M) int32 packed step streams, 16 two-bit codes
+    a word, step-major; ``n`` (M,) int32 steps each walk took; ``sy``/``sx``
+    (M,) int32 its start cell; ``q`` (M, C) and ``t`` (M, R) int32 padded
+    codes in [0, V); ``alive`` (M,) bool, the members whose seed pair counts.
+    A pair is counted on each DIAG step, at the cursor before the step
+    (``t[y - 1]``, ``q[x - 1]``, clipped to the codes as in the JAX
+    package; TOP and LEFT steps put a blank on one side, alignment.rs:13-23),
+    plus the seeded argmax pair ``t[sy - 1]``, ``q[sx - 1]`` of a member
+    that is alive and has ``sy > 0`` and ``sx > 0``, so a member's counts
+    equal ``Alignment.frequency_matrix()`` of its alignment, as integers.
+    Every step of every walk is unpacked at once, the cursors by a
+    cumulative sum, the DIAG pairs counted by one ``bincount`` (the JAX
+    package's scatter-add)."""
+    words, M = steps.shape
+    dev = steps.device
+    shifts = 2 * torch.arange(16, device=dev, dtype=torch.int64)
+    d = ((steps.to(torch.int64)[:, None, :] >> shifts[None, :, None]) & 3).reshape(-1, M)
+    up = ((d == TOP) | (d == DIAG)).to(torch.int64)
+    lf = ((d == LEFT) | (d == DIAG)).to(torch.int64)
+    y_at = sy.to(torch.int64)[None, :] - (torch.cumsum(up, 0) - up)
+    x_at = sx.to(torch.int64)[None, :] - (torch.cumsum(lf, 0) - lf)
+    k = torch.arange(16 * words, device=dev)[:, None]
+    valid = (k < n.to(torch.int64)[None, :]) & (d == DIAG)
+    R, C = t.shape[1], q.shape[1]
+    tc = t.T.to(torch.int64).gather(0, (y_at - 1).clamp(0, R - 1))
+    qc = q.T.to(torch.int64).gather(0, (x_at - 1).clamp(0, C - 1))
+    member = torch.arange(M, device=dev, dtype=torch.int64)
+    idx = member[None, :] * (V * V) + tc * V + qc
+    seed_t = t.to(torch.int64).gather(1, (sy.to(torch.int64) - 1).clamp(0, R - 1)[:, None])[:, 0]
+    seed_q = q.to(torch.int64).gather(1, (sx.to(torch.int64) - 1).clamp(0, C - 1)[:, None])[:, 0]
+    seed_ok = alive & (sy > 0) & (sx > 0)
+    sidx = member * (V * V) + seed_t * V + seed_q
+    counts = torch.bincount(torch.cat([idx[valid], sidx[seed_ok]]), minlength=M * V * V)
+    return counts.to(torch.int32).reshape(M, V, V)
 
 
 def walk_plain(words, sy, sx, *, S: int, mode: str):

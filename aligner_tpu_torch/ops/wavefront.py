@@ -81,7 +81,7 @@ COL_PAD = 256
 # call without directions), walked in chunks of 32 * COLS_PER_THREAD
 # columns, a warp a strip; and the rows of one replay block.  Chosen by the
 # strip-shape sweeps of ops/tile_probe.py at the four shapes of the paths
-# and of chip_smoke.py at 65,536 x 65,536 on an H100 (PERF.md, Findings): 8
+# and at 65,536 x 65,536 on an H100, recorded in PERF.md §6 (Findings): 8
 # columns a lane beat 4 and 2 everywhere; 256-row strips fill forward
 # fastest, 128-row strips replay with directions within 8 % of the best at
 # both replay shapes; a larger block means fewer calls for the same cells,
@@ -966,8 +966,8 @@ def align_single_global_chunked(q, t, matrix, del_: float, ext: float, *,
     from the last to the first is replayed and walked with no wait in
     between (a block the cursor never enters is left untouched by the
     walk).  On an H100 the two take the same time within 2 % at
-    65,536 x 65,536 (``chip_smoke.py`` times both), so the read that can
-    stop early is the default.
+    65,536 x 65,536 (PERF.md §6, Findings), so the read that can stop
+    early is the default.
 
     ``walk="host"`` walks each replayed block on the host instead
     (:func:`_chunked_walk_host`; the JAX package's ``ALIGNER_DEVICE_WALK=0``),
@@ -1007,8 +1007,8 @@ LANES = 128  # band heights are multiples of this, as in the reference
 # The band fill's sizes: the rows of one band, the rows a lane owns (a row
 # group is 32 of them a lane, a warp's work item), the slots a warp reads
 # ahead (the steps of one chunk: 16, 32 or 64) and the warps of a block.
-# Chosen by the sweeps that ops/band_probe.py and chip_smoke.py print at
-# 65,536 x 65,536 and 262,144 x 262,144 on an H100 (PERF.md, Findings).
+# Chosen by sweeps at 65,536 x 65,536 and 262,144 x 262,144 on an H100,
+# ops/band_probe.py's among them, recorded in PERF.md §6 (Findings).
 # Up to the width cap squared a pair is one band.  BAND_TD is what the end
 # score pads its streams to, as the reference tiles them, so that its bands
 # match the reference's stream for stream; the kernel does not read it.

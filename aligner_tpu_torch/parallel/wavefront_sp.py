@@ -100,9 +100,9 @@ from ..ops import wavefront as wf
 from .mesh import Mesh, _collective_device, data_slots
 
 # The width of one column block, the rows of one replay tile (the checkpoint
-# cadence) and the most rows of one forward block.  Chosen by the sweeps
-# that chip_smoke.py prints for pairs of 262,144 x 262,144 and
-# 524,288 x 524,288 on an H100 (PERF.md, Findings): a larger block means
+# cadence) and the most rows of one forward block.  Chosen by sweeps of
+# pairs of 262,144 x 262,144 and 524,288 x 524,288 on an H100, recorded in
+# PERF.md §6 (Findings): a larger block means
 # fewer launches for the same cells and more tiles in each, so the forward
 # fill runs a column block in pieces of up to FORWARD_ROWS rows and the
 # kernel writes the checkpoint rows inside the call (each doubling of the
@@ -124,8 +124,8 @@ ENGINES = (None, "pallas", "band", "lax")
 # columns.  So a block fills tr·cb / (NS·(cb + L·tr)) cells a ns (GCUPS).
 # Either engine is rated at the height it runs: the row-scan engine's
 # forward block is FORWARD_ROWS rows, or the whole target when that is
-# shorter.  Fitted by least squares on 1 / rate to the calibration points
-# that chip_smoke.py prints (the band engine's forward by band height at
+# shorter.  Fitted by least squares on 1 / rate to calibration points
+# measured on the card (the band engine's forward by band height at
 # CB_COLS-wide blocks and at two other widths; the column-block fill's by
 # column width at FORWARD_ROWS rows and by height at CB_COLS columns):
 # PERF.md §6, the tables of the column-blocked engines, their rows

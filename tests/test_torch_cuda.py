@@ -1,15 +1,19 @@
-"""CUDA kernels against their plain PyTorch versions on the card, bit for
-bit (the cases of chip_smoke.py's kernel phase): the fill kernel in pair
-mode (K1/K2) and in PWM mode (K3), also around the rows of a column it
-keeps on chip, the walk (K4), the row-scan fill of one global pair (K5),
-the replay walk (also with a column base), the band fill (K6) with the
-end score built on it, and the column-block fill (K7) with the
-column-blocked pipeline built on it (its three block engines and the
-engine pick), and the heuristic population's
-frequency count and the counting walk with the float64 transform and the
-population built on them, and the fill's score plane with ``keep_planes`` and the simple
-aligners on it, and the host walks (``walk="host"``) against the device
-walks.
+"""The port on the card: the CUDA kernels against their plain PyTorch
+versions, bit for bit: the fill kernel in pair mode (K1/K2) and in PWM
+mode (K3), also around the rows of a column it keeps on chip, the walk
+(K4), the row-scan fill of one global pair (K5), the replay walk (also
+with a column base), the band fill (K6) with the end score built on it,
+and the column-block fill (K7) with the column-blocked pipeline built on
+it (its three block engines and the engine pick), and the heuristic
+population's counting walk with the float64 transform and the population
+built on them, and the fill's score plane with ``keep_planes`` and the
+simple aligners on it, and the host walks (``walk="host"``) against the
+device walks.  Then the main path through the entry points a user calls:
+the golden fixtures, ``calculate_p_value`` against the fit on native C++
+scores, ``aligner-search``, ``aligner-align -g`` on a pair wider than one
+plane and ``aligner-repeat-search`` against the same CLIs on the CPU, one
+service request drained by a worker process on the card with its p-values
+from ``aligner-torch-calc``, and a full-mode batch against native C++.
 
 Marked ``cuda``; every test skips where no CUDA device is present.  The
 machine with the card has no JAX, so run this file there without the
@@ -18,15 +22,28 @@ repository's conftest (which imports JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
+import io
+import json
+import os
+import pathlib
+import sqlite3
+import subprocess
+import sys
+import threading
+import urllib.request
+
 import numpy as np
 import pytest
 import torch
 
 import aligner_tpu_torch as port
+from aligner_tpu_torch import host, native
+from aligner_tpu_torch.cli import search as cli_search
+from aligner_tpu_torch.io import read_fasta_file
 from aligner_tpu_torch.matrices import blosum62, transform_matrix, transform_matrix_torch
-from aligner_tpu_torch.ops import device_walk, dp_fill, freq_count, wavefront
+from aligner_tpu_torch.ops import device_walk, dp_fill, wavefront
 from aligner_tpu_torch.ops.scan_engine import fill_batch, fill_pwm_batch
-from test_torch_freq_count_host import CASES as COUNT_CASES
 from test_torch_walk_host import COUNT_CASES as WALK_COUNT_CASES
 from test_torch_walk_host import count_case as walk_count_case
 
@@ -840,13 +857,18 @@ def test_column_blocked_pair_on_the_card(dev):
     assert torch.equal(ckpts[:, :n], ck1[:, :n])
 
 
+def _related(rng, q, share=0.25):
+    """``q`` with a share of its positions substituted."""
+    t = q.copy()
+    mask = rng.random(len(t)) < share
+    t[mask] = rng.integers(0, 20, int(mask.sum()))
+    return t
+
+
 def _homolog(seed, n):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 20, n).astype(np.int8)
-    t = q.copy()
-    mask = rng.random(n) < 0.25
-    t[mask] = rng.integers(0, 20, int(mask.sum()))
-    return q, t
+    return q, _related(rng, q)
 
 
 def test_band_engine_on_the_card(dev):
@@ -1043,8 +1065,7 @@ def test_walk_kernel_on_raw_codes(dev, monkeypatch, mode, B, R8, C, span):
     off the plane (the index clip), B not a multiple of the warps, S not a
     multiple of 16; a thousand problems; planes wider than the span with
     long LEFT runs (refills); rows of 16 columns, which refill on every
-    plane, and of 128 (C = 70 copies 4 bytes at a time, the others 16).
-    The paths' own shapes are chip_smoke.py's."""
+    plane, and of 128 (C = 70 copies 4 bytes at a time, the others 16)."""
     rng = np.random.default_rng(B + C)
     codes = rng.choice([0, 1, 2, 3], size=(B, R8, C), p=[0.1, 0.1, 0.799, 0.001])
     if C > 1000:
@@ -1065,39 +1086,22 @@ def test_walk_kernel_on_raw_codes(dev, monkeypatch, mode, B, R8, C, span):
 # --- the heuristic population ---------------------------------------------
 
 
-@pytest.mark.parametrize("case", sorted(COUNT_CASES))
-def test_count_kernel_matches_plain(dev, case):
-    """The frequency count on the host test's cases (the population's
-    shape, done members, walks of the full S, walks that stay on the plane
-    into a second round, members not alive, M not a multiple of a block's
-    warps, V = 4), exactly, and one launch a call."""
-    M, R, C, V, kind, done, stale = COUNT_CASES[case]
-    rng = np.random.default_rng(sorted(COUNT_CASES).index(case))
-    args = freq_count.ragged_streams(rng, M, R, C, V, kind=kind, done_frac=done,
-                                     stale_frac=stale)
-    before = freq_count.launches.freq_count
-    got = freq_count.count_pairs(*[a.to(dev) for a in args], V)
-    torch.cuda.synchronize()
-    assert freq_count.launches.freq_count == before + 1
-    assert torch.equal(got.cpu(), freq_count.count_pairs_plain(*args, V))
-
-
 @pytest.mark.parametrize("case", sorted(WALK_COUNT_CASES))
 def test_counting_walk_matches_plain(dev, case):
     """The counting walk on the walk host test's cases (words of the plain
     fill, the population's shape among them, done, stale and off-plane
-    members, V = 1, 24 and 55, a plane whose ring is smaller than its
-    counts), exactly, one launch a call; its stats are the walk's."""
+    members, V = 1, 4, 24 and 55, a plane whose ring is smaller than its
+    counts, walks that take the whole step budget), exactly, one launch a
+    call; its stats are the walk's."""
     args, _ = walk_count_case(case)
     words, sy, sx, q, t, alive, V, S = args
     on = [a.to(dev) for a in (words, sy, sx, q, t, alive)]
     stats = torch.zeros(3, dtype=torch.int32, device=dev)
     walk_stats = torch.zeros(3, dtype=torch.int32, device=dev)
-    before = (device_walk.launches.walk_count, freq_count.launches.freq_count)
+    before = device_walk.launches.walk_count
     got = device_walk.walk_counts(*on, V, S=S, stats=stats)
     torch.cuda.synchronize()
-    assert (device_walk.launches.walk_count, freq_count.launches.freq_count) == (
-        before[0] + 1, before[1])
+    assert device_walk.launches.walk_count == before + 1
     assert torch.equal(got.cpu(), device_walk.walk_counts_plain(*args[:-1], S=S))
     device_walk.walk(*on[:3], S=S, mode="local", stats=walk_stats)
     assert torch.equal(stats, walk_stats)
@@ -1144,7 +1148,7 @@ def test_transform_on_the_card_is_numpys(dev, V):
 def test_population_on_the_card_is_the_cpus(dev):
     """The population's loop on the kernels equals the loop on their plain
     versions, member by member, and launches the fill and the counting walk
-    once an iteration, and the standalone count never."""
+    once an iteration."""
     rng = np.random.default_rng(3)
     q = rng.integers(0, 24, 90).astype(np.int8)
     t = q.copy()
@@ -1155,12 +1159,11 @@ def test_population_on_the_card_is_the_cpus(dev):
     h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
     port.warmup_population(q, t, 16, 11.0, 11.0)
     before = (dp_fill.launches.dirs, device_walk.launches.walk,
-              device_walk.launches.walk_count, freq_count.launches.freq_count)
+              device_walk.launches.walk_count)
     got = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h)
     # the final batch_align fills and walks as many shards as it has
     iters = (dp_fill.launches.dirs - before[0]) - (device_walk.launches.walk - before[1])
     assert iters >= 1 and device_walk.launches.walk_count - before[2] == iters
-    assert freq_count.launches.freq_count == before[3]
     want = port.heuristic_align_population(q, t, mats, 11.0, 11.0, h, device="cpu")
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
@@ -1174,7 +1177,7 @@ def test_population_on_the_card_is_the_cpus(dev):
 
 def test_population_refuses_codes_outside_the_matrices_before_a_launch(dev):
     """An X (code 23) in the target against (M, 20, 20) matrices raises
-    ValidationError with no fill, walk or count launched."""
+    ValidationError with no fill, walk or counting walk launched."""
     rng = np.random.default_rng(20)
     q = rng.integers(0, 20, 40).astype(np.int8)
     t = q.copy()
@@ -1184,7 +1187,7 @@ def test_population_refuses_codes_outside_the_matrices_before_a_launch(dev):
     h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
     def launches():
         return (dp_fill.launches.dirs, device_walk.launches.walk,
-                device_walk.launches.walk_count, freq_count.launches.freq_count)
+                device_walk.launches.walk_count)
 
     before = launches()
     with pytest.raises(port.ValidationError):
@@ -1597,3 +1600,358 @@ def test_pair_spans_leave_no_copy_on_the_device_timeline(dev, aligned, monkeypat
                if e.device_type() == torch.autograd.DeviceType.CUDA}
     assert any("fill_strips_kernel" in n or "band_walk_kernel" in n for n in on_card)
     assert not names & on_card
+
+
+# --------------------------------------------------------------------------
+# the main path through the entry points a user calls: the golden fixtures,
+# the p-value, the three CLIs, the service and the full-mode batch, against
+# the frozen fixtures, native C++, the host engine and the CLIs on the CPU
+# --------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+GOLDEN = json.loads((ROOT / "tests" / "fixtures" / "examples_golden.json").read_text())
+
+
+def _example(name):
+    """The two records of ``examples/<name>.fasta`` as protein codes (the
+    DNA example too, as the golden fixtures read it)."""
+    recs = read_fasta_file(str(ROOT / "examples" / f"{name}.fasta"))
+    return tuple(port.Protein.encode(r.seq, strict=True) for r in recs[:2])
+
+
+def _stdout(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+def _fasta(path, records):
+    path.write_text("".join(f">{name}\n{seq}\n" for name, seq in records))
+    return str(path)
+
+
+@pytest.mark.parametrize("example,key", [(e, k) for e in sorted(GOLDEN) for k in GOLDEN[e]])
+def test_golden_fixtures_on_the_card(dev, example, key):
+    """Every frozen golden case through ``batch_align`` and through the
+    simple aligner of its mode, both with ``device=None`` (the card): f,
+    coordinates and both strings equal the fixture, and the simple
+    aligner's score plane (as float64) and directions equal native C++."""
+    q, t = _example(example)
+    mode, d, e = key.split("_")
+    d, e = float(d[1:]), float(e[1:])
+    (r,) = port.batch_align([q], [t], blosum62(), d, e, mode=mode, with_alignments=True,
+                            device=None)
+    cls = port.SimpleGlobalAligner if mode == "global" else port.SimpleLocalAligner
+    simple = cls.from_seqs(q, t).perform_alignment(d, e, blosum62(), device=None)
+    want = GOLDEN[example][key]
+    for a in (r.alignment, simple.alignment):
+        assert a.f == want["f"]
+        assert tuple(map(tuple, a.coords)) == tuple(map(tuple, want["coords"]))
+        assert port.Protein.decode(a.query) == want["query"]
+        assert port.Protein.decode(a.target) == want["target"]
+    plane, dirs = native.fill(q, t, np.array(blosum62()), d, e, mode)
+    assert np.array_equal(simple.score.astype(np.float64), plane)
+    assert np.array_equal(simple.directions, dirs)
+
+
+def _native_fit(q, t, f, del_, ext, m, shuffles, dev):
+    """K1's scores of ``shuffles`` (scores only, as ``calculate_p_value``
+    runs them) held against native C++ scores, bit for bit; returns the
+    p-value of the fit on the native scores, ``f`` the initial score."""
+    got = port.batch_align([q] * len(shuffles), shuffles, m, del_, ext, track_argmax=False,
+                           device=dev).fmax.astype(np.float64)
+    want = np.array([native.local_max_score_stream(q, s, m, del_, ext)[0] for s in shuffles])
+    assert np.array_equal(got, want)
+    scores = np.concatenate([[f], want])
+    lengths = np.concatenate([[len(t)], [len(s) for s in shuffles]])
+    return port.statistics.calculate_distribution_params(
+        len(q), lengths, scores).get_p_value(len(q), len(t), f)
+
+
+def test_p_value_on_the_card_is_the_native_fit(dev):
+    """``calculate_p_value`` on the card, the ``examples/protein.fasta`` pair
+    with 500 sequences from seed 0: its shuffles' K1 scores equal native
+    C++ scores of the same draws, and the p-value equals the fit on the
+    native scores, as float64 bytes (NaN included)."""
+    q, t = _example("protein")
+    m = np.array(blosum62())
+    n = 500
+    f = native.local_max_score_stream(q, t, m, 11.0, 2.0)[0]
+    p = port.calculate_p_value(q, t, f, 11.0, 2.0, m, n_sequences=n,
+                               rng=np.random.default_rng(0), device=dev)
+    rng = np.random.default_rng(0)
+    shuffles = [port.statistics.shuffle_and_randomize_sequence(t, rng) for _ in range(n - 1)]
+    want = _native_fit(q, t, f, 11.0, 2.0, m, shuffles, dev)
+    assert np.float64(p).tobytes() == np.float64(want).tobytes()
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_search_cli_on_the_card_is_the_cpus(dev, tmp_path, mode):
+    """``aligner-search`` (top 10 with alignments) on a seeded database of
+    2,000 records (lengths log-normal, median 100, 20-400; eight homologs of
+    the 80-residue query among them): the card's stdout equals the CPU's
+    byte for byte, and each hit's score equals native C++."""
+    rng = np.random.default_rng(26)
+    q = rng.integers(0, 20, 80).astype(np.int8)
+    lens = np.clip(np.round(rng.lognormal(np.log(100.0), 0.6, 2000)), 20, 400).astype(int)
+    db = [rng.integers(0, 20, n).astype(np.int8) for n in lens]
+    for i in rng.choice(len(db), 8, replace=False):
+        db[i] = np.concatenate([db[i][:10], _related(rng, q), db[i][10:]])
+    qf = _fasta(tmp_path / "query.fasta", [("query", port.Protein.decode(q))])
+    dbf = _fasta(tmp_path / "db.fasta",
+                 [(f"db{i}", port.Protein.decode(s)) for i, s in enumerate(db)])
+    argv = ["-q", qf, "-i", dbf, "-k", "10"] + (["--global"] if mode == "global" else [])
+    got = _stdout(cli_search.main, argv + ["--device", dev.type])
+    assert got == _stdout(cli_search.main, argv + ["--device", "cpu"])
+    m = np.array(blosum62())
+    hits = [line.split("\t") for line in got.splitlines() if not line.startswith("\t")]
+    assert len(hits) == 10
+    for _, name, score in hits:
+        s = db[int(name[2:])]
+        if mode == "local":
+            want = native.local_max_score_stream(q, s, m, 11.0, 2.0)[0]
+        else:
+            want = native.fill(q, s, m, 11.0, 2.0, "global")[0][len(s), len(q)]
+        assert float(score) == want, name
+
+
+@pytest.mark.parametrize("pretty", [False, True], ids=["debug", "pretty"])
+def test_align_cli_on_a_pair_wider_than_a_plane(dev, tmp_path, monkeypatch, pretty):
+    """``aligner-align -g`` on a 3,000 x 2,900 pair with the width cap set
+    to 1,024 columns and blocks of 1,024: the pair takes the column-blocked
+    pipeline on the card and on the CPU, and the card's stdout equals the
+    CPU's byte for byte."""
+    from aligner_tpu_torch.cli import align as cli_align
+    from aligner_tpu_torch.parallel import wavefront_sp as sp
+
+    monkeypatch.setattr(wavefront, "MAX_WIDTH", 1024)
+    monkeypatch.setattr(sp, "CB_COLS", 1024)
+    calls = []
+    real = sp.sharded_global_align
+    monkeypatch.setattr(sp, "sharded_global_align",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rng = np.random.default_rng(27)
+    q = rng.integers(0, 20, 3000).astype(np.int8)
+    t = _related(rng, q[:2900])
+    fa = _fasta(tmp_path / "pair.fasta",
+                [("query", port.Protein.decode(q)), ("target", port.Protein.decode(t))])
+    argv = ["-i", fa, "-g"] + (["--pretty"] if pretty else [])
+    got = _stdout(cli_align.main, argv + ["--device", dev.type])
+    assert calls == [1] and got.strip()
+    assert got == _stdout(cli_align.main, argv + ["--device", "cpu"])
+    assert calls == [1, 1]
+
+
+def _chromosome(rng, bp, motif, copies):
+    """Random DNA with ``copies`` mutated copies of ``motif`` (every 4th
+    position redrawn, a phase a copy) at regular offsets."""
+    letters = np.frombuffer(b"ATCG", np.uint8)
+    seq = letters[rng.integers(0, 4, bp)]
+    stride = bp // (copies + 1)
+    for i in range(copies):
+        copy = letters[motif].copy()
+        idx = np.arange(i % 4, len(copy), 4)
+        copy[idx] = letters[rng.integers(0, 4, len(idx))]
+        seq[(i + 1) * stride:(i + 1) * stride + len(copy)] = copy
+    return seq.tobytes().decode()
+
+
+def test_repeat_search_cli_on_the_card_is_the_cpus(dev, tmp_path):
+    """``aligner-repeat-search`` in exploring mode with a checkpoint on a
+    seeded 200 kb chromosome with 40 planted copies of one 40-base motif
+    (PWM width 30, offset 10, 3 cycles): the card's output CSV, matrices
+    JSON and checkpoint equal the CPU's byte for byte."""
+    from aligner_tpu_torch.cli import repeat_search as cli_repeat
+
+    rng = np.random.default_rng(28)
+    raw = _chromosome(rng, 200_000, rng.integers(0, 4, 40), 40)
+    fa = _fasta(tmp_path / "chrom.fasta",
+                [("chr_synthetic", "\n".join(raw[i:i + 80] for i in range(0, len(raw), 80)))])
+    files = []
+    for where, device in (("card", dev.type), ("cpu", "cpu")):
+        out = tmp_path / where
+        out.mkdir()
+        argv = ["-i", fa, "-o", str(out / "output.csv"), "--checkpoint",
+                str(out / "scan.ckpt"), "-r", "30", "-q", "10", "--repeats", "3",
+                "--seed", "0", "--device", device]
+        _stdout(cli_repeat.main, argv)
+        files.append({p.name: p.read_bytes() for p in sorted(out.iterdir())})
+    got, want = files
+    assert sorted(got) == sorted(want) and len(got) >= 3
+    assert len(got["output.csv"].splitlines()) > 1
+    for name in got:
+        assert got[name] == want[name], name
+
+
+def test_full_mode_batch_on_the_card_is_native(dev):
+    """512 seeded pairs of 400 residues (each target its query with a quarter
+    of its positions substituted) through ``batch_align`` with alignments,
+    local and global: every score equals native C++, and every 8th
+    alignment (strings and coordinates) the host engine's."""
+    rng = np.random.default_rng(29)
+    qs = [rng.integers(0, 20, 400).astype(np.int8) for _ in range(512)]
+    ts = [_related(rng, q) for q in qs]
+    m = np.array(blosum62())
+    for mode in ("local", "global"):
+        res = port.batch_align(qs, ts, m, 11.0, 2.0, mode=mode, with_alignments=True,
+                               device=dev)
+        if mode == "local":
+            got = np.array([r.alignment.f for r in res])
+            want = np.array([native.local_max_score_stream(q, t, m, 11.0, 2.0)[0]
+                             for q, t in zip(qs, ts)])
+        else:
+            got = port.batch_align(qs, ts, m, 11.0, 2.0, mode="global",
+                                   device=dev).end.astype(np.float64)
+            want = np.array([native.fill(q, t, m, 11.0, 2.0, "global")[0][-1, -1]
+                             for q, t in zip(qs, ts)])
+        assert np.array_equal(got, want), mode
+        walk = host.align_local if mode == "local" else host.align_global
+        for i in range(0, len(qs), 8):
+            ref = walk(qs[i], ts[i], m, 11.0, 2.0)
+            a = res[i].alignment
+            assert np.array_equal(a.query, ref.query_aligned), (mode, i)
+            assert np.array_equal(a.target, ref.target_aligned), (mode, i)
+            assert tuple(map(tuple, a.coords)) == tuple(map(tuple, ref.coords)), (mode, i)
+
+
+def _host_heuristic(q, t, matrix, h, del_, max_iters=1000):
+    """``heuristic_align``'s loop on the host engine (native C++ fill, Python
+    walk) with numpy's transforms, for at most ``max_iters`` iterations (the
+    population's default): (alignment, matrix), or None for a member with no
+    positive-scoring cell."""
+    r2 = h.r_squared if abs(h.r_squared) >= np.finfo(np.float64).eps \
+        else float(matrix.shape[0] * matrix.shape[1])
+    trans = port.transform_matrix(matrix, h.kd, r2, h.frequencies)
+    max_f = 0.0
+    for _ in range(max_iters):
+        cur = trans
+        try:
+            r = host.align_local(q, t, cur, del_, del_)
+        except port.ResultIsEmpty:
+            return None
+        aln = port.Alignment(r.query_aligned, r.target_aligned, r.coords, r.f, port.Protein)
+        if r.f <= max_f:
+            return aln, cur
+        max_f = r.f
+        trans = port.transform_matrix(aln.frequency_matrix(), h.kd, r2, h.frequencies)
+    return aln, cur
+
+
+def _sql(db, sql, args=()):
+    with contextlib.closing(sqlite3.connect(db, timeout=30.0)) as c:
+        return c.execute(sql, args).fetchall()
+
+
+def test_service_request_on_the_card(dev, tmp_path):
+    """One request (kd 0, r² 1e5, del 11, V 24, 4 matrices a task) posted to
+    the port's dispatcher over HTTP, on the two ``examples/protein.fasta``
+    records cut to 50 residues and a seeded homolog of each (6 tasks, 24
+    jobs), drained by one worker process on the card (``--warmup``, batches
+    of 4): every stored subtask equals ``heuristic_align``'s loop on the
+    host engine for its pair and starting matrix, ``/progress`` promotes
+    each task's best subtask, and every p-value that ``aligner-torch-calc``
+    stores on the card (64 sequences, seed 0) equals the fit on native C++
+    scores of the same shuffles (NaN stored as NULL)."""
+    from aligner_tpu_torch.cli import calc
+    from aligner_tpu_torch.service import models, updater
+    from aligner_tpu_torch.service.dispatcher import TOPIC_JOBS, Dispatcher, serve
+    from aligner_tpu_torch.service.queue import JobQueue
+    from aligner_tpu_torch.service.store import Store
+
+    per_task, n_seq = 4, 64
+    rng = np.random.default_rng(23)
+    recs = read_fasta_file(str(ROOT / "examples" / "protein.fasta"))
+    seqs = [(r.id, r.seq.decode()[:50]) for r in recs]
+    seqs += [(f"{name}_homolog", port.Protein.decode(_related(rng, port.Protein.encode(s))))
+             for name, s in seqs]
+    db = str(tmp_path / "service.db")
+    store, queue = Store(db), JobQueue(db)
+    server = serve("127.0.0.1", 0, Dispatcher(store, queue, rng=np.random.default_rng(21)),
+                   sse_ticks=1)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    worker = None
+    try:
+        body = json.dumps({"sequences": "".join(f">{n}\n{s}\n" for n, s in seqs),
+                           "kdValue": 0.0, "rSquaredValue": 1e5, "delValue": 11.0,
+                           "dimValue": 24, "matricesVolumeValue": per_task}).encode()
+        req = urllib.request.Request(f"{base}/validate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            hashes = json.loads(r.read())["hashes"]
+        n_jobs = queue.pending(TOPIC_JOBS)
+        assert (len(hashes), n_jobs) == (6, 6 * per_task)
+        log = tmp_path / "worker.log"
+        env = dict(os.environ, ALIGNER_DB=db,
+                   PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env.pop("ALIGNER_QUEUE", None)
+        with open(log, "w") as out:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "aligner_tpu_torch.service.worker", "--device",
+                 dev.type, "--warmup", "--batch", str(per_task), "--poll-interval", "0.2",
+                 "--max-batches", str(n_jobs // per_task + 10)],
+                cwd=str(ROOT), env=env, stdout=out, stderr=subprocess.STDOUT)
+        assert worker.wait(timeout=600) == 0, log.read_text()[-4000:]
+        assert queue.pending(TOPIC_JOBS) == 0, log.read_text()[-4000:]
+
+        jobs = {int(i): models.AlignJob.from_json(p)
+                for i, p in _sql(db, "select id, payload from jobs")}
+        stored, by_task = {}, {}
+        for h, key, f, mj, rq, rt in _sql(db, """
+                select t.hash, s.source_key, s.f_value, s.matrix_json,
+                       s.result_query_sequence, s.result_target_sequence
+                from align_subtasks s join align_tasks t on t.id = s.task_id"""):
+            assert jobs[int(key)].hash == h
+            stored[int(key)] = (np.float64(f).tobytes(), mj, rq, rt)
+            by_task.setdefault(h, []).append((f, mj, rq, rt))
+        for job_id, job in sorted(jobs.items()):
+            h = port.Heuristics(kd=job.kd_value, r_squared=job.r_squared_value,
+                                frequencies=job.frequences)
+            res = _host_heuristic(port.Protein.encode(job.sequence_1, strict=False),
+                                  port.Protein.encode(job.sequence_2, strict=False),
+                                  job.matrix, h, job.del_value)
+            if res is None:
+                assert job_id not in stored, job_id
+                continue
+            aln, matrix = res
+            assert stored.get(job_id) == (np.float64(aln.f).tobytes(),
+                                          models.matrix_to_json(matrix),
+                                          *aln.render()), job_id
+        with urllib.request.urlopen(f"{base}/progress?hashes={','.join(hashes)}",
+                                    timeout=120) as r:
+            line = r.readline().decode()
+        assert line.startswith("data: ")
+        assert set(json.loads(line[6:])["progress"].values()) == {100.0}
+        assert updater.run_once(store) == 0
+        results = _sql(db, """select t.hash, r.f_value, r.matrix_json,
+                                     r.result_query_sequence, r.result_target_sequence
+                              from result_matrices r join align_tasks t on t.id = r.task_id""")
+        assert sorted(h for h, *_ in results) == sorted(hashes)
+        for h, *best in results:
+            assert best[0] == max(f for f, *_ in by_task[h]) and tuple(best) in by_task[h]
+
+        ids = store.get_ids_with_null_p_value()
+        assert len(ids) == len(hashes)
+        assert _stdout(calc.main, ["--db", db, "--seed", "0", "--device", dev.type,
+                                   "--sequences", str(n_seq)]).strip() == \
+            f"backfilled {len(ids)} p-value(s)"
+        # calc's one generator, replayed over the tasks in the order it took them
+        rng = np.random.default_rng(0)
+        for task_id in ids:
+            query, target, f, del_, matrix = store.get_result_matrix_by_task_id(task_id)
+            q = port.Protein.encode(query, strict=False)
+            t = port.Protein.encode(target, strict=False)
+            shuffles = [port.statistics.shuffle_and_randomize_sequence(t, rng)
+                        for _ in range(n_seq - 1)]
+            want = _native_fit(q, t, f, del_, del_, matrix, shuffles, dev)
+            (got,), = _sql(db, "select p_value from align_tasks where id = ?", (task_id,))
+            if got is None:
+                assert np.isnan(want), task_id
+            else:
+                assert np.float64(got).tobytes() == np.float64(want).tobytes(), task_id
+    finally:
+        server.shutdown()
+        if worker is not None and worker.poll() is None:
+            worker.kill()
+            worker.wait(timeout=60)

@@ -23,7 +23,7 @@ from aligner_tpu.align import batch_align as ref_batch_align
 from aligner_tpu.matrices import transform_matrix_jax
 from aligner_tpu_torch import heuristic as port_h
 from aligner_tpu_torch.matrices import transform_matrix_torch
-from aligner_tpu_torch.ops import device_walk, freq_count
+from aligner_tpu_torch.ops import device_walk
 from aligner_tpu_torch.ops.scan_engine import fill_batch
 
 torch.set_num_threads(1)
@@ -221,8 +221,8 @@ def test_first_iteration_counts_are_the_frequency_matrices(seed):
                    mode="local", with_dirs=True)
     steps, n, _, _ = device_walk.walk_plain(r.words, r.fy, r.fx,
                                             S=q2.shape[1] + t2.shape[1] + 1, mode="local")
-    counts = freq_count.count_pairs(steps, n, r.fy, r.fx, i32(q2), i32(t2),
-                                    torch.as_tensor(~done), V).numpy()
+    counts = device_walk.count_pairs_plain(steps, n, r.fy, r.fx, i32(q2), i32(t2),
+                                           torch.as_tensor(~done), V).numpy()
     assert counts.dtype == np.int32
     walked = device_walk.walk_counts(r.words, r.fy, r.fx, i32(q2), i32(t2),
                                      torch.as_tensor(~done), V,
@@ -239,8 +239,8 @@ def test_first_iteration_counts_are_the_frequency_matrices(seed):
 
 def test_population_loop_counts_by_the_counting_walk(monkeypatch):
     """``_population_loop`` makes one ``walk_counts`` call an iteration (one
-    fill an iteration) and calls neither the walk nor the standalone count;
-    the population's results equal its members' ``heuristic_align``."""
+    fill an iteration) and does not call the walk on its own; the
+    population's results equal its members' ``heuristic_align``."""
     from aligner_tpu_torch.ops import dp_fill
 
     calls = {"fill": 0, "walk_counts": 0}
@@ -252,7 +252,7 @@ def test_population_loop_counts_by_the_counting_walk(monkeypatch):
         return wrapped
 
     def refused(*a, **kw):
-        raise AssertionError("the population called the walk or the count on its own")
+        raise AssertionError("the population called the walk on its own")
 
     loop = port_h._population_loop
 
@@ -262,7 +262,6 @@ def test_population_loop_counts_by_the_counting_walk(monkeypatch):
             mp.setattr(device_walk, "walk_counts",
                        counted("walk_counts", device_walk.walk_counts))
             mp.setattr(device_walk, "walk", refused)
-            mp.setattr(freq_count, "count_pairs", refused)
             loop(*a, **kw)
 
     monkeypatch.setattr(port_h, "_population_loop", patched_loop)

@@ -31,7 +31,7 @@ def test_imports_with_jax_blocked():
         "import aligner_tpu_torch, aligner_tpu_torch.cli.search\n"
         "import aligner_tpu_torch.ops.dp_fill, aligner_tpu_torch.ops.device_walk\n"
         "import aligner_tpu_torch.ops.wavefront, aligner_tpu_torch.parallel.wavefront_sp\n"
-        "import aligner_tpu_torch.heuristic, aligner_tpu_torch.ops.freq_count\n"
+        "import aligner_tpu_torch.heuristic\n"
         "import aligner_tpu_torch.service.worker, aligner_tpu_torch.service.netstate\n"
         "import aligner_tpu_torch.service.updater, aligner_tpu_torch.service.blast_cmp\n"
         "import aligner_tpu_torch.cli.calc\n"

@@ -270,7 +270,8 @@ def test_examples_with_planes(example, device):
     """``tests/test_examples_parity.py``: the example pairs with their planes
     through the simple aligners, against the JAX package's (its XLA engine
     on the CPU; the oracle for the 1.2 kb pair, whose plain fill is too slow
-    for these tests and runs on the card in ``chip_smoke.py``)."""
+    for these tests and runs on the card in
+    ``tests/test_torch_cuda.py::test_golden_fixtures_on_the_card``)."""
     q, t = _codes(f"{EXAMPLES}/{example}.fasta")
     backend = "oracle" if example == "human_gene_example" else "xla"
     for cls in ("SimpleLocalAligner", "SimpleGlobalAligner"):

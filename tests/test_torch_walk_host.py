@@ -15,8 +15,9 @@ Beginning, starts off the plane (the index clip), B not a multiple of the
 warps and S not a multiple of 16; for the counting walk (K4 with the
 population's count as its epilogue, ``csrc/count_core.cuh``) its counts
 against ``walk_counts_plain`` on words of the plain fill, done, stale and
-off-plane members, V = 1, 24 and 55 and a plane whose ring is smaller than
-its counts, and each of its ``COUNT_MUTATIONS`` caught.  Also the batched
+off-plane members, V = 1, 4, 24 and 55, a plane whose ring is smaller than
+its counts, walks that take the whole step budget in one round of words and
+in two, and each of its ``COUNT_MUTATIONS`` caught.  Also the batched
 walk's launch plan, pure arithmetic (``plan_walk``), and the anchors of
 ``ops/walk_probe.py``'s variants in the core.  The card's own cp.async and memory are the card
 tests' part (``tests/test_torch_cuda.py``)."""
@@ -356,11 +357,16 @@ def host_walk_counts(lib, words, sy, sx, q, t, alive, V, S, plan):
 
 
 # name -> (B, R, C, V, words, done share, stale share, sms, span): words of
-# the plain fill from the argmax cells (local, per-problem f64 matrices) or
-# raw codes from random starts, some off the plane; B not a multiple of the
-# warps, S = R + C + 1 not a multiple of 16; V = 1, 24, 55; a plane 16
-# columns wide, whose ring (200 ints) is smaller than its counts (576); the
-# population's shape (64 members of 344 x 344, one warp a block on 132 SMs)
+# the plain fill from the argmax cells (local, per-problem f64 matrices),
+# raw codes from random starts, some off the plane, or raw codes with no
+# Beginning walked from the plane's corner for S = min(R8, C) - 1 steps, so
+# that every live walk takes the whole budget ("budget"); B not a multiple
+# of the warps, S = R + C + 1 not a multiple of 16; V = 1, 4, 24, 55; a
+# plane 16 columns wide, whose ring (200 ints) is smaller than its counts
+# (576); the population's shape (64 members of 344 x 344, one warp a block
+# on 132 SMs); no member alive; whole warps of done members; a stream of
+# exactly one round of 32 words, and one of two rounds ending in a partial
+# word.  The seed is the case's place in sorted order.
 COUNT_CASES = {
     "fill-v24": (37, 45, 40, 24, "fill", 0.25, 0.2, 2, None),
     "fill-v1": (9, 30, 21, 1, "fill", 0.2, 0.2, 2, None),
@@ -369,6 +375,11 @@ COUNT_CASES = {
     "raw-off-plane": (53, 48, 72, 24, "raw", 0.2, 0.2, 1, 32),
     "raw-v55-s13": (11, 24, 40, 55, "raw", 0.0, 0.4, 1, 13),
     "fill-population": (64, 344, 344, 24, "fill", 0.3, 0.1, 132, None),
+    "stale-all": (19, 50, 44, 24, "fill", 0.0, 1.0, 2, None),
+    "v4-fill": (29, 60, 52, 4, "fill", 0.2, 0.2, 2, None),
+    "v4-whole-budget": (33, 600, 600, 4, "budget", 0.2, 0.2, 2, None),
+    "warps-mostly-done": (45, 40, 48, 24, "raw", 0.9, 0.0, 2, None),
+    "whole-budget-one-round": (5, 513, 513, 24, "budget", 0.0, 0.0, 2, None),
 }
 
 
@@ -389,7 +400,7 @@ def count_case(name):
         r = fill_batch(qi, qli, ti, tli, mats, 5.0, 2.0, mode="local", with_dirs=True)
         words, sy, sx = r.words.contiguous(), r.fy.contiguous(), r.fx.contiguous()
         R8 = words.shape[1] * 8
-    else:
+    elif kind == "raw":
         R8 = -(-R // 8) * 8
         codes = rng.choice([TOP, LEFT, DIAG, BEG], size=(B, R8, C), p=[0.3, 0.3, 0.38, 0.02])
         words = dw.pack_codes(codes, 8)
@@ -398,7 +409,12 @@ def count_case(name):
         sy[:4], sx[:4] = [R8 + 3, R8 + 9, 20, -1], [30, C + 5, C + 17, 5]
         sy[done], sx[done] = 0, 0
         sy, sx = _i32(sy, sx)
-    S = R8 + C + 1
+    else:
+        R8 = -(-R // 8) * 8
+        codes = rng.choice([TOP, LEFT, DIAG], size=(B, R8, C), p=[0.3, 0.3, 0.4])
+        words = dw.pack_codes(codes, 8)
+        sy, sx = _i32(np.where(done, 0, R8), np.where(done, 0, C))
+    S = min(R8, C) - 1 if kind == "budget" else R8 + C + 1
     qi, ti = _i32(q, t)
     plan = dw.plan_walk(B, C, sms=sms, **({} if span is None else dict(span=span)))
     return (words, sy, sx, qi, ti, torch.as_tensor(alive), V, S), plan
@@ -479,6 +495,26 @@ COUNT_MUTATIONS = {
         ("    if (lane == 0) {\n        n_out[b] = n;\n",
          "    if (lane == 0 && (n & 15) != 0) *st.wp = int(st.partial(~0u));\n"
          "    if (lane == 0) {\n        n_out[b] = n;\n")], None),
+    # the cursor from the inclusive scan, not the exclusive one
+    "inclusive-cursor": ("count_core.cuh", [
+        ("int cy = y - (su - up), cx = x - (sl - lf);", "int cy = y - su, cx = x - sl;")],
+        None),
+    # the round's moves not carried to the next round
+    "no-carry": ("count_core.cuh", [
+        ("        y -= __shfl_sync(FULL, su, 31);\n"
+         "        x -= __shfl_sync(FULL, sl, 31);", "")], None),
+    # the last round of words left out
+    "short-rounds": ("count_core.cuh", [
+        ("w0 < words && 16 * w0 < nm", "w0 + 32 < words && 16 * w0 < nm")], None),
+    # the target char of the row below the cursor's
+    "row-off-by-one": ("count_core.cuh", [
+        ("tm[clip(cy - 1, R - 1)]", "tm[clip(cy, R - 1)]")], None),
+    # the seed pair of a member that is not alive
+    "stale-seed": ("count_core.cuh", [("alive && sy > 0", "sy > 0")], None),
+    # (query char, target char) for (target char, query char)
+    "swapped-pair": ("count_core.cuh", [
+        ("&counts[tm[clip(cy - 1, R - 1)] * V + qm[clip(cx - 1, C - 1)]]",
+         "&counts[qm[clip(cx - 1, C - 1)] * V + tm[clip(cy - 1, R - 1)]]")], None),
 }
 
 
