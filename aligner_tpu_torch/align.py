@@ -51,9 +51,9 @@ the one device; so does a device with an index (``"cuda:1"``), a batch of
 one and a fill with its score plane.
 
 :func:`batch_align` launches its fill and waits for it.  The search's
-length buckets take :class:`ScorePass` instead: the same padding, checks,
-uploads and launches, each bucket on a stream of its own, and one wait for
-all of them.
+length buckets take :class:`ScorePass` instead: each bucket a
+:class:`TargetBucket`, padded, checked and sent once and then kept on the
+cards, its launch on a stream of its own, and one wait for all of them.
 """
 
 from __future__ import annotations
@@ -215,7 +215,7 @@ class _Sent:
 
 
 def _launch_shards(fill_cls, scoring, rows, del_, ext, dtype, devices, sent: _Sent,
-                   streams=None, **call) -> list[FillResult]:
+                   **call) -> list[FillResult]:
     """Upload and launch a batched fill split over ``devices`` (one shard
     each, a device may repeat; one device is one launch of the whole
     batch), and return the shards' FillResults unread, ``-(-B // n)`` rows
@@ -227,9 +227,8 @@ def _launch_shards(fill_cls, scoring, rows, del_, ext, dtype, devices, sent: _Se
     PWM, which goes to each device once in ``sent``, or per-problem
     (B, ...) ones, which split with the batch; a :func:`_shared_row` of
     ``rows`` also goes to each device once in ``sent``, as one (C,) row
-    that every shard expands over its problems; ``streams``: the CUDA
-    stream each shard uploads and launches on (else each device's current
-    stream); ``call``: the fill's keyword arguments.
+    that every shard expands over its problems; ``call``: the fill's
+    keyword arguments.
     B is padded with zero-length problems to a multiple of the shard count
     and split into contiguous shards."""
     B = len(rows[1])
@@ -243,28 +242,27 @@ def _launch_shards(fill_cls, scoring, rows, del_, ext, dtype, devices, sent: _Se
     parts = []
     for k, dev in enumerate(devices):
         part = slice(k * per, (k + 1) * per)
-        with torch.cuda.stream(streams[k]) if streams else contextlib.nullcontext():
-            with span("fill.upload") as sp:
-                if batched:
-                    dp, new = fill_cls.from_numpy(scoring[part], del_, ext, device=dev,
-                                                  dtype=dtype), True
-                else:
-                    dp, new = sent.get(dev, ("scoring", dtype), lambda: fill_cls.from_numpy(
-                        scoring, del_, ext, device=dev, dtype=dtype))
-                scoring_bytes = sum(b.nbytes for b in dp.buffers()) if new else 0
-                args, row_bytes = [], []  # each row's tensor, and the bytes it sent here
-                for i, a in enumerate(rows):
-                    if not _shared_row(a):
-                        args.append(_dev_i32(a[part], dev))
-                        row_bytes.append(args[-1].nbytes)
-                        continue
-                    # a[0] is a read-only view: its copy is one row
-                    row, new = sent.get(dev, ("row", i), lambda: _dev_i32(a[0].copy(), dev))
-                    args.append(row.expand(per, -1))
-                    row_bytes.append(row.nbytes if new else 0)
-                sp.count(h2d_bytes=scoring_bytes + sum(row_bytes), query_bytes=row_bytes[0])
-            with span("fill.launch"):
-                parts.append(dp(*args, **call))
+        with span("fill.upload") as sp:
+            if batched:
+                dp, new = fill_cls.from_numpy(scoring[part], del_, ext, device=dev,
+                                              dtype=dtype), True
+            else:
+                dp, new = sent.get(dev, ("scoring", dtype), lambda: fill_cls.from_numpy(
+                    scoring, del_, ext, device=dev, dtype=dtype))
+            scoring_bytes = sum(b.nbytes for b in dp.buffers()) if new else 0
+            args, row_bytes = [], []  # each row's tensor, and the bytes it sent here
+            for i, a in enumerate(rows):
+                if not _shared_row(a):
+                    args.append(_dev_i32(a[part], dev))
+                    row_bytes.append(args[-1].nbytes)
+                    continue
+                # a[0] is a read-only view: its copy is one row
+                row, new = sent.get(dev, ("row", i), lambda: _dev_i32(a[0].copy(), dev))
+                args.append(row.expand(per, -1))
+                row_bytes.append(row.nbytes if new else 0)
+            sp.count(h2d_bytes=scoring_bytes + sum(row_bytes), query_bytes=row_bytes[0])
+        with span("fill.launch"):
+            parts.append(dp(*args, **call))
     return parts
 
 
@@ -295,15 +293,20 @@ def _cells(ql, tl) -> int:
     return int((np.asarray(ql, np.int64) * np.asarray(tl, np.int64)).sum())
 
 
+def _refuse_codes(name: str, lo: int, hi: int, matrix) -> None:
+    """Refuse codes from ``lo`` to ``hi`` outside the scoring matrix's
+    alphabet."""
+    vol = np.asarray(matrix).shape[-1]
+    if lo < 0 or hi >= vol:
+        raise ValidationError(f"{name} codes must lie in the {vol}-symbol scoring alphabet")
+
+
 def _check_pair_codes(q, t, matrix) -> None:
     """Refuse query or target codes outside the scoring matrix's alphabet
     (a :func:`_shared_row` query is checked once)."""
-    vol = np.asarray(matrix).shape[-1]
     for name, a in (("query", q[:1] if _shared_row(q) else q), ("target", t)):
-        if a.size and (int(a.min()) < 0 or int(a.max()) >= vol):
-            raise ValidationError(
-                f"{name} codes must lie in the {vol}-symbol scoring alphabet"
-            )
+        if a.size:
+            _refuse_codes(name, int(a.min()), int(a.max()), matrix)
 
 
 def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
@@ -549,20 +552,69 @@ def _pass_stream(card: torch.device, i: int):
     return pool[i % len(pool)]
 
 
+class TargetBucket:
+    """A batch of targets kept on the cards for the scores-only fills of
+    many queries: a length bucket of the search's resident database.
+
+    The first :class:`ScorePass` that enqueues it pads its codes (in
+    ``batch.pad``), takes their range (in ``fill.check``) and sends each of
+    the pass's shards its rows (in ``fill.upload``): the codes in the layout
+    the fill reads, (R, B) int32, which ``ops/dp_fill._launch`` reads in
+    place, the lengths, and a mask of the real rows (a shard's padding rows
+    have none); the host's copies then go.  Every later pass, on the same
+    shards, reads them where they lie and checks its matrix against the
+    range without reading a code.  On a card the sends follow
+    :class:`_Sent`'s rule: a pass on another stream waits for their event."""
+
+    def __init__(self, targets: Sequence[np.ndarray]):
+        if not len(targets):
+            raise ValidationError("empty batch")
+        self.rows = len(targets)
+        self.width = self.residues = 0  # the padded rows' length; the real codes' count
+        self.codes: tuple[int, int] | None = None  # the padded rows' lowest, highest code
+        self.shards: tuple | None = None  # the devices it was sent to
+        self._targets = targets
+        self._host: list | None = None  # the padded rows, lengths and mask, until sent
+        self._sent = _Sent()
+
+    def _pad(self, shards) -> None:
+        if self.shards is None:
+            t, tl = pad_batch(self._targets)
+            n = len(shards)
+            self._host = _pad_batch_rows([t, tl, np.ones(self.rows, np.int32)], self.rows,
+                                         -(-self.rows // n) * n)
+            self.width, self.residues = t.shape[1], int(tl.sum())
+            self.codes = int(t.min()), int(t.max())
+            self._targets, self.shards = None, tuple(shards)
+        elif self.shards != tuple(shards):
+            raise ValueError(f"a bucket sent to {list(self.shards)} enqueued on {shards}")
+
+    def _on(self, k: int, dev: torch.device):
+        """Shard ``k``'s rows (R, B), lengths and mask on ``dev``, and the
+        bytes sent for them (0 once sent)."""
+        def send():
+            per = len(self._host[1]) // len(self.shards)
+            t, tl, live = (_dev_i32(a[k * per:(k + 1) * per], dev) for a in self._host)
+            return t.T.contiguous(), tl, live
+
+        on, new = self._sent.get(dev, k, send)
+        return on, sum(a.nbytes for a in on) if new else 0
+
+
 class ScorePass:
     """The scores-only fills of one query against many batches of targets
     (the search's length buckets) as one pass over the cards.
 
-    :meth:`enqueue` pads, checks, uploads and launches a batch as
-    :func:`batch_align` of ``[query] * n`` against it does without
-    alignments, but on a CUDA stream of its own (the ``i``-th batch on
-    stream ``i`` of a pool taken once a card) and without waiting for the
-    card: no batch waits for another's launch.  The query's shared row and
-    the scoring state go to each card once a pass; a batch on another
-    stream waits for their upload's event.  :meth:`read` then waits for the
-    cards once and reads every batch's scores, bit for bit what
-    :func:`batch_align` returns.  On the CPU the batches run in turn on the
-    plain fill as they are enqueued.
+    :meth:`enqueue` launches the fills of a :class:`TargetBucket` as
+    :func:`batch_align` of ``[query] * n`` against its targets does without
+    alignments, but from the targets the bucket keeps on the cards, on a
+    CUDA stream of its own (the ``i``-th batch on stream ``i`` of a pool
+    taken once a card) and without waiting for the card: no batch waits for
+    another's launch.  The query's padded row and the scoring state go to
+    each card once a pass; a batch on another stream waits for their
+    upload's event.  :meth:`read` then waits for the cards once and reads
+    every batch's scores, bit for bit what :func:`batch_align` returns.  On
+    the CPU the batches run in turn on the plain fill as they are enqueued.
 
     Each batch is a ``batch`` span with ``batch.pad`` and ``fill``
     (``fill.check``, ``fill.upload``, ``fill.launch``), as in
@@ -577,6 +629,8 @@ class ScorePass:
         if mode not in ("local", "global"):
             raise ValidationError(f"mode must be local|global, got {mode!r}")
         self.query = _encode(query, alphabet)
+        (self._row,), _ = pad_batch([self.query])
+        self._codes = int(self._row.min()), int(self._row.max())
         self.matrix, self.del_, self.ext = matrix, del_, ext
         self.mode, self.alphabet = mode, alphabet
         self.device = resolve_device(device)
@@ -599,32 +653,51 @@ class ScorePass:
     def _cards(self) -> list:
         return list(dict.fromkeys(d for _, _, shards in self._batches for d in shards))
 
-    def enqueue(self, targets: Sequence) -> None:
-        """Launch the fills of the query against ``targets`` (one or more)."""
+    def enqueue(self, bucket: TargetBucket) -> None:
+        """Launch the fills of the query against ``bucket``'s targets."""
         from .ops.dp_fill import DPFill
 
-        n = len(targets)
+        n = bucket.rows
+        shards = self.shards if n > 1 else [_card(self.device)]
+        per = -(-n // len(shards))
+        qlen = len(self.query)
         with span("batch", rows=n, with_alignments=0, shared_query_rows=n):
             with span("batch.pad"):
-                _, _, q, ql, t, tl = _pad_pairs([self.query] * n, targets, self.alphabet,
-                                                True)
+                bucket._pad(shards)
             dtype = dtype_for(self.device, self.matrix, self.del_, self.ext,
-                              lengths=(t.shape[1], q.shape[1]))
-            shards = self.shards if n > 1 else [_card(self.device)]
-            cells = _cells(ql, tl)
+                              lengths=(bucket.width, len(self._row)))
+            cells = qlen * bucket.residues
             with span("fill", cells=cells, shards=len(shards)):
                 with span("fill.check"):
-                    _check_pair_codes(q, t, self.matrix)
+                    _refuse_codes("query", *self._codes, self.matrix)
+                    _refuse_codes("target", *bucket.codes, self.matrix)
+                    codes = (min(self._codes[0], bucket.codes[0]),
+                             max(self._codes[1], bucket.codes[1]))
                 if self._t0 is None:
                     self._t0 = time.perf_counter()
-                streams = None
-                if self.device.type == "cuda":
-                    streams = [_pass_stream(d, self.in_flight) for d in shards]
-                    self.streams.update(streams)
-                parts = _launch_shards(DPFill, self.matrix, [q, ql, t, tl], self.del_,
-                                       self.ext, dtype, shards, self._sent, streams,
-                                       mode=self.mode, track_argmax=True, with_dirs=False,
-                                       with_scores_plane=False)
+                parts = []
+                for k, dev in enumerate(shards):
+                    stream = None
+                    if dev.type == "cuda":
+                        stream = _pass_stream(dev, self.in_flight)
+                        self.streams.add(stream)
+                    with torch.cuda.stream(stream) if stream else contextlib.nullcontext():
+                        with span("fill.upload") as sp:
+                            dp, new = self._sent.get(dev, ("scoring", dtype), lambda: (
+                                DPFill.from_numpy(self.matrix, self.del_, self.ext,
+                                                  device=dev, dtype=dtype)))
+                            scoring_bytes = sum(b.nbytes for b in dp.buffers()) if new else 0
+                            row, new = self._sent.get(dev, "query",
+                                                      lambda: _dev_i32(self._row, dev))
+                            query_bytes = row.nbytes if new else 0
+                            (t, tl, live), target_bytes = bucket._on(k, dev)
+                            sp.count(h2d_bytes=scoring_bytes + query_bytes + target_bytes,
+                                     query_bytes=query_bytes)
+                        with span("fill.launch"):
+                            parts.append(dp(row.expand(per, -1), live * qlen, t.T, tl,
+                                            mode=self.mode, track_argmax=True,
+                                            code_range=codes))
+                bucket._host = None
         self._batches.append((n, parts, shards))
         self.in_flight += 1
         self._cells += cells

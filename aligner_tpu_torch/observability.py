@@ -15,14 +15,22 @@
 The spans, nested as the program opens them (counts in brackets; a root
 span is one request, and its id is the request id):
 
-* ``search`` [records, query_len, in_flight, streams] (``search.search_database``;
-  ``in_flight``: the buckets' fills enqueued before the score pass's one
-  wait, ``streams``: the CUDA streams they went on, 0 on the CPU):
-  ``search.encode``, ``search.buckets`` [buckets], one ``search.bucket``
+* ``search`` [records, query_len, resident, in_flight, streams]
+  (``search.search_database``; ``resident``: 1 where the records were
+  found on the cards, 0 where they were prepared; ``in_flight``: the
+  buckets' fills enqueued before the score pass's one wait, ``streams``:
+  the CUDA streams they went on, 0 on the CPU): one ``search.bucket``
   [rows, width] per length bucket, tallest first (its ``batch``, without
-  ``batch.read`` and ``fill.sync``), the score pass's one ``batch``
-  [batches] (its ``fill.sync``, the one wait, and ``batch.read``),
-  ``search.rank``, ``search.alignments`` (the top hits' ``batch``);
+  ``batch.read`` and ``fill.sync``; on a database's first pass its
+  ``batch.pad``, ``fill.check`` and ``fill.upload`` also pad, check and
+  send the bucket's targets), ``search.verify`` (the call's records
+  compared with the kept ones on the host, while the kept buckets' fills
+  run), the score pass's one ``batch`` [batches] (its ``fill.sync``, the
+  one wait, and ``batch.read``), ``search.rank``, ``search.alignments``
+  (the top hits' ``batch``); where the records are not the kept ones,
+  ``search.prepare`` (``search.encode``, ``search.buckets`` [buckets])
+  before a pass over the prepared buckets (after a ``search.verify`` that
+  found them different, a second run of ``search.bucket`` spans);
 * ``batch`` [rows, with_alignments, shared_query_rows] (``align.batch_align``,
   and a batch of ``align.ScorePass``; ``shared_query_rows``: the rows that
   read one shared query row, 0 unless every problem has the same query

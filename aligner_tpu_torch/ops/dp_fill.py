@@ -183,10 +183,12 @@ def _query_row(q):
     return q[0] if q.dim() == 2 and len(q) > 0 and q.stride(0) == 0 else q
 
 
-def _check(q, qlen, t, tlen, matrix) -> None:
+def _check(q, qlen, t, tlen, matrix, code_range=None) -> None:
     row = _query_row(q)
-    _check_tensors(q.device, (("q", row), ("qlen", qlen), ("t", t), ("tlen", tlen)),
-                   matrix)
+    # t may also be the .T view of a contiguous (R, B) tensor
+    _check_tensors(q.device, (("q", row), ("qlen", qlen),
+                              ("t", t if t.is_contiguous() or t.dim() != 2 else t.T),
+                              ("tlen", tlen)), matrix)
     if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0]:
         raise ValueError(f"q (B, C) and t (B, R) expected, got {tuple(q.shape)}, "
                          f"{tuple(t.shape)}")
@@ -199,7 +201,11 @@ def _check(q, qlen, t, tlen, matrix) -> None:
                              f"{tuple(matrix.shape)}")
     elif matrix.dim() != 2 or matrix.shape[0] != matrix.shape[1]:
         raise ValueError(f"matrix must be (V, V), got {tuple(matrix.shape)}")
-    _check_codes(matrix.shape[-1], ("q", row), ("t", t))
+    V = matrix.shape[-1]
+    if code_range is None:
+        _check_codes(V, ("q", row), ("t", t))
+    elif code_range[0] < 0 or code_range[1] >= V:
+        raise ValueError(f"codes from {code_range[0]} to {code_range[1]} must lie in [0, {V})")
 
 
 def _check_pwm(q, qlen, pwm) -> None:
@@ -221,21 +227,26 @@ def _check_pwm(q, qlen, pwm) -> None:
 
 def fill(q, qlen, t, tlen, matrix, del_: float, ext: float, *,
          mode: str = "local", track_argmax: bool = True,
-         with_dirs: bool = False, with_scores_plane: bool = False) -> FillResult:
+         with_dirs: bool = False, with_scores_plane: bool = False,
+         code_range: tuple[int, int] | None = None) -> FillResult:
     """Batched exact fill of B (query, target) problems.
 
     ``q`` (B, C) and ``t`` (B, R) int32 codes, ``qlen``/``tlen`` (B,)
     int32, ``matrix`` (V, V) or (B, V, V) float32/float64, all contiguous
     on one device; ``q`` may also be one contiguous (C,) row expanded over
-    the batch (stride 0), a query that every problem reads.  CUDA tensors
-    launch the kernel; CPU tensors take the plain version.  Global mode
-    always tracks the argmax.  With
-    ``with_dirs``, ``with_scores_plane`` also returns the score plane's
-    interior (``FillResult.plane``, (B, C, R8)) and tracks the argmax.
+    the batch (stride 0), a query that every problem reads, and ``t`` the
+    ``.T`` view of a contiguous (R, B) tensor (the kernel's own layout,
+    read in place when R is a multiple of 8).  CUDA tensors launch the
+    kernel; CPU tensors take the plain version.  Global mode always tracks
+    the argmax.  With ``with_dirs``, ``with_scores_plane`` also returns the
+    score plane's interior (``FillResult.plane``, (B, C, R8)) and tracks
+    the argmax.  ``code_range``: the lowest and highest code of ``q`` and
+    ``t`` where the caller knows them; the matrix is checked against them,
+    and no code is read on the device.
     """
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be local|global, got {mode!r}")
-    _check(q, qlen, t, tlen, matrix)
+    _check(q, qlen, t, tlen, matrix, code_range)
     if q.device.type == "cpu":
         return fill_batch(q, qlen, t, tlen, matrix, del_, ext, mode=mode,
                           track_argmax=track_argmax, with_dirs=with_dirs,
@@ -363,10 +374,11 @@ class DPFill(nn.Module):
 
     def forward(self, q, qlen, t, tlen, *, mode: str = "local",
                 track_argmax: bool = True, with_dirs: bool = False,
-                with_scores_plane: bool = False) -> FillResult:
+                with_scores_plane: bool = False,
+                code_range: tuple[int, int] | None = None) -> FillResult:
         return fill(q, qlen, t, tlen, self.matrix, self.del_, self.ext,
                     mode=mode, track_argmax=track_argmax, with_dirs=with_dirs,
-                    with_scores_plane=with_scores_plane)
+                    with_scores_plane=with_scores_plane, code_range=code_range)
 
 
 class PWMFill(nn.Module):

@@ -1515,7 +1515,7 @@ def test_score_pass_overlaps_the_buckets_and_waits_once(dev, monkeypatch):
                             lambda device=None: (syncs.append(device), real(device))[1])
         with align.ScorePass(q, blosum62(), 11.0, 2.0, device=dev) as fills:
             for b in order:
-                fills.enqueue([db[i] for i in b])
+                fills.enqueue(align.TargetBucket([db[i] for i in b]))
             got = fills.read()
         monkeypatch.undo()
     after = observability.counters.snapshot()["cuda/local"]
@@ -1530,6 +1530,59 @@ def test_score_pass_overlaps_the_buckets_and_waits_once(dev, monkeypatch):
                 and "dp_fill_kernel" in e.name())
     assert len(k1) == len(order)
     assert k1[1][0] < k1[0][1]  # the second launch starts before the tallest ends
+
+
+def test_a_second_search_sends_the_card_its_query_row_alone(dev, monkeypatch):
+    """The database kept on the card: the second search against the same
+    records reads ``resident`` 1, its score pass's ``fill.upload`` spans
+    send each card the query row and the matrix and nothing of the
+    database, and its hits equal the first search's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aligner_tpu_torch import observability, search
+
+    monkeypatch.setattr(search, "_resident", search._Resident())
+    rng = np.random.default_rng(26)
+    lens = list(rng.integers(30, 400, 3000)) + [1500] * 4
+    db = [rng.integers(0, 20, int(n)).astype(np.int8) for n in lens]
+    q = rng.integers(0, 20, 700).astype(np.int8)
+    db[100] = q.copy()
+
+    def traced():
+        observability.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            hits = port.search_database(q, db, blosum62(), 11.0, 2.0, k=5, device=dev)
+        log = observability.spans()
+        observability.clear_spans()
+        return [(h.index, h.score, h.coords, h.query_aligned.tolist(),
+                 h.target_aligned.tolist()) for h in hits], log
+
+    def pass_uploads(log):
+        by_id = {s.id: s for s in log}
+
+        def in_bucket(s):
+            while s.parent is not None:
+                s = by_id[s.parent]
+                if s.name == "search.bucket":
+                    return True
+            return False
+
+        (root,) = [s for s in log if s.parent is None]
+        return root.counts["resident"], [s.counts for s in log
+                                         if s.name == "fill.upload" and in_bucket(s)]
+
+    first, log1 = traced()
+    second, log2 = traced()
+    assert second == first and first[0][0] == 100
+    resident1, up1 = pass_uploads(log1)
+    resident2, up2 = pass_uploads(log2)
+    assert (resident1, resident2) == (0, 1)
+    # the first pass sent the database: 704 int32 codes a row at least
+    assert sum(u["h2d_bytes"] for u in up1) > 3000 * 704
+    # the query row (704 int32 codes) and the float32 matrix, once a card
+    assert sum(u["query_bytes"] > 0 for u in up2) >= 1
+    assert all(u["h2d_bytes"] == (u["query_bytes"] + 24 * 24 * 4 if u["query_bytes"] else 0)
+               and u["query_bytes"] in (0, 704 * 4) for u in up2)
 
 
 def test_spans_leave_no_copy_on_the_device_timeline(dev):

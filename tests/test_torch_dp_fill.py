@@ -177,3 +177,23 @@ def test_wrapper_rejects_bad_inputs():
     before = (dp_fill.launches.scores, dp_fill.launches.dirs)
     dp_fill.fill(q, ln, q, ln, m, 1.0, 1.0, with_dirs=True)
     assert (dp_fill.launches.scores, dp_fill.launches.dirs) == before
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_targets_in_the_kernels_layout_with_their_code_range(rng, mode):
+    """``t`` as the ``.T`` view of a contiguous (R, B) tensor, with the
+    codes' range given (the search's kept buckets), fills as the
+    contiguous ``t`` does; a range outside the matrix is refused."""
+    q, ql, t, tl = _batch(rng, 40, 24, 32, dense=False)
+    m = torch.as_tensor(blosum62(), dtype=torch.float64)
+    args = [torch.from_numpy(a) for a in (q, ql, t, tl)]
+    want = dp_fill.fill(*args, m, 11.0, 2.0, mode=mode)
+    tT = torch.from_numpy(np.ascontiguousarray(t.T))
+    lo, hi = int(min(q.min(), t.min())), int(max(q.max(), t.max()))
+    got = dp_fill.fill(args[0], args[1], tT.T, args[3], m, 11.0, 2.0, mode=mode,
+                       code_range=(lo, hi))
+    for f in ("fmax", "fy", "fx", "end"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for bad in ((lo, V), (-1, hi)):
+        with pytest.raises(ValueError, match="must lie in"):
+            dp_fill.fill(args[0], args[1], tT.T, args[3], m, 11.0, 2.0, code_range=bad)

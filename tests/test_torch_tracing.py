@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import aligner_tpu_torch as port
-from aligner_tpu_torch import heuristic, observability, statistics
+from aligner_tpu_torch import heuristic, observability, search, statistics
 from aligner_tpu_torch.ops import dp_fill
 from aligner_tpu_torch.search import search_database
 
@@ -24,8 +24,8 @@ torch.set_num_threads(1)
 
 # each span's parent, by name, on these entries (None: a root)
 TREE = {
-    "search": None, "search.encode": "search", "search.buckets": "search",
-    "search.bucket": "search", "search.rank": "search", "search.alignments": "search",
+    "search": None, "search.prepare": "search", "search.encode": "search.prepare",
+    "search.buckets": "search.prepare", "search.verify": "search", "search.bucket": "search", "search.rank": "search", "search.alignments": "search",
     "batch": ("search.bucket", "search.alignments", "population.final", "pvalue.fill",
               "search"),
     "batch.pad": "batch", "batch.read": "batch", "batch.walk": "batch",
@@ -97,6 +97,12 @@ def _empty_log():
     observability.clear_spans()
 
 
+@pytest.fixture(autouse=True)
+def _no_resident_database(monkeypatch):
+    """Each test's first search prepares its database."""
+    monkeypatch.setattr(search, "_resident", search._Resident())
+
+
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_no_profiler_records_nothing_and_opens_no_range(entry, monkeypatch):
     opened = []
@@ -125,7 +131,8 @@ def test_one_request_one_root_and_the_tree(entry):
         assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
     names = Counter(s.name for s in log)
     expect = {
-        "search": {"search", "search.encode", "search.buckets", "search.bucket", "search.rank",
+        "search": {"search", "search.prepare", "search.encode", "search.buckets",
+                   "search.bucket", "search.rank",
                    "search.alignments", "batch", "batch.pad", "batch.read", "batch.walk",
                    "fill", "fill.check", "fill.upload", "fill.launch", "fill.sync"},
         "population": {"population", "population.start", "population.done_read",
@@ -148,8 +155,8 @@ def test_one_request_one_root_and_the_tree(entry):
         return
     buckets = [s for s in log if s.name == "search.buckets"][0].counts["buckets"]
     assert names["search.bucket"] == buckets >= 2
-    assert root.counts == {"records": 40, "query_len": 30, "in_flight": buckets,
-                           "streams": 0}
+    assert root.counts == {"records": 40, "query_len": 30, "resident": 0,
+                           "in_flight": buckets, "streams": 0}
     rows = sum(s.counts["rows"] for s in log if s.name == "search.bucket")
     assert rows == 40
     # each bucket's batch and fill, the join, and the top hits' batch and fill
