@@ -64,7 +64,16 @@ span is one request, and its id is the request id):
   walk's launch and the read of its cursor), ``pair.decode`` (the step
   stream brought to the host and turned into strings and coordinates).
   The direct single-plane alignment fills with directions and walks in its
-  ``pair.forward``.
+  ``pair.forward``;
+* ``repeat`` [scans, windows, survivors] (one record of
+  ``repeat.engine.perform_calculation_per_sequence``: the scans run, the
+  windows they scanned, the windows at z >= 3): ``repeat.start`` (the
+  PWM's draw, the shuffle and the starting scan), one ``repeat.cycle``
+  [windows, survivors, kept] a cycle (``repeat.filter`` [tasks_in,
+  tasks_out], the overlap filter of the survivors' tasks;
+  ``repeat.survivors`` [windows, cells], the full pass over the tasks it
+  keeps; ``repeat.matrix``, the next PWM); each scan, in either, is a
+  ``repeat.scan`` [windows, cells, chunks].
 
 An operator records them with ``torch.profiler``::
 

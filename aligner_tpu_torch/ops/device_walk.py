@@ -416,14 +416,28 @@ def decode_pwm_batch(steps, lens, sy, sx, q: np.ndarray):
     """PWM-mode decode of ALL B problems (``q`` is the padded (B, L) query
     code array): ``numbered`` gets the PWM position (0 for a gap), ``qa``
     the query character or BLANK (an_traceback pwm_mode semantics).  The
-    rows of a PWM plane are the query, its columns the PWM positions."""
+    rows of a PWM plane are the query, its columns the PWM positions.
+
+    The cursor is replayed a step row at a time and each row decoded as it
+    goes, so no (S, B) array of positions is built: at the repeat search's
+    survivors (tens of thousands of windows of 330 bases against a PWM of
+    300) those made the decode take seconds on the host."""
     steps = _walked(steps, lens)
-    y_at, x_at = _cursor_replay_all(steps, sy, sx)
-    qi = np.clip(y_at - 1, 0, q.shape[1] - 1)
-    qa_all = np.where(
-        steps == LEFT, BLANK, np.take_along_axis(q.T, qi, axis=0)
-    ).astype(np.int16)
-    num_all = np.where(steps == TOP, 0, x_at).astype(np.int32)
+    B = steps.shape[1]
+    flat = np.ascontiguousarray(q.T).ravel()  # code (y, b) at y * B + b
+    hi = q.shape[1] - 1
+    cols = np.arange(B, dtype=np.int64)
+    y = np.array(sy, np.int64)
+    x = np.array(sx, np.int32)
+    qa_all = np.empty(steps.shape, np.int16)
+    num_all = np.empty(steps.shape, np.int32)
+    for s, d in enumerate(steps):
+        # clip only guards rows past lens[b] (sliced off below)
+        at = flat.take(np.clip(y - 1, 0, hi) * B + cols)
+        qa_all[s] = np.where(d == LEFT, BLANK, at)
+        num_all[s] = np.where(d == TOP, 0, x)
+        y -= (d == TOP) | (d == DIAG)
+        x -= (d == LEFT) | (d == DIAG)
     return (
         [qa_all[: lens[b], b][::-1] for b in range(steps.shape[1])],
         [num_all[: lens[b], b][::-1] for b in range(steps.shape[1])],

@@ -5,8 +5,8 @@ re-architecture of aligner-core/src/bin/latent-repeat-search/engine/):
 the thread fan-outs over windows (calc.rs:45-75, 105-144) become batched
 device launches — a scores-only PWM fill over every window, gathered on
 the device from the device-resident sequence, then a full-alignment pass
-over only the z-filtered survivors (whose frequency matrices feed the
-next cycle's matrix).
+over only the z-filtered survivors that the overlap filter keeps (whose
+frequency matrices feed the next cycle's matrix).
 
 Replicated behavior details:
 
@@ -29,6 +29,19 @@ Replicated behavior details:
 * reversed pass: one extra cycle on the reversed compacted sequence with
   rotated indices, reusing the final mean/std/matrix (calc.rs:223-238).
 
+Spans (:func:`aligner_tpu_torch.observability.span`, recorded under
+``torch.profiler`` only), nested as a record's search opens them:
+``repeat`` [scans, windows, survivors] (one record of
+:func:`perform_calculation_per_sequence`: the scans run, the windows they
+scanned and the windows that passed z >= 3) holds ``repeat.start`` (the
+PWM's draw, the shuffle and the starting scan) and one ``repeat.cycle``
+[windows, survivors, kept] a cycle (and one for the reversed pass); a
+scan is ``repeat.scan`` [windows, cells, chunks] (:func:`_scan_scores`),
+the overlap filter of the survivors' tasks ``repeat.filter`` [tasks_in,
+tasks_out], the full pass over the tasks it keeps ``repeat.survivors``
+[windows, cells] and the next PWM (the frequency sum and the transform)
+``repeat.matrix``.
+
 The PWMs here come from ``transform_matrix`` and are not integral, so
 every fill runs in float64 (``backend.dtype_for``), the reference's own
 precision: one f32 rounding could move a window across the hard z
@@ -40,7 +53,6 @@ other.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import json
 import os
@@ -55,10 +67,10 @@ from ..heuristic import Heuristics, heuristic_align_pwm
 from ..io import read_fasta_file, read_records
 from ..io.fasta import mask_intervals
 from ..matrices import random_pwm, transform_matrix
-from ..observability import log, measure
+from ..observability import count, log, measure, span
 from ..ops.dp_fill import PWMFill
 from ..ops.scan_engine import round8
-from ..result import PWMAlignment
+from ..result import PWMAlignment, frequency_sum
 from ..service.models import matrix_from_json, matrix_to_serde_dict
 
 Z = 3.0
@@ -84,6 +96,10 @@ class Task:
 class TaskResult:
     tasks: list[Task]
     matrix: np.ndarray
+    # the scans this call ran for the result: the starting scan and each
+    # cycle's (an empty one that ended the loop included); 0 for a result
+    # replayed from a completed checkpoint
+    scans: int = 0
 
 
 @dataclasses.dataclass
@@ -104,30 +120,32 @@ class SearchOptions:
 
 
 def windows_of(length: int, opts: SearchOptions, step: int) -> list[tuple[int, int]]:
-    """The exact window set of the reference's thread fan-out.
+    """The exact window set of the reference's thread fan-out, as
+    (start, border) pairs (:func:`_windows` as a list)."""
+    return [(j, border) for j, border in _windows(length, opts, step).tolist()]
+
+
+def _windows(length: int, opts: SearchOptions, step: int) -> np.ndarray:
+    """The exact window set of the reference's thread fan-out, an (n, 2)
+    int64 array of (start, border) rows.
 
     Thread i yields ``j = i*query_offset, i*query_offset + step*threads,
     ...`` (calc.rs:56,114); results arrive over an mpsc channel in
     nondeterministic order, so order here (thread-major) is as good as
-    the reference's.
+    the reference's.  A window's border is ``j + repeat_length +
+    query_offset``, or ``length`` where that reaches it.
     """
-    out = []
-    for i in range(opts.threads):
-        j = i * opts.query_offset
-        stride = max(step * opts.threads, 1)
-        while j < length:
-            border = (
-                length
-                if j + opts.repeat_length + opts.query_offset >= length
-                else j + opts.repeat_length + opts.query_offset
-            )
-            out.append((j, border))
-            j += stride
-    return out
+    stride = max(step * opts.threads, 1)
+    starts = np.concatenate([
+        np.arange(i * opts.query_offset, length, stride, dtype=np.int64)
+        for i in range(opts.threads)
+    ])
+    far = starts + opts.repeat_length + opts.query_offset
+    return np.stack([starts, np.where(far >= length, length, far)], axis=1)
 
 
 def _scan_scores(
-    seq: np.ndarray, wins: list[tuple[int, int]], matrix: np.ndarray,
+    seq: np.ndarray, wins, matrix: np.ndarray,
     opts: SearchOptions, chunk: int = SCAN_CHUNK,
 ) -> np.ndarray:
     """Scores-only PWM alignment of every window, ``chunk`` windows per
@@ -142,50 +160,51 @@ def _scan_scores(
     device; no score is read before the last chunk is launched.  These are
     the windows the JAX package sends through its sharded
     ``batch_align_pwm``, with the same scores, without building the window
-    slices on the host."""
+    slices on the host.  ``wins``: (start, border) pairs, a list or an
+    (n, 2) array (:func:`_windows`)."""
     fs = np.empty(len(wins), dtype=np.float64)
-    if not wins:
+    if not len(wins):
         return fs
     device = resolve_device(opts.device)
     devices = _auto_shard_devices(device) if len(wins) > 1 else [device]
-    starts = np.fromiter((j for j, _ in wins), np.int64, len(wins))
-    borders = np.fromiter((b for _, b in wins), np.int64, len(wins))
+    starts, borders = np.asarray(wins, dtype=np.int64).T
     dtype = dtype_for(device, matrix, opts.deletions, opts.extension,
                       lengths=(int((borders - starts).max()), matrix.shape[-1]))
     cells = int((borders - starts).sum()) * int(matrix.shape[-1])
     R8 = round8(int((borders - starts).max()))
-    state = {}  # per device: the scoring state, the sequence, the windows, the scores
-    for dev in devices:
-        if dev not in state:
-            state[dev] = (
-                PWMFill.from_numpy(matrix, opts.deletions, opts.extension, device=dev,
-                                   dtype=dtype),
-                torch.as_tensor(np.asarray(seq, np.int32), device=dev),
-                torch.as_tensor(starts, device=dev),
-                torch.as_tensor((borders - starts).astype(np.int32), device=dev),
-                torch.arange(R8, device=dev)[:, None],
-                torch.empty(len(wins), dtype=torch.float64, device=dev), [])
-    with measure(_engine_name(device, devices, "pwm-scan"), cells, len(wins),
-                 device=devices):
-        for lo in range(0, len(wins), chunk):
-            hi = min(lo + chunk, len(wins))
-            per = -(-(hi - lo) // len(devices))
-            for k, dev in enumerate(devices):
-                a, b = min(lo + k * per, hi), min(lo + (k + 1) * per, hi)
-                if a == b:
-                    continue
-                dp, seq_dev, starts_dev, qlen_dev, rows, out, spans = state[dev]
-                ql = qlen_dev[a:b]
-                idx = (starts_dev[None, a:b] + rows).clamp_(max=len(seq) - 1)
-                qT = torch.where(rows < ql[None, :], seq_dev[idx], 0)  # (R8, B)
-                # only f feeds the mean/std and z-filter (calc.rs:72-86,
-                # 139-144): no per-cell argmax bookkeeping
-                out[a:b] = dp(qT.T, ql, track_argmax=False).fmax
-                spans.append((a, b))
-    for *_, out, spans in state.values():
-        host = out.cpu().numpy()
-        for a, b in spans:
-            fs[a:b] = host[a:b]
+    with span("repeat.scan", windows=len(wins), cells=cells, chunks=-(-len(wins) // chunk)):
+        state = {}  # per device: the scoring state, the sequence, the windows, the scores
+        for dev in devices:
+            if dev not in state:
+                state[dev] = (
+                    PWMFill.from_numpy(matrix, opts.deletions, opts.extension, device=dev,
+                                       dtype=dtype),
+                    torch.as_tensor(np.asarray(seq, np.int32), device=dev),
+                    torch.as_tensor(starts, device=dev),
+                    torch.as_tensor((borders - starts).astype(np.int32), device=dev),
+                    torch.arange(R8, device=dev)[:, None],
+                    torch.empty(len(wins), dtype=torch.float64, device=dev), [])
+        with measure(_engine_name(device, devices, "pwm-scan"), cells, len(wins),
+                     device=devices):
+            for lo in range(0, len(wins), chunk):
+                hi = min(lo + chunk, len(wins))
+                per = -(-(hi - lo) // len(devices))
+                for k, dev in enumerate(devices):
+                    a, b = min(lo + k * per, hi), min(lo + (k + 1) * per, hi)
+                    if a == b:
+                        continue
+                    dp, seq_dev, starts_dev, qlen_dev, rows, out, spans = state[dev]
+                    ql = qlen_dev[a:b]
+                    idx = (starts_dev[None, a:b] + rows).clamp_(max=len(seq) - 1)
+                    qT = torch.where(rows < ql[None, :], seq_dev[idx], 0)  # (R8, B)
+                    # only f feeds the mean/std and z-filter (calc.rs:72-86,
+                    # 139-144): no per-cell argmax bookkeeping
+                    out[a:b] = dp(qT.T, ql, track_argmax=False).fmax
+                    spans.append((a, b))
+        for *_, out, spans in state.values():
+            host = out.cpu().numpy()
+            for a, b in spans:
+                fs[a:b] = host[a:b]
     return fs
 
 
@@ -198,8 +217,9 @@ def calculate_starting_values(
     shuffled = np.array(seq)
     rng.shuffle(shuffled)
     step = len(seq) // 1000 if opts.simple_init else opts.query_offset
-    wins = windows_of(len(seq), opts, step)
+    wins = _windows(len(seq), opts, step)
     fs = _scan_scores(shuffled, wins, matrix, opts)
+    count(windows=len(wins))
     mean = float(fs.mean())
     std = float(np.sqrt(((fs - mean) ** 2).mean()))
     return mean, std
@@ -212,37 +232,48 @@ def calculate_cycle(
     mean: float,
     std: float,
     opts: SearchOptions,
+    select=None,
 ) -> list[Task]:
     """One scan over the real sequence; keep windows with z >= 3
-    (calc.rs:88-147).  Alignments (needed for frequency matrices) are
-    computed only for the surviving windows, in a second full-mode pass.
+    (calc.rs:88-147), and of their tasks the positions that
+    ``select(left, right, z)`` returns (every one without it; a record's
+    search passes the overlap filter).  Tasks and their alignments (needed
+    for frequency matrices) are made for those alone, the alignments in a
+    second full-mode pass: at the reference's defaults a cycle can keep
+    nearly every window of a chromosome, of which the filter keeps about one
+    in twelve, and the filter reads coordinates and z alone.
     """
-    wins = windows_of(len(seq), opts, opts.query_offset)
+    wins = _windows(len(seq), opts, opts.query_offset)
     fs = _scan_scores(seq, wins, matrix, opts)
     with np.errstate(divide="ignore", invalid="ignore"):
         z = (fs - mean) / std  # std may be 0 — inf/nan matches the reference
     keep = np.flatnonzero(z >= Z)
     log.info("repeat scan: %d windows, %d survivors", len(wins), len(keep))
-    tasks: list[Task] = []
-    for lo in range(0, len(keep), SCAN_CHUNK):
-        idxs = keep[lo : lo + SCAN_CHUNK]
-        qs = [seq[wins[i][0] : wins[i][1]] for i in idxs]
-        full = batch_align_pwm(
-            qs, matrix, opts.deletions, opts.extension,
-            device=opts.device, with_alignments=True,
-        )
-        for res, i in zip(full, idxs):
-            j, border = wins[i]
-            tasks.append(
-                Task(
-                    alignment=res.alignment,
-                    left_coord=index_coord(j, indices),
-                    right_coord=index_coord(border, indices),
-                    z=float(z[i]),
-                    f=float(fs[i]),
-                )
+    count(windows=len(wins), survivors=len(keep))
+    left = _coords(wins[keep, 0], indices)
+    right = _coords(wins[keep, 1], indices)
+    zs, f = z[keep].tolist(), fs[keep].tolist()
+    chosen = range(len(keep)) if select is None or not len(keep) else select(left, right, zs)
+    tasks = [Task(None, left[k], right[k], zs[k], f[k]) for k in chosen]
+    bounds = wins[keep[list(chosen)]].tolist()
+    cells = sum(b - a for a, b in bounds) * int(matrix.shape[-1])
+    with span("repeat.survivors", windows=len(tasks), cells=cells):
+        for lo in range(0, len(tasks), SCAN_CHUNK):
+            full = batch_align_pwm(
+                [seq[a:b] for a, b in bounds[lo : lo + SCAN_CHUNK]], matrix,
+                opts.deletions, opts.extension, device=opts.device,
+                with_alignments=True,
             )
+            for task, res in zip(tasks[lo : lo + SCAN_CHUNK], full):
+                task.alignment = res.alignment
     return tasks
+
+
+def _coords(values: np.ndarray, indices: list[Index]) -> list[int]:
+    """:func:`index_coord` of each compacted coordinate (the coordinates
+    themselves where the record skipped no character)."""
+    values = values.tolist()
+    return [index_coord(v, indices) for v in values] if indices else values
 
 
 def _check_intersection(c1: tuple[int, int], c2: tuple[int, int]) -> bool:
@@ -260,7 +291,18 @@ def _check_intersection(c1: tuple[int, int], c2: tuple[int, int]) -> bool:
 
 
 def filter_tasks(tasks: list[Task]) -> list[Task]:
-    """Overlap de-duplication keeping max-z per batch (engine/mod.rs:49-102).
+    """Overlap de-duplication keeping max-z per batch (engine/mod.rs:49-102):
+    the tasks sorted by left_coord (stably), then :func:`_overlap_filter`."""
+    tasks = sorted(tasks, key=lambda t: t.left_coord)
+    keep = _overlap_filter([t.left_coord for t in tasks], [t.right_coord for t in tasks],
+                           [t.z for t in tasks])
+    return [tasks[k] for k in keep]
+
+
+def _overlap_filter(left: list[int], right: list[int], z: list[float]) -> list[int]:
+    """The overlap filter (engine/mod.rs:49-102) on tasks given by their
+    coordinates and z, sorted by left: the positions of the tasks it keeps,
+    in order.
 
     Statement-for-statement port: batches grow while tasks intersect the
     batch's *first* task; when a batch runs to the end of the list the
@@ -270,46 +312,35 @@ def filter_tasks(tasks: list[Task]) -> list[Task]:
     for its slices, which copy the rest of the list at every batch and
     make the filter quadratic (77 s on the host CPU of an H100 machine
     for the 333,228 tasks that the second cycle of a 10 Mb scan at the
-    reference defaults keeps).
+    reference defaults keeps).  The tasks are plain lists, so that a cycle
+    builds a ``Task`` only for those it keeps.
     """
-    if not tasks:
-        return []
-    if len(tasks) == 1:
-        return list(tasks)
-
-    result: list[Task] = []
-    tasks = sorted(tasks, key=lambda t: t.left_coord)
-
+    n = len(left)
+    result: list[int] = []
+    kept_left: set[int] = set()
     pos = 0
-    while pos < len(tasks):
-        if len(tasks) - pos == 1:
-            if all(t.left_coord != tasks[pos].left_coord for t in result):
-                result.append(tasks[pos])
+    while pos < n:
+        if n - pos == 1:
+            if left[pos] not in kept_left:
+                result.append(pos)
             break
 
-        current = tasks[pos]
-        batch = [current]
+        current = (left[pos], right[pos])
+        # Rust Iterator::max_by keeps the *last* maximum on ties
+        # (engine/mod.rs:93-99) — `>=` while folding reproduces that
+        best = pos
         index = 0
-        for i in range(len(tasks) - pos - 1):
-            task = tasks[pos + 1 + i]
+        for i in range(n - pos - 1):
+            k = pos + 1 + i
             index = i
-            if _check_intersection(
-                (current.left_coord, current.right_coord),
-                (task.left_coord, task.right_coord),
-            ):
-                batch.append(task)
+            if _check_intersection(current, (left[k], right[k])):
+                if z[k] >= z[best]:
+                    best = k
             else:
                 break
 
-        if len(batch) == 1:
-            result.append(batch[0])
-        else:
-            # Rust Iterator::max_by keeps the *last* maximum on ties
-            # (engine/mod.rs:93-99) — `>=` while folding reproduces that
-            result.append(
-                functools.reduce(lambda a, b: b if b.z >= a.z else a, batch)
-            )
-
+        result.append(best)
+        kept_left.add(left[best])
         pos += index + 1
 
     return result
@@ -478,74 +509,109 @@ def perform_calculation_per_sequence(
     (surviving tasks reload without their alignments, which only the next
     matrix derivation consumed).
     """
-    seq, freqs, indices = DNA.encode_with_freqs_and_indices(raw_seq)
+    with span("repeat") as root:
+        seq, freqs, indices = DNA.encode_with_freqs_and_indices(raw_seq)
 
-    fp = _input_fingerprint(raw_seq, opts) if checkpoint else None
-    resume = _load_checkpoint(checkpoint, head, fp) if checkpoint else None
-    if isinstance(resume, dict):
-        return resume  # record already completed in a previous run
-    if resume is not None:
-        start_cycle, mean, std, matrix, tasks = resume
-    else:
-        matrix = random_pwm(opts.repeat_length, rng)
-        matrix = transform_matrix(
-            matrix, 0.0, opts.deletions * opts.extension, freqs
-        )
-        mean, std = calculate_starting_values(seq, matrix, opts, rng)
-        start_cycle, tasks = 0, []
+        fp = _input_fingerprint(raw_seq, opts) if checkpoint else None
+        resume = _load_checkpoint(checkpoint, head, fp) if checkpoint else None
+        if isinstance(resume, dict):
+            return resume  # record already completed in a previous run
+        scans = 0
+        if resume is not None:
+            start_cycle, mean, std, matrix, tasks = resume
+        else:
+            with span("repeat.start") as sp:
+                matrix = random_pwm(opts.repeat_length, rng)
+                matrix = transform_matrix(
+                    matrix, 0.0, opts.deletions * opts.extension, freqs
+                )
+                mean, std = calculate_starting_values(seq, matrix, opts, rng)
+            _carry(root, sp, "windows")
+            scans, start_cycle, tasks = 1, 0, []
+            if checkpoint:
+                # the starting scan is the expensive prelude — persist it even
+                # before the first cycle completes
+                _save_checkpoint(checkpoint, head, 0, mean, std, matrix,
+                                 tasks, fp=fp)
+
+        result: dict[str, TaskResult] = {}
+
+        executed = start_cycle  # cycles whose scan actually ran (for the
+        # complete-state stamp below; an empty-break scan counts — it ran)
+        for i in range(start_cycle, opts.repeats):
+            with span("repeat.cycle") as sp:
+                new_tasks = calculate_cycle(seq, matrix, indices, mean, std, opts,
+                                            select=_filter)
+                _carry(root, sp, "windows", "survivors")
+                executed = i + 1
+                scans += 1
+                if not new_tasks:
+                    break
+                tasks = new_tasks
+                sp.count(kept=len(tasks))
+
+                if i < opts.repeats - 1:
+                    fs = np.array([t.f for t in tasks])
+                    mean = float(fs.mean())
+                    # reference quirk: variance used as sigma (no sqrt, calc.rs:197-202)
+                    std = float(((fs - mean) ** 2).mean())
+                    matrix = _next_matrix(tasks, matrix, opts, freqs)
+
+            if checkpoint:
+                _save_checkpoint(checkpoint, head, i + 1, mean, std, matrix,
+                                 tasks, fp=fp)
+
+        result["direct"] = TaskResult(tasks, matrix.copy(), scans)
+
+        if opts.reverse:
+            rev = seq[::-1].copy()
+            rotated = rotate_indices(indices, len(rev))
+            with span("repeat.cycle") as sp:
+                kept = calculate_cycle(rev, matrix, rotated, mean, std, opts,
+                                       select=_filter)
+                _carry(root, sp, "windows", "survivors")
+                sp.count(kept=len(kept))
+            result["inverse"] = TaskResult(kept, matrix, 1)
+        root.count(scans=scans + opts.reverse)
+
         if checkpoint:
-            # the starting scan is the expensive prelude — persist it even
-            # before the first cycle completes
-            _save_checkpoint(checkpoint, head, 0, mean, std, matrix,
-                             tasks, fp=fp)
-
-    result: dict[str, TaskResult] = {}
-
-    executed = start_cycle  # cycles whose scan actually ran (for the
-    # complete-state stamp below; an empty-break scan counts — it ran)
-    for i in range(start_cycle, opts.repeats):
-        new_tasks = calculate_cycle(seq, matrix, indices, mean, std, opts)
-        executed = i + 1
-        if not new_tasks:
-            break
-        tasks = filter_tasks(new_tasks)
-
-        if i < opts.repeats - 1:
-            fs = np.array([t.f for t in tasks])
-            mean = float(fs.mean())
-            # reference quirk: variance used as sigma (no sqrt, calc.rs:197-202)
-            std = float(((fs - mean) ** 2).mean())
-
-            matrix = np.zeros_like(matrix)
-            for task in tasks:
-                matrix = matrix + task.alignment.frequency_matrix()
-            matrix = transform_matrix(
-                matrix, 0.0, opts.deletions * opts.extension, freqs
+            # the complete state's ``cycle`` records how many cycle scans
+            # actually EXECUTED (early break included) — resume never reads
+            # it (the results dict short-circuits), but honest throughput
+            # accounting does (bench_chromosome.py)
+            _save_checkpoint(
+                checkpoint, head, executed, mean, std, matrix, tasks,
+                results=result, fp=fp,
             )
 
-        if checkpoint:
-            _save_checkpoint(checkpoint, head, i + 1, mean, std, matrix,
-                             tasks, fp=fp)
+        return result
 
-    result["direct"] = TaskResult(tasks, matrix.copy())
 
-    if opts.reverse:
-        rev = seq[::-1].copy()
-        rotated = rotate_indices(indices, len(rev))
-        inv = calculate_cycle(rev, matrix, rotated, mean, std, opts)
-        result["inverse"] = TaskResult(filter_tasks(inv), matrix)
+def _carry(root, sp, *keys) -> None:
+    """Add the counts ``keys`` of the closed or open span ``sp`` to
+    ``root`` (nothing while no profiler records)."""
+    if sp:
+        root.count(**{k: sp.counts.get(k, 0) for k in keys})
 
-    if checkpoint:
-        # the complete state's ``cycle`` records how many cycle scans
-        # actually EXECUTED (early break included) — resume never reads
-        # it (the results dict short-circuits), but honest throughput
-        # accounting does (bench_chromosome.py)
-        _save_checkpoint(
-            checkpoint, head, executed, mean, std, matrix, tasks,
-            results=result, fp=fp,
-        )
 
-    return result
+def _next_matrix(tasks: list[Task], matrix: np.ndarray, opts: SearchOptions,
+                 freqs: np.ndarray) -> np.ndarray:
+    """The next cycle's PWM: the kept tasks' frequency matrices summed and
+    transformed (calc.rs:204-215)."""
+    with span("repeat.matrix"):
+        out = frequency_sum([t.alignment for t in tasks])
+        return transform_matrix(out, 0.0, opts.deletions * opts.extension, freqs)
+
+
+def _filter(left: list[int], right: list[int], z: list[float]) -> list[int]:
+    """:func:`filter_tasks` on a cycle's survivors given as lists: the
+    positions it keeps."""
+    with span("repeat.filter", tasks_in=len(left)) as sp:
+        order = sorted(range(len(left)), key=left.__getitem__)
+        keep = _overlap_filter([left[k] for k in order], [right[k] for k in order],
+                               [z[k] for k in order])
+        sp.count(tasks_out=len(keep))
+    return [order[k] for k in keep]
 
 
 # --- CLI modes (cmd/{testing,exploring,csv}.rs) ---

@@ -70,13 +70,7 @@ class PWMAlignment:
     def frequency_matrix(self) -> np.ndarray:
         """(volume × dim) counts of (query_char, pwm_position) pairs
         (alignment.rs:55-65)."""
-        vol = self.alphabet.volume()
-        m = np.zeros((vol, self.dim), dtype=np.float64)
-        n = np.asarray(self.numbered, dtype=np.int64)
-        q = np.asarray(self.query, dtype=np.int64)
-        keep = (n != 0) & (q != BLANK)
-        np.add.at(m, (q[keep], n[keep] - 1), 1.0)
-        return m
+        return frequency_sum([self])
 
     def match_string(self) -> np.ndarray:
         """The query char where matched to a position, ``_`` on gaps
@@ -100,6 +94,20 @@ class PWMAlignment:
             f=0.0,
             alphabet=alphabet,
         )
+
+
+def frequency_sum(alignments: list[PWMAlignment]) -> np.ndarray:
+    """The sum of PWM alignments' frequency matrices (one alphabet and one
+    width, those of the first): the (query_char, pwm_position) pairs of all
+    of them counted at once.  The counts are whole numbers, so this is
+    exactly the sum of the matrices one by one."""
+    first = alignments[0]
+    vol, dim = first.alphabet.volume(), first.dim
+    n = np.concatenate([a.numbered for a in alignments]).astype(np.int64)
+    q = np.concatenate([a.query for a in alignments]).astype(np.int64)
+    keep = (n != 0) & (q != BLANK)
+    counts = np.bincount(q[keep] * dim + n[keep] - 1, minlength=vol * dim)
+    return counts.reshape(vol, dim).astype(np.float64)
 
 
 @dataclasses.dataclass

@@ -1837,6 +1837,40 @@ def test_repeat_search_cli_on_the_card_is_the_cpus(dev, tmp_path):
         assert got[name] == want[name], name
 
 
+def test_repeat_search_on_the_card_is_the_plain_reference(dev, tmp_path):
+    """``run_exploring_cmd`` on a seeded 1 Mb chromosome made as the
+    benchmark's driver makes it (40 planted copies of one 330-base query),
+    at the reference's defaults (W 300, offset 30, del 30, ext 7, 10
+    cycles), against the benchmark's plain reference
+    (``benchmark/reference/repeat.py``) run on the card: every task's left,
+    right, z and f, the final PWM and the scans, bit for bit."""
+    import importlib.util
+
+    from aligner_tpu_torch.repeat import engine
+
+    bench = pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+    sys.path.insert(0, str(bench))
+    try:
+        spec = importlib.util.spec_from_file_location("bench_driver_repeat",
+                                                      bench / "drivers" / "repeat.py")
+        driver = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = driver
+        spec.loader.exec_module(driver)
+    finally:
+        sys.path.remove(str(bench))
+    raw = driver.make_chromosome(1_000_000, 7, 40, 330, 4)
+    fa = tmp_path / "chromosome.fasta"
+    driver.write_fasta(str(fa), raw)
+    opts = engine.SearchOptions(device=dev.type)
+    (res,) = engine.run_exploring_cmd(opts, str(fa), np.random.default_rng(29)).values()
+    want = driver.search(raw, driver.Options(300, 30, 30.0, 7.0, 10), 29, device=dev)
+    got = {"tasks": [(t.left_coord, t.right_coord, t.z, t.f) for t in res.tasks],
+           "matrix": res.matrix, "scans": res.scans}
+    assert res.scans >= 3 and got["tasks"]
+    assert driver.wrong(got, want) == (0, 0, 0)
+    assert [t[:2] for t in got["tasks"]] == [t[:2] for t in want.tasks]
+
+
 def test_full_mode_batch_on_the_card_is_native(dev):
     """512 seeded pairs of 400 residues (each target its query with a quarter
     of its positions substituted) through ``batch_align`` with alignments,

@@ -520,3 +520,137 @@ def test_a_pairs_spans_lie_on_the_profilers_clock(pair_call):
         assert len(mine) == len(theirs), name
         for (a0, a1), (b0, b1) in zip(mine, theirs):
             assert abs(a0 - b0) < 1_000_000 and abs(a1 - b1) < 1_000_000, name
+
+
+# the repeat search's spans: each one's parent, by name (the survivors'
+# full pass is a batched fill, its ``fill`` tree under ``repeat.survivors``)
+REPEAT_TREE = {
+    "repeat": None, "repeat.start": "repeat", "repeat.cycle": "repeat",
+    "repeat.scan": ("repeat.start", "repeat.cycle"), "repeat.survivors": "repeat.cycle",
+    "repeat.filter": "repeat.cycle", "repeat.matrix": "repeat.cycle",
+    "fill": "repeat.survivors", "fill.check": "fill", "fill.upload": "fill",
+    "fill.launch": "fill", "fill.sync": "fill",
+}
+REPEAT_W, REPEAT_OFFSET, REPEAT_BASES = 30, 3, 6000
+
+
+def _repeat_chromosome():
+    """Uniform bases with four copies of one 33-base query, every 4th base
+    of copy k redrawn from phase k."""
+    rng = np.random.default_rng(17)
+    seq = rng.integers(0, 4, REPEAT_BASES)
+    query = rng.integers(0, 4, REPEAT_W + REPEAT_OFFSET)
+    for k in range(4):
+        copy = query.copy()
+        copy[k::4] = rng.integers(0, 4, len(copy[k::4]))
+        pos = (k + 1) * (REPEAT_BASES // 5)
+        seq[pos:pos + len(copy)] = copy
+    return np.frombuffer(b"ATCG", np.uint8)[seq].tobytes()
+
+
+def _repeat():
+    from aligner_tpu_torch.repeat import engine
+
+    opts = engine.SearchOptions(repeat_length=REPEAT_W, query_offset=REPEAT_OFFSET,
+                                deletions=30.0, extension=7.0, device="cpu")
+    out = engine.perform_calculation_per_sequence(opts, _repeat_chromosome(), "chromosome",
+                                                  np.random.default_rng(23))
+    (res,) = out.values()
+    return res
+
+
+def test_a_repeat_search_is_one_root_with_its_tree_and_counts():
+    from aligner_tpu_torch.repeat import engine
+
+    res, log, _ = _traced(_repeat)
+    plain = _repeat()
+    assert [(t.left_coord, t.right_coord, t.z, t.f) for t in res.tasks] == \
+        [(t.left_coord, t.right_coord, t.z, t.f) for t in plain.tasks]
+    assert res.scans == plain.scans and np.array_equal(res.matrix, plain.matrix)
+    roots = [s for s in log if s.parent is None]
+    assert [r.name for r in roots] == ["repeat"]
+    root, by_id = roots[0], {s.id: s for s in log}
+    for s in log:
+        assert s.root == root.id and s.start_ns <= s.end_ns
+        if s.parent is not None:
+            parent = by_id[s.parent]
+            want = REPEAT_TREE[s.name]
+            assert parent.name in (want if isinstance(want, tuple) else (want,)), s.name
+            assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
+    named = Counter(s.name for s in log)
+    cycles = [s for s in log if s.name == "repeat.cycle"]
+    scans = [s for s in log if s.name == "repeat.scan"]
+    survivors = [s for s in log if s.name == "repeat.survivors"]
+    filters = [s for s in log if s.name == "repeat.filter"]
+    windows = len(engine.windows_of(REPEAT_BASES, engine.SearchOptions(
+        repeat_length=REPEAT_W, query_offset=REPEAT_OFFSET), REPEAT_OFFSET))
+    # the starting scan and one a cycle; the last cycle kept no window
+    assert named["repeat.start"] == 1 and res.scans == len(scans) == 1 + len(cycles) >= 3
+    assert len(survivors) == len(cycles) and len(filters) == len(cycles) - 1
+    assert named["repeat.matrix"] == len(cycles) - 1
+    assert cycles[-1].counts == {"windows": windows, "survivors": 0}
+    cells = sum(min(REPEAT_W + REPEAT_OFFSET, REPEAT_BASES - j)
+                for j in range(0, REPEAT_BASES, REPEAT_OFFSET)) * REPEAT_W
+    for s in scans:
+        assert s.counts == {"windows": windows, "cells": cells, "chunks": 1}
+    # the survivors' full pass aligns the tasks the filter keeps
+    for cyc, surv in zip(cycles, survivors):
+        assert by_id[surv.parent] is cyc and cyc.counts["windows"] == windows
+        assert surv.counts["windows"] == cyc.counts.get("kept", 0)
+        assert surv.counts["cells"] <= surv.counts["windows"] * (REPEAT_W + REPEAT_OFFSET) * REPEAT_W
+    for cyc, f in zip(cycles, filters):
+        assert by_id[f.parent] is cyc and f.end_ns <= by_id[survivors[cycles.index(cyc)].id].start_ns
+        assert f.counts == {"tasks_in": cyc.counts["survivors"], "tasks_out": cyc.counts["kept"]}
+        assert cyc.counts["kept"] < cyc.counts["survivors"]
+    assert cycles[-2].counts["kept"] == len(res.tasks) > 0
+    assert root.counts == {"scans": res.scans, "windows": windows * res.scans,
+                           "survivors": sum(c.counts["survivors"] for c in cycles)}
+
+
+def _bench_readers():
+    """The benchmark's readers of the repeat search's per-layer metrics and
+    its run record, loaded with the benchmark's folder on the path."""
+    import importlib
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        manifest = importlib.import_module("harness.manifest")
+        record = importlib.import_module("harness.record")
+        trace = importlib.import_module("harness.trace")
+        names = [m["name"] for m in manifest.load()["per_layer"]
+                 if m["name"].endswith(".repeat")]
+        return {n: manifest.reader(n) for n in names}, record.Run, trace.Trace
+    finally:
+        sys.path.remove(bench)
+
+
+def test_the_repeat_readers_give_no_number_without_the_programs_spans(monkeypatch):
+    """A program that records none of the repeat search's spans, as the one
+    before them: each reader gives None, and raises nothing."""
+    import time
+
+    from aligner_tpu_torch.repeat import engine
+
+    readers, Run, Trace = _bench_readers()
+    assert sorted(readers) == ["device_idle_pct.repeat", "host_ms_per_request.repeat",
+                               "scan_roofline.repeat", "survivor_ms_per_request.repeat",
+                               "survivor_roofline.repeat"]
+    monkeypatch.setattr(engine, "span", lambda *a, **kw: observability._OFF)
+    t0 = time.perf_counter()
+    _, log, _ = _traced(_repeat)
+    t1 = time.perf_counter()
+    assert log and "repeat" not in {s.name for s in log}
+    monkeypatch.setattr(observability, "spans", lambda: log)
+    run = Run(cell={}, config={"options": {"repeat_length": REPEAT_W,
+                                           "query_offset": REPEAT_OFFSET},
+                               "chromosome": {"bases": REPEAT_BASES}},
+              traffic={}, seed=1, seconds=1.0, trace=True, device=torch.device("cpu"),
+              requests=[{"i": 0, "t0": t0, "t1": t1, "cells": 1}])
+    run.trace_summary = Trace(window_s=t1 - t0, busy_s=0.0, kernels={}, idle={})
+    run.work["scan_s"] = 1.0
+    for name, reader in readers.items():
+        assert reader.read(run) is None, name
