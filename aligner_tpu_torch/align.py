@@ -309,6 +309,18 @@ def _check_pair_codes(q, t, matrix) -> None:
             _refuse_codes(name, int(a.min()), int(a.max()), matrix)
 
 
+@contextlib.contextmanager
+def _fill_span(cells: int, shards: int):
+    """The ``fill`` span of a batched fill, whose count ``lone`` is the
+    launches of the fill kernel's lone design made inside it."""
+    from .ops import dp_fill
+
+    with span("fill", cells=cells, shards=shards) as sp:
+        lone = dp_fill.launches.lone
+        yield sp
+        sp.count(lone=dp_fill.launches.lone - lone)
+
+
 def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
           track_argmax=True, with_plane=False):
     """One batched fill on ``device``, sharded over
@@ -320,7 +332,7 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_dirs, device, dtype,
 
     cells = _cells(ql, tl)
     shards = [device] if with_plane or len(ql) < 2 else _auto_shard_devices(device)
-    with span("fill", cells=cells, shards=len(shards)):
+    with _fill_span(cells, len(shards)):
         with span("fill.check"):
             _check_pair_codes(q, t, matrix)
         with measure(_engine_name(device, shards, mode), cells, len(ql), device=shards,
@@ -667,7 +679,7 @@ class ScorePass:
             dtype = dtype_for(self.device, self.matrix, self.del_, self.ext,
                               lengths=(bucket.width, len(self._row)))
             cells = qlen * bucket.residues
-            with span("fill", cells=cells, shards=len(shards)):
+            with _fill_span(cells, len(shards)):
                 with span("fill.check"):
                     _refuse_codes("query", *self._codes, self.matrix)
                     _refuse_codes("target", *bucket.codes, self.matrix)
@@ -732,7 +744,7 @@ def _fill_pwm(q, ql, pwm, del_, ext, with_dirs, device, dtype, track_argmax=True
     width = np.asarray(pwm).shape[-1]
     cells = int(np.asarray(ql, np.int64).sum()) * int(width)
     shards = [device] if len(ql) < 2 else _auto_shard_devices(device)
-    with span("fill", cells=cells, shards=len(shards)):
+    with _fill_span(cells, len(shards)):
         with span("fill.check"):
             if q.size and (int(q.min()) < 0 or int(q.max()) >= 4):
                 raise ValidationError("query codes must lie in the 4-symbol DNA alphabet")

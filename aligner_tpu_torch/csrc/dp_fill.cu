@@ -61,6 +61,34 @@
 //   of 32-128 consecutive problems; a small batch gets one-warp blocks so
 //   it covers as many SMs as it can.
 //
+// What bounds a small batch with directions (the search's top 10 at B =
+// 10, the population's 64 members): the launch lasts as long as its
+// largest problem, whose one thread carries the chain and also does all
+// else of each cell in its own instruction stream -- the score lookup, the
+// tie tests and the packing of the 2-bit word, the argmax tree, the
+// stores -- with nothing else on its SM to fill the gaps: 56-58 ns a cell
+// in f32 and 78-94 ns in f64, where the chain alone takes 17-18 and 37-41
+// (PERF.md §6).
+//
+// What the lone design does about it (dp_fill_kernel_lone, for the
+// pair-mode fills with directions and argmax tracking of at most one
+// problem an SM; ops/dp_fill.py:plan_fill picks it): a block of two warps a
+// problem, the work of a cell split by role.  Lane 0 of warp 0 walks the
+// active cells alone, in the reference's order and with the same
+// operations, reading the old column and the scores a block of 8 rows
+// ahead (16-byte shared loads) and writing the new column; warp 1 follows
+// a column behind, its lanes across the rows: it recomputes each cell's
+// top and left terms from the two columns (the penalty before a cell is
+// derived from the previous active cell's value), packs the words, reduces
+// the column's first maximum across the warp, writes the inactive cells'
+// BEG words, and gathers the scores of the column after the chain's next
+// from the problem's matrix in shared memory.  One barrier a column hands
+// over (three column buffers and two score buffers rotate); the companion
+// takes a few percent of the chain's time a column, so the chain never
+// waits on it: 16.8 ns a cell in f32, 37-40 ns in f64.  The columns stay
+// on chip (5 values and a code a row: about 11,000 rows in f32 and 5,600
+// in f64); a taller one takes the thread-per-problem kernel.
+//
 // The score plane (the PLANE template flag, with directions and argmax
 // tracking only; pallas_dp.py's with_scores_plane): each 8-row block's
 // values are stored beside its direction word, to a (B, C, R8) plane whose
@@ -114,6 +142,21 @@ cudaError_t dispatch(int is_pwm, int is_global, int track, int dirs, int with_pl
     });
 }
 
+template <typename T, bool GLOBAL>
+cudaError_t launch_lone(const int* qT, const int* tT, const int* qlen, const int* tlen,
+                        const void* mat, long long mat_stride, int smem_mat, int V, int B,
+                        int C, int R8, double del, double ext, void* fmax, int* fy, int* fx,
+                        void* end, int* words, int smem, cudaStream_t stream) {
+    auto kernel = dpf::dp_fill_kernel_lone<T, GLOBAL>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<B, dpf::LONE_THREADS, size_t(smem), stream>>>(
+        qT, tT, qlen, tlen, static_cast<const T*>(mat), mat_stride, smem_mat, V, B, C, R8,
+        T(del), T(ext), static_cast<T*>(fmax), fy, fx, static_cast<T*>(end), words);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // is_pwm: qT and qlen are unused (pass null), mat is the (4, C) or
@@ -149,6 +192,43 @@ extern "C" int dp_fill_launch(
         e = dispatch<float>(is_pwm, is_global, track, dirs, with_plane, qi, ti, ql, tl,
                             mat, mat_stride, me, smem_mat, V, B, C, R8, S, del, ext,
                             spill, fmax, yi, xi, end, wi, plane, threads, smem, st);
+    return static_cast<int>(e);
+}
+
+// The lone design (dp_fill_kernel_lone): a pair-mode fill with directions
+// and argmax tracking, one problem a block of LONE_THREADS threads.  The
+// arguments as dp_fill_launch's; smem_mat 1 copies each problem's (V, V)
+// matrix to shared memory, and smem (the plan's) holds it, three columns
+// and two score buffers of R8 values and R8 row codes.
+extern "C" int dp_fill_lone_launch(
+    const void* qT, const void* tT, const void* qlen, const void* tlen, const void* mat,
+    long long mat_stride, int V, int B, int C, int R8, double del, double ext, int is_f64,
+    int is_global, void* fmax, void* fy, void* fx, void* end, void* words, int smem_mat,
+    int smem, void* stream) {
+    cudaGetLastError();  // clear a stale error so the check below is ours
+    auto st = static_cast<cudaStream_t>(stream);
+    auto qi = static_cast<const int*>(qT);
+    auto ti = static_cast<const int*>(tT);
+    auto ql = static_cast<const int*>(qlen);
+    auto tl = static_cast<const int*>(tlen);
+    auto yi = static_cast<int*>(fy);
+    auto xi = static_cast<int*>(fx);
+    auto wi = static_cast<int*>(words);
+    cudaError_t e;
+    if (is_f64)
+        e = is_global ? launch_lone<double, true>(qi, ti, ql, tl, mat, mat_stride, smem_mat, V,
+                                                  B, C, R8, del, ext, fmax, yi, xi, end, wi,
+                                                  smem, st)
+                      : launch_lone<double, false>(qi, ti, ql, tl, mat, mat_stride, smem_mat,
+                                                   V, B, C, R8, del, ext, fmax, yi, xi, end,
+                                                   wi, smem, st);
+    else
+        e = is_global ? launch_lone<float, true>(qi, ti, ql, tl, mat, mat_stride, smem_mat, V,
+                                                 B, C, R8, del, ext, fmax, yi, xi, end, wi,
+                                                 smem, st)
+                      : launch_lone<float, false>(qi, ti, ql, tl, mat, mat_stride, smem_mat, V,
+                                                  B, C, R8, del, ext, fmax, yi, xi, end, wi,
+                                                  smem, st);
     return static_cast<int>(e);
 }
 

@@ -299,6 +299,293 @@ __global__ void dp_fill_kernel(
     end[b] = TRACK ? ev : T(0);
 }
 
+// The lone design, dp_fill_kernel_lone: one problem a block of LONE_THREADS
+// threads, for the pair-mode fills with directions and argmax tracking
+// (local and global) of a batch no larger than the card's SMs.  Lane 0 of
+// warp 0, the chain, walks the problem's active cells (rows 1..tl of
+// columns 1..ql) in the reference's order and does nothing else; warp 1,
+// the companion, works one column behind with its lanes across the rows:
+// from the old column and the new it recomputes each cell's top and left
+// terms (the penalty before an active cell is del when the previous active
+// cell in fill order held 0 in local mode, or at cell (1, 1); ext
+// otherwise), packs the direction words by the same tie rule, writes the
+// BEG words of the inactive cells, takes the column's first maximum by a
+// warp reduction and the end cell's value, and fills the score buffer of
+// the column after the chain's next.  One barrier a column hands over: the
+// columns rotate through three buffers and the scores through two, so
+// neither side overwrites what the other still reads.
+//
+// Shared memory: the problem's (V, V) matrix (smem_mat), then three
+// columns and two score buffers of R8 values (row y at [y - 1]), then the
+// R8 row codes, a byte each (lone_smem_bytes).
+constexpr int LONE_THREADS = 64;
+
+// eight values from and to a 16-byte-aligned address
+#ifdef __CUDACC__
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 c = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = c.x, v[5] = c.y, v[6] = c.z, v[7] = c.w;
+}
+__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const double2 a = reinterpret_cast<const double2*>(p)[j];
+        v[2 * j] = a.x, v[2 * j + 1] = a.y;
+    }
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(double* p, const double (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        reinterpret_cast<double2*>(p)[j] = make_double2(v[2 * j], v[2 * j + 1]);
+}
+#else
+template <typename T> inline void load8(const T* p, T (&v)[8]) {
+    for (int j = 0; j < 8; ++j) v[j] = p[j];
+}
+template <typename T> inline void store8(T* p, const T (&v)[8]) {
+    for (int j = 0; j < 8; ++j) p[j] = v[j];
+}
+#endif
+
+// One problem of the lone design: its block's shared memory, the chain's
+// state (pen) and the companion's (the argmax and the end value).  Its
+// steps for one column are chain_column and companion_column; a legal
+// schedule runs chain_column(x) before companion_column(x) and
+// companion_column(x - 1) before chain_column(x + 1), after start() and
+// companion_column(0).
+template <typename T, bool GLOBAL>
+struct LoneFill {
+    const int* qT;
+    int B, b, C, R8, V, ql, tl;
+    int cols, rows;  // the active columns and rows: ql and tl within C and R8
+    T del, ext;
+    const T* own;    // the problem's matrix in device memory
+    const T* mat;    // the matrix read: its copy in shared memory, or own
+    T* colbuf;       // column x at colbuf + (x % 3) * R8
+    T* scorebuf;     // column x's scores at scorebuf + (x & 1) * R8
+    unsigned char* codes;
+    int* wrow;       // (R8 / 8, C) direction words
+    T pen;                 // the chain's penalty
+    T bv, ev; int by, bx;  // the companion's first maximum and end value
+
+    __device__ LoneFill(const int* qT_, const int* tlen, const int* qlen, const T* mat_,
+                        long long mat_stride, int smem_mat, int V_, int B_, int C_, int R8_,
+                        T del_, T ext_, int* words)
+        : qT(qT_), B(B_), b(int(blockIdx.x)), C(C_), R8(R8_), V(V_), del(del_), ext(ext_),
+          pen(del_), bv(T(0)), ev(T(0)), by(0), bx(0) {
+        ql = qlen[b];
+        tl = tlen[b];
+        cols = ql < 0 ? 0 : (ql < C ? ql : C);
+        rows = tl < 0 ? 0 : (tl < R8 ? tl : R8);
+        unsigned char* s = fill_smem();
+        const long long mb = smem_mat ? ((long long)V * V * sizeof(T) + 15) & ~15ll : 0;
+        own = mat_ + (long long)b * mat_stride;
+        mat = smem_mat ? reinterpret_cast<T*>(s) : own;
+        colbuf = reinterpret_cast<T*>(s + mb);
+        scorebuf = colbuf + 3 * (long long)R8;
+        codes = reinterpret_cast<unsigned char*>(scorebuf + 2 * (long long)R8);
+        wrow = words + (long long)b * (R8 / 8) * C;
+    }
+
+    __device__ T* column(int x) const { return colbuf + (x % 3) * (long long)R8; }
+    __device__ T* scores(int x) const { return scorebuf + (x & 1) * (long long)R8; }
+    // row 0 of column x >= 1, and row y of column 0
+    __device__ T border0(int x) const {
+        return GLOBAL ? ((x == ql) ? -(T(ql) + T(1)) * del : -T(x) * del) : T(0);
+    }
+    __device__ T border(int y) const {
+        return GLOBAL ? ((y == tl) ? -(T(tl) + T(1)) * del : -T(y) * del) : T(0);
+    }
+
+    // every thread of the block: the matrix, the row codes and column 0
+    __device__ void stage(int tid, const int* tT) {
+        if (mat != own)
+            for (int i = tid; i < V * V; i += LONE_THREADS) const_cast<T*>(mat)[i] = own[i];
+        T* col0 = column(0);
+        for (int i = tid; i < rows; i += LONE_THREADS) {
+            codes[i] = (unsigned char)tT[(long long)i * B + b];
+            col0[i] = border(i + 1);
+        }
+    }
+
+    // the chain: column x's active rows from column x - 1 and the scores
+    __device__ void chain_column(int x) {
+        const T* ob = column(x - 1);
+        T* nb = column(x);
+        const T* sv = scores(x);
+        T a_up = border0(x);
+        T diag_prev = x == 1 ? border(0) : border0(x - 1);
+        auto cell = [&](T left_v, T s) {
+            const T top = a_up - pen;
+            const T left = left_v - pen;
+            const T diag = diag_prev + s;
+            const T m = cmax(cmax(top, left), diag);
+            const bool beg = !GLOBAL && m == T(0);
+            pen = beg ? del : ext;
+            diag_prev = left_v;
+            a_up = m;
+            return m;
+        };
+        // whole 8-row blocks, the next block's loads in flight, then the rest
+        const int full = rows & ~7;
+        if (full > 0) {
+            T lvA[8], svA[8], lvB[8], svB[8], out[8];
+            load8(ob, lvA);
+            load8(sv, svA);
+            for (int y0 = 0; y0 < full; y0 += 16) {
+                const bool second = y0 + 8 < full;
+                if (second) {
+                    load8(ob + y0 + 8, lvB);
+                    load8(sv + y0 + 8, svB);
+                }
+#pragma unroll
+                for (int j = 0; j < 8; ++j) out[j] = cell(lvA[j], svA[j]);
+                store8(nb + y0, out);
+                if (second) {
+                    if (y0 + 16 < full) {
+                        load8(ob + y0 + 16, lvA);
+                        load8(sv + y0 + 16, svA);
+                    }
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) out[j] = cell(lvB[j], svB[j]);
+                    store8(nb + y0 + 8, out);
+                }
+            }
+        }
+        for (int i = full; i < rows; ++i) nb[i] = cell(ob[i], sv[i]);
+    }
+
+    // the companion: column x's scores, mat[t[y], q[x]]
+    __device__ void fill_scores(int x, int lane) {
+        const T* m = mat + qT[(long long)(x - 1) * B + b];
+        T* sv = scores(x);
+        for (int i = lane; i < rows; i += 32) sv[i] = m[int(codes[i]) * V];
+    }
+
+    // the companion, before the first column: column 1's scores and the
+    // words of the inactive columns
+    __device__ void start(int lane) {
+        if (cols >= 1) fill_scores(1, lane);
+        for (int k = 0; k < R8 / 8; ++k)
+            for (int x = cols + lane; x < C; x += 32) wrow[(long long)k * C + x] = 0xFFFF;
+    }
+
+    // the companion's step for column x: its words, its first maximum and
+    // end value (x >= 1), then the scores of column x + 2
+    __device__ void companion_column(int x, int lane) {
+        if (x >= 1) words_column(x, lane);
+        if (x + 2 <= cols) fill_scores(x + 2, lane);
+    }
+
+    __device__ void words_column(int x, int lane) {
+        const T* ob = column(x - 1);
+        const T* nb = column(x);
+        const T eps = Eps<T>::v();
+        T best = T(-INFINITY);
+        int brow = 0;
+        for (int k = lane; k < R8 / 8; k += 32) {
+            const int y0 = 8 * k;  // rows y0 + 1 .. y0 + 8
+            unsigned word = 0xFFFFu;
+            if (y0 < rows) {
+                // the cell above row y0 + 1 and the penalty it left
+                T a_up, p;
+                if (k == 0) {
+                    a_up = border0(x);
+                    p = (x == 1) ? del
+                                 : (GLOBAL ? ext : (ob[rows - 1] == T(0) ? del : ext));
+                } else {
+                    a_up = nb[y0 - 1];
+                    p = (!GLOBAL && a_up == T(0)) ? del : ext;
+                }
+                word = 0u;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int i = y0 + j;
+                    int d = BEG;
+                    if (i < rows) {
+                        const T m = nb[i];
+                        const T top = a_up - p;
+                        const T left = ob[i] - p;
+                        d = (m - top < eps) ? TOP : ((m - left < eps) ? LEFT : DIAG);
+                        const bool beg = !GLOBAL && m == T(0);
+                        if (beg) d = BEG;
+                        p = beg ? del : ext;
+                        a_up = m;
+                        if (m > best) {
+                            best = m;
+                            brow = i + 1;
+                        }
+                    }
+                    word |= unsigned(d) << (2 * j);
+                }
+            }
+            wrow[(long long)k * C + (x - 1)] = int(word);
+        }
+        // the column's first maximum: a larger value, or a lower row on a tie
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const T v = __shfl_xor_sync(0xffffffffu, best, o);
+            const int r = __shfl_xor_sync(0xffffffffu, brow, o);
+            if (v > best || (v == best && r < brow)) {
+                best = v;
+                brow = r;
+            }
+        }
+        // a later column wins only with a larger value or, on a tie, a lower row
+        if (best > bv || (best == bv && brow < by)) {
+            bv = best;
+            by = brow;
+            bx = x;
+        }
+        if (x == ql && rows == tl && tl > 0) ev = nb[tl - 1];
+    }
+
+    // the companion's results
+    __device__ void finish(T* fmax, int* fy, int* fx, T* end) const {
+        fmax[b] = bv;
+        fy[b] = by;
+        fx[b] = bx;
+        end[b] = ev;
+    }
+};
+
+template <typename T, bool GLOBAL>
+__global__ void __launch_bounds__(LONE_THREADS) dp_fill_kernel_lone(
+    const int* __restrict__ qT,    // (C, B) query codes, column chars
+    const int* __restrict__ tT,    // (R8, B) target codes, row chars
+    const int* __restrict__ qlen, const int* __restrict__ tlen,  // (B,)
+    const T* __restrict__ mat,     // (V, V) or (B, V, V)
+    long long mat_stride,          // 0 for a shared matrix, else its size
+    int smem_mat,                  // 1: copy the problem's matrix to shared memory
+    int V, int B, int C, int R8, T del, T ext,
+    T* __restrict__ fmax, int* __restrict__ fy, int* __restrict__ fx, T* __restrict__ end,
+    int* __restrict__ words)       // (B, R8/8, C) packed directions
+{
+    LoneFill<T, GLOBAL> f(qT, tlen, qlen, mat, mat_stride, smem_mat, V, B, C, R8, del, ext,
+                          words);
+    const int tid = threadIdx.x, lane = tid & 31;
+    const bool chain = tid < 32;
+    f.stage(tid, tT);
+    __syncthreads();
+    if (!chain) f.start(lane);
+    __syncthreads();
+    // column x on the chain beside the companion's column x - 1
+    for (int x = 1; x <= f.cols + 1; ++x) {
+        if (chain) {
+            if (lane == 0 && x <= f.cols) f.chain_column(x);
+        } else {
+            f.companion_column(x - 1, lane);
+        }
+        __syncthreads();
+    }
+    if (tid == 32) f.finish(fmax, fy, fx, end);
+}
+
 // The instances that are built, each named by its flags: fn(Flags<...>{})
 // is called with the one the arguments select.  PWM mode is local; global
 // mode always tracks (the end cell is captured there); the score plane

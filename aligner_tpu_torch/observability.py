@@ -36,7 +36,9 @@ span is one request, and its id is the request id):
   read one shared query row, 0 unless every problem has the same query
   object): ``batch.pad``, ``fill``, ``batch.read`` (the results' copies to
   the host), ``batch.walk``;
-* ``fill`` [cells, shards] (a batched fill): ``fill.check``, one
+* ``fill`` [cells, shards, lone] (a batched fill; ``lone``: its launches
+  that took the fill kernel's lone design, a block a problem, of
+  ``ops.dp_fill.launches.lone``): ``fill.check``, one
   ``fill.upload`` [h2d_bytes, query_bytes] and one ``fill.launch`` per
   shard (a shared query row and the scoring state are counted where they
   are sent, once a device a call, once a device a score pass),

@@ -141,6 +141,15 @@ def bind_fill(lib: ctypes.CDLL) -> None:
         i32, i32, p,  # matrix in smem, smem, stream
     ]
     lib.dp_fill_launch.restype = i32
+    lib.dp_fill_lone_launch.argtypes = [
+        p, p, p, p, p, i64,  # qT, tT, qlen, tlen, matrix, matrix batch stride
+        i32, i32, i32, i32,  # V, B, C, R8
+        f64, f64,  # del, ext
+        i32, i32,  # is_f64, is_global
+        p, p, p, p, p,  # fmax, fy, fx, end, words
+        i32, i32, p,  # matrix in smem, smem, stream
+    ]
+    lib.dp_fill_lone_launch.restype = i32
     lib.dp_fill_device_limits.argtypes = [i32, ctypes.POINTER(i32)]
     lib.dp_fill_device_limits.restype = i32
     lib.cuda_error_string.argtypes = [i32]

@@ -18,7 +18,11 @@ tensors.
 Each problem's DP column stays on chip: :func:`plan_fill` picks the
 threads a block and the rows of each column held in shared memory (all of
 them wherever they fit); the rest of a column taller than that lives in a
-device buffer allocated for those rows alone.
+device buffer allocated for those rows alone.  A pair-mode fill with
+directions and argmax tracking of no more problems than the card has SMs
+takes the lone design instead (``dp_fill_kernel_lone``): a block a
+problem, one lane carrying the recurrence and a warp beside it writing the
+direction words and the argmax.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ class _Launches:
         self.pwm_scores = self.pwm_dirs = 0
         self.spilled = 0  # of all the above: launches with rows off chip
         self.planes = 0  # of all the above: launches that wrote the score plane
+        self.lone = 0  # of ``dirs``: launches of the lone design
 
 
 launches = _Launches()
@@ -55,6 +60,8 @@ launches = _Launches()
 # a warp's problems are the unit of a block; more than this many warps a
 # block never keeps more problems resident
 MAX_WARPS = 4
+# the lone design's block: the chain's warp and the companion's
+LONE_THREADS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,34 +81,69 @@ class FillPlan:
     memory, ``smem_bytes`` of dynamic shared memory a block (the shared
     matrix, the columns, the row codes), ``resident_per_sm`` problems an SM
     can hold at once by shared memory, ``mat_bytes`` of shared matrix in
-    shared memory (0: read through the L1 cache)."""
+    shared memory (0: read through the L1 cache).  ``lone``: the lone
+    design, ``threads`` for one problem (its matrix, three columns, two
+    score buffers and the row codes in shared memory)."""
 
     threads: int
     rows_on_chip: int
     smem_bytes: int
     resident_per_sm: int
     mat_bytes: int
+    lone: bool = False
 
 
 def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _lone_plan(R8: int, itemsize: int, card: CardLimits, mat_bytes: int) -> FillPlan | None:
+    """The lone design's plan: the problem's matrix in shared memory where
+    it fits beside the columns (else read through the L1 cache); None where
+    the columns alone do not fit."""
+    columns = R8 * (5 * itemsize + 1)
+    for m in (mat_bytes, 0):
+        smem = _round16(m) + columns
+        if smem <= card.smem_per_block:
+            blocks = min(card.smem_per_sm // (smem + card.smem_reserved), 2048 // LONE_THREADS)
+            return FillPlan(LONE_THREADS, R8 + 1, smem, blocks, m, lone=True)
+    return None
+
+
 def plan_fill(R8: int, itemsize: int, B: int, card: CardLimits, mat_bytes: int, *,
-              warps: int | None = None) -> FillPlan:
+              own_mat_bytes: int | None = None, warps: int | None = None,
+              lone: bool | None = None) -> FillPlan:
     """The fill kernel's launch plan for B problems of ``R8`` rows in a
     float type of ``itemsize`` bytes, with ``mat_bytes`` of shared matrix
     in shared memory (0: none).
 
-    A problem keeps S rows of its column in shared memory (``itemsize``
-    bytes each) and the codes of rows 1..S-1 (a byte each); S = 1 + 8k, at
-    most R8 + 1, so the rows off chip start on an 8-row block.  Over
-    1..``MAX_WARPS`` warps a block (only ``warps`` if given), the plan
-    takes the most rows on chip, then the most problems resident per SM,
-    then the fewest warps.  A block of more than one warp must still leave
-    every SM a block: a small batch runs in one-warp blocks, as spread out
-    as it can be.
+    ``own_mat_bytes`` is given for the instances the lone design builds
+    (pair mode with directions and argmax tracking, no score plane): the
+    bytes of one problem's matrix, shared or its own.  Such a fill of at
+    most ``card.sms`` problems, each with an SM to itself, takes the lone
+    design where its columns fit a block's shared memory.  ``lone`` forces
+    the design (tests and probes); True raises ``ValueError`` where the
+    lone design cannot run.
+
+    Otherwise a problem keeps S rows of its column in shared memory
+    (``itemsize`` bytes each) and the codes of rows 1..S-1 (a byte each);
+    S = 1 + 8k, at most R8 + 1, so the rows off chip start on an 8-row
+    block.  Over 1..``MAX_WARPS`` warps a block (only ``warps`` if given),
+    the plan takes the most rows on chip, then the most problems resident
+    per SM, then the fewest warps.  A block of more than one warp must
+    still leave every SM a block: a small batch runs in one-warp blocks, as
+    spread out as it can be.
     """
+    forced = lone is not None
+    if not forced:
+        lone = own_mat_bytes is not None and B <= card.sms
+    if lone:
+        plan = None if own_mat_bytes is None else _lone_plan(R8, itemsize, card, own_mat_bytes)
+        if plan is not None:
+            return plan
+        if forced:
+            raise ValueError("the lone design runs pair-mode fills with directions and "
+                             "argmax tracking whose columns fit a block's shared memory")
     room = card.smem_per_block - _round16(mat_bytes)
     best = None
     for w in (warps,) if warps else range(1, MAX_WARPS + 1):
@@ -141,14 +183,21 @@ def card_limits(dev) -> CardLimits:
     return _CARDS[idx]
 
 
-def launch_plan(B: int, R8: int, matrix: torch.Tensor) -> FillPlan:
-    """The plan of one launch on ``matrix``'s card: a shared matrix may sit
-    in shared memory when it takes at most half of a block's."""
+def launch_plan(B: int, R8: int, matrix: torch.Tensor, *, pwm: bool = False,
+                dirs: bool = False, track: bool = True, plane: bool = False) -> FillPlan:
+    """The plan of one launch on ``matrix``'s card, for the instance the
+    flags name (PWM mode, direction words, argmax tracking, the score
+    plane): a shared matrix may sit in shared memory when it takes at most
+    half of a block's; the lone design builds pair mode with directions and
+    argmax tracking, without the plane."""
     card = card_limits(matrix.device)
-    mat_bytes = matrix.numel() * matrix.element_size()
+    itemsize = matrix.element_size()
+    own = (matrix[0].numel() if matrix.dim() == 3 else matrix.numel()) * itemsize
+    mat_bytes = matrix.numel() * itemsize
     if matrix.dim() == 3 or mat_bytes > card.smem_per_block // 2:
         mat_bytes = 0
-    return plan_fill(R8, matrix.element_size(), B, card, mat_bytes)
+    lone = not pwm and dirs and track and not plane
+    return plan_fill(R8, itemsize, B, card, mat_bytes, own_mat_bytes=own if lone else None)
 
 
 _FLOATS = (torch.float32, torch.float64)
@@ -300,7 +349,8 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs,
     dtype = matrix.dtype
     lib = _build.load()
     with torch.cuda.device(dev):
-        plan = launch_plan(B, R8, matrix)
+        plan = launch_plan(B, R8, matrix, pwm=is_pwm, dirs=with_dirs, track=track,
+                           plane=with_plane)
         S = plan.rows_on_chip
         # (R8, B) and (C, B): a warp's 32 problems read 32 neighbouring words;
         # a query row expanded over the batch is broadcast into (C, B) here
@@ -321,6 +371,19 @@ def _launch(q, qlen, t, tlen, matrix, del_, ext, mode, track_argmax, with_dirs,
         plane = (torch.empty((B, C, R8), dtype=dtype, device=dev) if with_plane
                  else None)
         if B == 0:
+            return FillResult(fmax, fy, fx, end, words, plane)
+        if plan.lone:
+            err = lib.dp_fill_lone_launch(
+                qT.data_ptr(), tT.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+                matrix.data_ptr(), matrix[0].numel() if matrix.dim() == 3 else 0,
+                V, B, C, R8, float(del_), float(ext), int(dtype == torch.float64),
+                int(is_global), fmax.data_ptr(), fy.data_ptr(), fx.data_ptr(),
+                end.data_ptr(), words.data_ptr(), int(plan.mat_bytes > 0), plan.smem_bytes,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _build.check(lib, err, "dp_fill")
+            launches.dirs += 1
+            launches.lone += 1
             return FillResult(fmax, fy, fx, end, words, plane)
         err = lib.dp_fill_launch(
             None if is_pwm else qT.data_ptr(), tT.data_ptr(),

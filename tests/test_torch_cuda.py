@@ -129,6 +129,14 @@ def test_launch_counters_count_kernel_launches(dev):
         == (s0 + 1, d0 + 1, w0 + 1)
 
 
+def _thread_design(monkeypatch):
+    """Hold every fill to one thread a problem: ``plan_fill``'s test-only
+    ``lone=False``."""
+    planned = dp_fill.plan_fill
+    monkeypatch.setattr(dp_fill, "plan_fill",
+                        lambda *a, **kw: planned(*a, **{**kw, "lone": False}))
+
+
 def _rows_on_chip_at_most(matrix, B):
     """S of the fill's launch plan for B problems whose columns are too
     tall for the chip."""
@@ -139,10 +147,12 @@ def _rows_on_chip_at_most(matrix, B):
 @pytest.mark.parametrize("dirs", [False, True], ids=["scores", "dirs"])
 @pytest.mark.parametrize("kind", ["local", "global", "pwm-shared", "pwm-batched"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_fill_kernel_around_the_rows_on_chip(dev, dtype, kind, dirs, where):
+def test_fill_kernel_around_the_rows_on_chip(dev, monkeypatch, dtype, kind, dirs, where):
     """Columns of R8 = S - 1 + where rows: one 8-row block short of the
     most the chip holds, exactly that (S = R8 + 1), and one block more
-    (rows S..R8 in the device buffer)."""
+    (rows S..R8 in the device buffer).  One thread a problem: 40 pair
+    problems with directions would take the lone design."""
+    _thread_design(monkeypatch)
     B, C = 40, 5
     rng = np.random.default_rng(11)
     if kind.startswith("pwm"):
@@ -246,6 +256,165 @@ def test_fill_kernel_takes_at_most_256_symbols(dev):
     q, ql, t, tl = _batch(13, 8, 4, 4, True, dev)
     with pytest.raises(ValueError, match="at most 256"):
         dp_fill.fill(q, ql, t, tl, torch.zeros((300, 300), device=dev), 11.0, 2.0)
+
+
+def _lone_matrix(kind, B, dev):
+    """The search's f32 BLOSUM62, in f64, and the population's f64 matrix a
+    problem."""
+    if kind == "f64-each":
+        rng = np.random.default_rng(B)
+        return torch.as_tensor(rng.normal(0.0, 3.0, (B, V, V)), device=dev)
+    dtype = torch.float32 if kind == "f32" else torch.float64
+    return torch.as_tensor(np.array(blosum62()), dtype=dtype, device=dev)
+
+
+def _lone_against_both(monkeypatch, q, ql, t, tl, m, del_, ext, mode):
+    """The fill on the lone design (one launch of it) equal to the same fill
+    on one thread a problem and to the plain version, bit for bit."""
+    kw = dict(mode=mode, with_dirs=True)
+    lone = dp_fill.launches.lone
+    got = dp_fill.fill(q, ql, t, tl, m, del_, ext, **kw)
+    torch.cuda.synchronize()
+    assert dp_fill.launches.lone == lone + 1
+    with monkeypatch.context() as mp:
+        _thread_design(mp)
+        thread = dp_fill.fill(q, ql, t, tl, m, del_, ext, **kw)
+        torch.cuda.synchronize()
+    assert dp_fill.launches.lone == lone + 1
+    _equal(got, thread)
+    _equal(got, fill_batch(q, ql, t, tl, m, del_, ext, **kw))
+
+
+@pytest.mark.parametrize("matrix", ["f32", "f64", "f64-each"])
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("B", [1, 10, 64, 132])
+def test_lone_design_is_the_thread_design_and_the_plain_fill(dev, monkeypatch, B, mode,
+                                                            matrix):
+    """Ragged problems (rows not a multiple of 8), one of them whole."""
+    q, ql, t, tl = _batch(40 + B, B, 45, 61, False, dev)
+    ql[0], tl[0] = 45, 61
+    _lone_against_both(monkeypatch, q, ql, t, tl, _lone_matrix(matrix, B, dev), 11.0, 2.0,
+                       mode)
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_lone_design_at_the_top_10s_height(dev, monkeypatch, mode):
+    """Ten targets of up to 2,000 residues, the tallest whole, as the
+    search's top 10 has them."""
+    q, ql, t, tl = _batch(50, 10, 40, 2_000, False, dev)
+    ql[:] = 40
+    tl[3] = 2_000
+    _lone_against_both(monkeypatch, q, ql, t, tl, _lone_matrix("f32", 10, dev), 11.0, 2.0,
+                       mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_lone_design_on_ties_and_zero_columns(dev, monkeypatch, mode, dtype):
+    """A matrix of -1, 0 and 1 whose symbol 0 scores 0 against all, queries
+    that start with three 0s, penalties 1 and 1: tied directions and maxima,
+    and local columns that hold 0 alone."""
+    rng = np.random.default_rng(51)
+    q, ql, t, tl = _batch(52, 10, 30, 27, False, dev)
+    q[:, :3] = 0
+    m = rng.integers(-1, 2, (V, V)).astype(np.float64)
+    m[:, 0] = 0.0
+    _lone_against_both(monkeypatch, q, ql, t, tl, torch.as_tensor(m, dtype=dtype, device=dev),
+                       1.0, 1.0, mode)
+
+
+def test_lone_launches_are_counted(dev):
+    """``launches.lone`` counts the pair-mode fills with directions and
+    argmax tracking of at most one problem an SM, and nothing else."""
+    m = torch.as_tensor(np.array(blosum62()), dtype=torch.float32, device=dev)
+    pwm = torch.as_tensor(np.random.default_rng(0).normal(0.0, 3.0, (4, 30)), device=dev)
+    sms = dp_fill.card_limits(dev).sms
+
+    def lone_after(fn):
+        before = dp_fill.launches.lone, dp_fill.launches.dirs
+        fn()
+        torch.cuda.synchronize()
+        return dp_fill.launches.lone - before[0], dp_fill.launches.dirs - before[1]
+
+    def pair(B, **kw):
+        q, ql, t, tl = _batch(60, B, 20, 20, False, dev)
+        return lambda: dp_fill.fill(q, ql, t, tl, m, 11.0, 2.0, **kw)
+
+    assert lone_after(pair(sms, with_dirs=True)) == (1, 1)
+    assert lone_after(pair(10, mode="global", with_dirs=True)) == (1, 1)
+    assert lone_after(pair(sms + 1, with_dirs=True)) == (0, 1)
+    assert lone_after(pair(10, with_dirs=True, track_argmax=False)) == (0, 1)
+    assert lone_after(pair(10, with_dirs=True, with_scores_plane=True)) == (0, 1)
+    assert lone_after(pair(10)) == (0, 0)
+    q = torch.as_tensor(np.random.default_rng(1).integers(0, 4, (10, 24)), dtype=torch.int32,
+                        device=dev)
+    ql = torch.full((10,), 24, dtype=torch.int32, device=dev)
+    assert lone_after(lambda: dp_fill.fill_pwm(q, ql, pwm, 3.0, 1.0, with_dirs=True)) \
+        == (0, 0)
+    rng = np.random.default_rng(2)
+    qs = [rng.integers(0, V, 50).astype(np.int8) for _ in range(10)]
+    assert lone_after(lambda: port.batch_align(qs, qs, blosum62(), 11.0, 2.0, device=dev,
+                                               with_alignments=True)) == (1, 1)
+
+
+def test_search_top_10_on_the_lone_design_is_todays(dev, monkeypatch):
+    """A search's hits with alignments, its top 10 filled by the lone
+    design (one launch), equal to the same search on one thread a
+    problem."""
+    from aligner_tpu_torch import search
+
+    rng = np.random.default_rng(27)
+    lens = list(rng.integers(30, 400, 2000))
+    db = [rng.integers(0, 20, int(n)).astype(np.int8) for n in lens]
+    q = rng.integers(0, 20, 600).astype(np.int8)
+    for i, w in ((100, 600), (200, 300), (300, 450)):
+        db[i] = q[600 - w:].copy()
+        db[i][rng.integers(0, w, w // 10)] = rng.integers(0, 20, w // 10)
+
+    def hits():
+        monkeypatch.setattr(search, "_resident", search._Resident())
+        lone = dp_fill.launches.lone
+        found = port.search_database(q, db, blosum62(), 11.0, 2.0, k=10, device=dev)
+        return [(h.index, h.score, h.coords, h.query_aligned.tolist(),
+                 h.target_aligned.tolist()) for h in found], dp_fill.launches.lone - lone
+
+    got, lone = hits()
+    assert lone == 1 and len(got) == 10 and {100, 200, 300} <= {h[0] for h in got}
+    with monkeypatch.context() as mp:
+        _thread_design(mp)
+        want, lone = hits()
+    assert lone == 0 and got == want
+
+
+def test_population_on_the_lone_design_is_todays(dev, monkeypatch):
+    """One population task of 64 members: every fill with directions, an
+    iteration's and the final alignments', takes the lone design, and the
+    members equal those of the same task on one thread a problem."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(0, 24, 120).astype(np.int8)
+    t = q.copy()
+    t[rng.integers(1, 120, 25)] = rng.integers(0, 24, 25)
+    mats = rng.integers(-2, 3, (64, 24, 24)).astype(np.float64)
+    freqs = rng.random(24)
+    freqs /= freqs.sum()
+    h = port.Heuristics(kd=0.0, r_squared=1e5, frequencies=freqs)
+    port.warmup_population(q, t, 64, 11.0, 1.0)
+    before = dp_fill.launches.lone, dp_fill.launches.dirs
+    got = port.heuristic_align_population(q, t, mats, 11.0, 1.0, h)
+    lone, dirs = dp_fill.launches.lone - before[0], dp_fill.launches.dirs - before[1]
+    assert lone == dirs >= 2
+    with monkeypatch.context() as mp:
+        _thread_design(mp)
+        want = port.heuristic_align_population(q, t, mats, 11.0, 1.0, h)
+    assert dp_fill.launches.lone - before[0] == lone
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.alignment.f == b.alignment.f
+            assert np.array_equal(a.alignment.query, b.alignment.query)
+            assert np.array_equal(a.alignment.target, b.alignment.target)
+            assert a.alignment.coords == b.alignment.coords
+            assert np.array_equal(a.matrix, b.matrix)
 
 
 def _pwm_batch(seed, B, R, W, batched, integral, dev):

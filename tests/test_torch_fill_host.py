@@ -10,7 +10,12 @@ plane; columns spilled past the rows held on chip (S < R8 + 1, a small
 card's plan); per-problem matrices; blocks of several warps with the
 matrix in shared memory; PWM mode with shared and per-problem PWMs.  A
 fault written into the plane's store (``MUTATIONS``) must be caught.  The
-card's own launch is the card tests' part (``tests/test_torch_cuda.py``)."""
+lone design (``dp_fill_kernel_lone``) as the kernel runs it and with its
+chain and companion steps in turn, column by column, against the same
+plain version: local and global, f32 and f64, ragged lengths, ties, an
+all-zero local column, shared and per-problem matrices, and its faults
+(``LONE_MUTATIONS``).  The card's own launch is the card tests' part
+(``tests/test_torch_cuda.py``)."""
 
 import ctypes
 import os
@@ -38,6 +43,16 @@ MUTATIONS = {
     "plane rows reversed": ("for (int j = 0; j < 8; ++j) p[j] = out[j];",
                             "for (int j = 0; j < 8; ++j) p[j] = out[7 - j];"),
 }
+# faults in the lone design's companion
+LONE_MUTATIONS = {
+    "a tie in a column goes to the higher row": (
+        "if (v > best || (v == best && r < brow)) {",
+        "if (v > best || (v == best && r > brow)) {"),
+    "row 1 reads the penalty of (1, 1) in every column": (
+        "                p = (x == 1) ? del\n",
+        "                p = (x >= 1) ? del\n"),
+    "the end value one row short": ("ev = nb[tl - 1];", "ev = nb[tl > 1 ? tl - 2 : 0];"),
+}
 
 
 def _compile(out_dir, core=None):
@@ -58,6 +73,9 @@ def _compile(out_dir, core=None):
     lib.dp_fill_host.argtypes = [p, p, p, p, p, i64, i, i, i, i, f64, f64, i, i, i, i, i,
                                  p, p, p, p, p, p, p, i, i, i, i]
     lib.dp_fill_host.restype = i
+    lib.dp_fill_lone_host.argtypes = [p, p, p, p, p, i64, i, i, i, i, f64, f64, i, i,
+                                      p, p, p, p, p, i, i, i]
+    lib.dp_fill_lone_host.restype = i
     return lib
 
 
@@ -100,6 +118,33 @@ def host_fill(lib, q, qlen, t, tlen, mat, del_, ext, *, mode, track=True, dirs=F
         ptr(words), ptr(pl), p.threads, S, int(p.mat_bytes > 0), p.smem_bytes)
     assert err == 0
     return (*out, words, pl), S
+
+
+def host_lone(lib, q, qlen, t, tlen, mat, del_, ext, *, mode, in_turn, smem_mat=True):
+    """One run of the host build of the lone design, laid out as
+    ``ops/dp_fill._launch`` lays out its launch: the kernel (``in_turn``
+    False) or its steps in turn; returns (fmax, fy, fx, end, words)."""
+    B, R = t.shape
+    C = q.shape[1]
+    R8 = round8(R)
+    V = mat.shape[-1]
+    own = (mat[0].numel() if mat.dim() == 3 else mat.numel()) * mat.element_size()
+    p = plan_fill(R8, mat.element_size(), B, H100, 0, own_mat_bytes=own if smem_mat else 0,
+                  lone=True)
+    assert p.lone and p.threads == 64 and p.mat_bytes == (own if smem_mat else 0)
+    tT = torch.zeros((R8, B), dtype=torch.int32)
+    tT[:R] = t.T
+    qT = q.T.contiguous()
+    out = [torch.full((B,), -1.0, dtype=mat.dtype), torch.full((B,), -1, dtype=torch.int32),
+           torch.full((B,), -1, dtype=torch.int32), torch.full((B,), -1.0, dtype=mat.dtype)]
+    words = torch.full((B, R8 // 8, C), -1, dtype=torch.int32)
+    err = lib.dp_fill_lone_host(
+        qT.data_ptr(), tT.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), mat.data_ptr(),
+        mat[0].numel() if mat.dim() == 3 else 0, V, B, C, R8, float(del_), float(ext),
+        int(mat.dtype == torch.float64), int(mode == "global"), *(o.data_ptr() for o in out),
+        words.data_ptr(), int(p.mat_bytes > 0), p.smem_bytes, int(in_turn))
+    assert err == 0
+    return (*out, words)
 
 
 def plain_fill(q, qlen, t, tlen, mat, del_, ext, *, mode, track=True, dirs=False,
@@ -246,3 +291,85 @@ def test_a_fault_in_the_plane_store_is_caught(tmp_path, name):
     want = plain_fill(q, ql, t, tl, m, 11.0, 1.0, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
     assert not torch.equal(got[5], want[5])
+
+
+def tie_batch(rng, B, C, R):
+    """Ragged problems on a matrix of -1, 0 and 1 whose symbol 0 scores 0
+    against every symbol, and queries that start with three 0s: with
+    penalties 1 and 1 many cells tie in their directions and many columns
+    in their maxima, and a local fill's first three columns hold 0 alone."""
+    q, ql, t, tl = ragged(rng, B, C, R, V=5)
+    q[:, :3] = 0
+    m = rng.integers(-1, 2, (5, 5)).astype(np.float64)
+    m[:, 0] = 0.0
+    return q, ql, t, tl, m
+
+
+SCHEDULES = ["kernel", "in-turn"]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_lone_body_on_a_ragged_batch(host, dtype, mode, schedule):
+    """tl < R8 and ql < C, rows not a multiple of 8 (R = 37), empty
+    problems, the shared matrix in shared memory."""
+    rng = np.random.default_rng(31 + int(dtype == torch.float64) + 2 * (mode == "global"))
+    q, ql, t, tl = ragged(rng, 19, 21, 37)
+    m = torch.as_tensor(np.array(blosum62()), dtype=dtype)
+    got = host_lone(host, q, ql, t, tl, m, 11.0, 1.0, mode=mode,
+                    in_turn=schedule == "in-turn")
+    assert_same(got, plain_fill(q, ql, t, tl, m, 11.0, 1.0, mode=mode, dirs=True)[:5])
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_lone_body_with_ties_and_a_zero_column(host, dtype, mode, schedule):
+    rng = np.random.default_rng(41 + int(dtype == torch.float64) + 2 * (mode == "global"))
+    q, ql, t, tl, m = tie_batch(rng, 23, 17, 30)
+    m = torch.as_tensor(m, dtype=dtype)
+    want = plain_fill(q, ql, t, tl, m, 1.0, 1.0, mode=mode, dirs=True)[:5]
+    if mode == "local":
+        # column 1 of the problem that fills its plane holds 0 alone: every word BEG
+        assert torch.all(want[4][2, :, 0] == 0xFFFF)
+    got = host_lone(host, q, ql, t, tl, m, 1.0, 1.0, mode=mode, in_turn=schedule == "in-turn")
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("smem_mat", [True, False], ids=["smem", "l1"])
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_lone_body_with_per_problem_matrices(host, mode, schedule, smem_mat):
+    """The population's case: each problem's own f64 (V, V) matrix, copied
+    to shared memory or read where it lies."""
+    rng = np.random.default_rng(51 + 2 * (mode == "global") + int(smem_mat))
+    q, ql, t, tl = ragged(rng, 13, 16, 29)
+    mats = torch.as_tensor(rng.normal(0.0, 3.0, (13, 24, 24)))
+    got = host_lone(host, q, ql, t, tl, mats, 3.5, 1.25, mode=mode,
+                    in_turn=schedule == "in-turn", smem_mat=smem_mat)
+    assert_same(got, plain_fill(q, ql, t, tl, mats, 3.5, 1.25, mode=mode, dirs=True)[:5])
+
+
+def test_lone_body_with_a_shared_matrix_read_where_it_lies(host):
+    rng = np.random.default_rng(61)
+    q, ql, t, tl = ragged(rng, 9, 12, 43)
+    m = torch.as_tensor(np.array(blosum62()), dtype=torch.float32)
+    got = host_lone(host, q, ql, t, tl, m, 10.0, 1.0, mode="local", in_turn=False,
+                    smem_mat=False)
+    assert_same(got, plain_fill(q, ql, t, tl, m, 10.0, 1.0, mode="local", dirs=True)[:5])
+
+
+@pytest.mark.parametrize("name", list(LONE_MUTATIONS))
+def test_a_fault_in_the_lone_companion_is_caught(tmp_path, name):
+    with open(os.path.join(CSRC, "dp_fill_core.cuh")) as fh:
+        core = fh.read()
+    old, new = LONE_MUTATIONS[name]
+    assert core.count(old) == 1, f"the anchor of {name!r} is not in the body once"
+    lib = _compile(tmp_path, core.replace(old, new))
+    rng = np.random.default_rng(71)
+    q, ql, t, tl, m = tie_batch(rng, 11, 14, 20)
+    m = torch.as_tensor(m, dtype=torch.float64)
+    got = host_lone(lib, q, ql, t, tl, m, 2.0, 1.0, mode="local", in_turn=False)
+    want = plain_fill(q, ql, t, tl, m, 2.0, 1.0, mode="local", dirs=True)[:5]
+    assert not all(torch.equal(a, b) for a, b in zip(got, want))

@@ -3,8 +3,11 @@ pure arithmetic held on the CPU: what fits in a block's shared memory, the
 rows of each column kept on chip, how a batch spreads over the SMs, and
 where ``launch_plan`` puts the matrix.  The numbers are an H100 SXM's (132
 SMs, 227 KB of shared memory a block, 228 KB an SM, 1 KB kept by the
-runtime for each block).  Also the variants of ``ops/fill_probe.py``:
-each still applies to the kernel's source, and its forced plans."""
+runtime for each block).  Which launches take the lone design: the
+pair-mode fills with directions and argmax tracking of at most one
+problem an SM, never PWM mode, the plane or scores only.  Also the
+variants of ``ops/fill_probe.py``: each still applies to the kernel's
+source, and its forced plans."""
 
 import pytest
 import torch
@@ -169,3 +172,94 @@ def test_fill_probe_forces_the_warps_of_the_wrappers_plan(monkeypatch, warps):
     forced = fill_probe._forced(warps, lambda: dp_fill.launch_plan(65_536, 336, pwm))()
     assert forced == plan_fill(336, 8, 65_536, H100, 4 * 300 * 8, warps=warps)
     assert dp_fill.launch_plan is shipped
+
+
+def _h100(monkeypatch):
+    monkeypatch.setattr(dp_fill, "card_limits", lambda dev: H100)
+
+
+def _matrices(B):
+    """The search's shared f32 BLOSUM62 and the population's per-problem
+    f64 matrices."""
+    return [torch.zeros((24, 24), dtype=torch.float32),
+            torch.zeros((B, 24, 24), dtype=torch.float64)]
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("B", [1, 10, 64, 132])
+def test_a_small_pair_fill_with_directions_takes_the_lone_design(monkeypatch, B, mode):
+    """A block a problem: the problem's matrix, three columns, two score
+    buffers and the row codes in shared memory (global mode always
+    tracks)."""
+    _h100(monkeypatch)
+    for m in _matrices(B):
+        it = m.element_size()
+        p = dp_fill.launch_plan(B, 2_000, m, dirs=True, track=True)
+        assert p.lone and p.threads == dp_fill.LONE_THREADS == 64
+        assert p.rows_on_chip == 2_001 and p.mat_bytes == 24 * 24 * it
+        assert p.smem_bytes == -(-24 * 24 * it // 16) * 16 + 2_000 * (5 * it + 1)
+
+
+@pytest.mark.parametrize("B", [133, 1_024, 4_999, 65_536])
+def test_a_batch_larger_than_the_sms_keeps_one_thread_a_problem(monkeypatch, B):
+    _h100(monkeypatch)
+    for m in _matrices(B):
+        p = dp_fill.launch_plan(B, 344, m, dirs=True, track=True)
+        assert not p.lone
+        assert p == plan_fill(344, m.element_size(), B, H100, p.mat_bytes)
+
+
+INSTANCES = {
+    "pwm-dirs": dict(pwm=True, dirs=True),
+    "pwm-plane": dict(pwm=True, dirs=True, plane=True),
+    "plane": dict(dirs=True, plane=True),
+    "scores": dict(dirs=False),
+    "scores-no-argmax": dict(dirs=False, track=False),
+    "dirs-no-argmax": dict(dirs=True, track=False),
+}
+
+
+@pytest.mark.parametrize("instance", list(INSTANCES))
+@pytest.mark.parametrize("B", [1, 10, 64, 132])
+def test_other_instances_never_take_the_lone_design(monkeypatch, B, instance):
+    _h100(monkeypatch)
+    kw = INSTANCES[instance]
+    m = torch.zeros((4, 300), dtype=torch.float64) if kw.get("pwm") else _matrices(B)[0]
+    assert not dp_fill.launch_plan(B, 336, m, **kw).lone
+
+
+def test_columns_too_tall_for_the_lone_design_keep_one_thread_a_problem(monkeypatch):
+    """Five f64 values and a code a row: 5,700 rows do not fit a block."""
+    _h100(monkeypatch)
+    m = torch.zeros((24, 24), dtype=torch.float64)
+    assert dp_fill.launch_plan(10, 5_600, m, dirs=True).lone
+    p = dp_fill.launch_plan(10, 5_704, m, dirs=True)
+    assert not p.lone and p.rows_on_chip < 5_705
+    with pytest.raises(ValueError, match="lone design"):
+        plan_fill(5_704, 8, 10, H100, 0, own_mat_bytes=24 * 24 * 8, lone=True)
+
+
+def test_a_large_matrix_is_read_where_it_lies(monkeypatch):
+    """A 256-symbol f64 matrix (512 KB) leaves the columns the block."""
+    _h100(monkeypatch)
+    p = dp_fill.launch_plan(10, 2_000, torch.zeros((256, 256), dtype=torch.float64), dirs=True)
+    assert p.lone and p.mat_bytes == 0 and p.smem_bytes == 2_000 * 41
+
+
+def test_the_design_can_be_forced_either_way():
+    own = 24 * 24 * 4
+    assert not plan_fill(2_000, 4, 10, H100, own, own_mat_bytes=own, lone=False).lone
+    assert plan_fill(2_000, 4, 5_000, H100, own, own_mat_bytes=own, lone=True).lone
+    with pytest.raises(ValueError, match="lone design"):
+        plan_fill(2_000, 4, 10, H100, own, lone=True)
+
+
+def test_fill_probe_forces_the_design_of_the_wrappers_plan(monkeypatch):
+    """The probe's thread-a-problem twin of a lone launch; the wrapper's
+    own plan is back afterwards."""
+    _h100(monkeypatch)
+    m = torch.zeros((24, 24), dtype=torch.float32)
+    shipped = dp_fill.plan_fill
+    thread = fill_probe._design(False, lambda: dp_fill.launch_plan(10, 2_000, m, dirs=True))()
+    assert not thread.lone and dp_fill.launch_plan(10, 2_000, m, dirs=True).lone
+    assert dp_fill.plan_fill is shipped

@@ -146,6 +146,8 @@ def test_one_request_one_root_and_the_tree(entry):
     }[entry]
     assert set(names) == expect
     assert names["fill"] == names["fill.upload"] == names["fill.launch"]
+    # the plain fill launches no kernel, so none of the lone design
+    assert all(s.counts["lone"] == 0 for s in log if s.name == "fill")
     # a batch under the search itself is the score pass's one wait and read
     joins = [s for s in log if s.name == "batch" and by_id[s.parent].name == "search"]
     syncs = [s for s in log if s.name == "fill.sync"]

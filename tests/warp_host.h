@@ -16,6 +16,7 @@
 #include <chrono>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <deque>
 #include <memory>
 #include <thread>
@@ -33,6 +34,7 @@ struct Dim3 {
 struct WarpCtx {
     std::barrier<> bar{32};
     int slot[32] = {};
+    long long wide[32] = {};
 };
 // A block's shared memory, its `ints` followed by a guard of SMEM_GUARD
 // ints that no kernel may touch: a write past a launch's shared memory,
@@ -71,6 +73,20 @@ inline int __shfl_sync(unsigned, int v, int src) { return exchange(v, src); }
 inline int __shfl_up_sync(unsigned, int v, unsigned d) {
     const int l = lane_id();
     return exchange(v, l >= int(d) ? l - int(d) : l);
+}
+// of any type of at most 8 bytes (int, float, double)
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
+    static_assert(sizeof(T) <= sizeof(long long));
+    long long bits = 0;
+    std::memcpy(&bits, &v, sizeof(T));
+    warp_ctx->wide[lane_id()] = bits;
+    __syncwarp();
+    bits = warp_ctx->wide[lane_id() ^ mask];
+    __syncwarp();
+    T r;
+    std::memcpy(&r, &bits, sizeof(T));
+    return r;
 }
 inline int __all_sync(unsigned, int pred) {
     warp_ctx->slot[lane_id()] = pred != 0;
